@@ -1,0 +1,465 @@
+#!/usr/bin/env python3
+"""Bring-up check of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its wall time and raising on failure:
+
+1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
+2. build: compiles the port's CUDA kernels from ``csrc/`` with nvcc;
+3. kernels: each kernel against its plain PyTorch version at the main
+   path's shapes, in the main path's types, with CUDA-event times of the
+   kernel, the plain version and a library yardstick, and its bound;
+4. reference: the port's rollout on the card against the same rollout on
+   the CPU (plain versions) on a small input with the bundled weights;
+5. main path: ``neat_illusion`` for two generations at the full width of the
+   bundled color predictor (3,48,96,192), 160x120, the ``circles`` preset;
+   asserts the kernel launch counts, finite fitness, two generations;
+6. load: two generations at the ``default_color`` run preset's shape
+   (CirclesFree, 320x240, pop 40, repeat 5).
+
+Then one JSON line with every kernel's numbers, and as the last line
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+without a card or without the port beside it.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+WATCHDOG_S = 1000  # the whole run, build included, must end well inside this
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
+# outside the tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# main path shapes: chunk of 8 candidates at 160x120, channels 3,48,96,192
+MAIN_BATCH = 8
+GATES_SHAPE = (MAIN_BATCH, 120, 160, 3)  # layer 0: (B, H, W, C)
+MULTI_LAYERS = (  # (H, W, C, source channels [E, R, up(R_above)])
+    (60, 80, 48, (96, 48, 96)),
+    (30, 40, 96, (192, 96, 192)),
+    (15, 20, 192, (384, 192)),
+)
+SINGLE_LAYER = (60, 80, 48, (240,))  # layer 1's concatenated input
+STEPS = 22  # 20 open-loop + 2 closed-loop steps per chunk
+
+# kernel vs plain version, both at bf16 inputs with float32 sums:
+GATES_TOL = 1e-5  # float32 elementwise math, last-ulp differences
+H_TOL = 1e-2  # bfloat16 h: one rounding flip is 2**-8 at |h| < 1
+C_TOL = 1e-3  # float32 c after sums of up to 9 * 576 products
+# The port on the card vs on the CPU (bf16 params, state and compute).
+# One step from a nonzero state: float32 sums taken in another order flip
+# the bfloat16 rounding of a few elements by one ulp (2**-8 relative, so
+# 7.8e-3 at |x| < 4); a wrong kernel differs nearly everywhere.
+STEP_ATOL = 1.6e-2
+STEP_DIFF_SHARE = 0.01
+# 22 steps: the recurrence amplifies those one-ulp flips step after step,
+# so the rollout is held only in the mean; the phase prints, beside it, how
+# far the CPU drifts from itself when only the order of the fused layers'
+# float32 sums changes.
+ROLLOUT_MEAN_TOL = 2e-2
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def phase(name):
+    def wrap(fn):
+        def run(*a, **kw):
+            t0 = time.time()
+            out = fn(*a, **kw)
+            log(f"[{name}] {time.time() - t0:.2f} s")
+            return out
+        return run
+    return wrap
+
+
+def cuda_ms(fn, iters, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@phase("device")
+def check_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"devices {torch.cuda.device_count()}")
+    # float32 convs and matmuls in full float32 wherever the plain versions
+    # are compared (cuDNN would otherwise use TF32 for float32 convs)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@phase("build")
+def build():
+    from evolutionary_illusion_generator_tpu_torch import _build
+
+    _build.library()
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line:
+            log("  ptxas: " + line.strip())
+
+
+def _layer_inputs(gen, params, layer, H, W, cins):
+    """Sources, kernel weights, bias and c_prev at one layer's shape, with
+    the bundled weights of that layer."""
+    import torch
+
+    p = params[layer]
+    C = p["ahat_w"].shape[0]
+    srcs = [torch.rand(MAIN_BATCH, H, W, ci, device="cuda", generator=gen)
+            .mul_(2).sub_(1).bfloat16() for ci in cins]
+    wks = [p[k] for k in ("lstm_k_e", "lstm_k_r", "lstm_k_up") if k in p]
+    if len(cins) == 1:  # the single-source kernel takes the whole gate kernel
+        wks = [torch.cat(wks, dim=0)]
+    c_prev = torch.randn(MAIN_BATCH, H, W, C, device="cuda", generator=gen).bfloat16()
+    return srcs, wks, p["lstm_b"], c_prev
+
+
+def _gate_flops(H, W, cins, C):
+    return 2.0 * MAIN_BATCH * H * W * 9 * sum(cins) * 4 * C
+
+
+@phase("kernels")
+def check_kernels(params):
+    import torch
+    import torch.nn.functional as F
+
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+
+    # ---- fused_lstm_gates at layer 0: (8, 120, 160, 3), bf16 state
+    B, H, W, C = GATES_SHAPE
+    gates = torch.randn(B, H, W, 4 * C, device="cuda", generator=gen).mul_(2)
+    c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).bfloat16()
+    h, c = cg.fused_lstm_gates(gates, c_prev)
+    h_p, c_p = cg.lstm_gates_plain(gates, c_prev)
+    torch.cuda.synchronize()
+    err = max((h - h_p).abs().max().item(), (c - c_p).abs().max().item())
+    if not err <= GATES_TOL:
+        raise AssertionError(f"fused_lstm_gates: max abs err {err} > {GATES_TOL}")
+
+    def eager_gates():  # the yardstick: eager torch gate math
+        i, f, o, g = gates.split(C, dim=-1)
+        cc = torch.sigmoid(f) * c_prev.float() + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(cc), cc
+
+    # ~10 float32 operations per element (3 sigmoid, 2 tanh, 3 mul, 1 add)
+    b_ms, b_by = bound_ms(10.0 * B * H * W * C, nbytes(gates, c_prev, h, c),
+                          PEAK_F32_FLOPS)
+    results["fused_lstm_gates"] = dict(
+        route="cuda",
+        source="evolutionary_illusion_generator_tpu_torch/csrc/lstm_gates.cu",
+        replaces="evolutionary_illusion_generator_tpu/ops/convlstm_pallas.py:57",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: cg.fused_lstm_gates(gates, c_prev), 200),
+        plain_ms=cuda_ms(lambda: cg.lstm_gates_plain(gates, c_prev), 200),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(eager_gates, 200),
+    )
+
+    def conv_case(name, wrapper, shapes, source, replaces):
+        err = 0.0
+        ms = plain_ms = lib_ms = b_total = ops_total = bytes_total = 0.0
+        for layer, (H, W, C, cins) in shapes:
+            srcs, wks, b, c_prev = _layer_inputs(gen, params, layer, H, W, cins)
+            call = (lambda: wrapper(srcs, wks, b, c_prev)) if len(cins) > 1 else (
+                lambda: wrapper(srcs[0], wks[0], b, c_prev))
+            h, c = call()
+            h_p, c_p = cf.convlstm_layer_plain(srcs, wks, b, c_prev)
+            torch.cuda.synchronize()
+            eh = (h.float() - h_p.float()).abs().max().item()
+            ec = (c - c_p).abs().max().item()
+            if not (eh <= H_TOL and ec <= C_TOL):
+                raise AssertionError(f"{name} layer {layer}: max abs err h {eh} c {ec}")
+            err = max(err, eh, ec)
+            w_oihw = torch.cat([cf.unpack_gate_weight(wk) for wk in wks], dim=1).contiguous()
+            w_cl = w_oihw.to(memory_format=torch.channels_last)
+
+            def library():  # cuDNN bf16 conv over the concatenated sources + eager gates
+                x = torch.cat(srcs, dim=-1).permute(0, 3, 1, 2)
+                gates = F.conv2d(x, w_cl, padding=1).permute(0, 2, 3, 1).float() + b.float()
+                i, f, o, g = gates.split(C, dim=-1)
+                cc = torch.sigmoid(f) * c_prev.float() + torch.sigmoid(i) * torch.tanh(g)
+                return (torch.sigmoid(o) * torch.tanh(cc)).bfloat16(), cc
+
+            ms += cuda_ms(call, 50)
+            plain_ms += cuda_ms(lambda: cf.convlstm_layer_plain(srcs, wks, b, c_prev), 20)
+            lib_ms += cuda_ms(library, 50)
+            flops = _gate_flops(H, W, cins, C)
+            moved = nbytes(*srcs, *wks, b, c_prev, h, c)
+            ops_total += flops / PEAK_BF16_FLOPS * 1e3
+            bytes_total += moved / PEAK_BYTES_PER_S * 1e3
+            b_total += bound_ms(flops, moved)[0]
+            log(f"  {name} layer {layer} {MAIN_BATCH}x{H}x{W} C={C} sources {cins}: "
+                f"err {max(eh, ec):.2e}")
+        results[name] = dict(
+            route="cuda", source=source, replaces=replaces, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_total,
+            bound_by="operations" if ops_total >= bytes_total else "bytes",
+            library_ms=lib_ms,
+        )
+
+    fused_src = "evolutionary_illusion_generator_tpu_torch/csrc/convlstm_fused.cu"
+    conv_case("fused_convlstm_layer_multi", cf.fused_convlstm_layer_multi,
+              [(l + 1, s) for l, s in enumerate(MULTI_LAYERS)], fused_src,
+              "evolutionary_illusion_generator_tpu/ops/convlstm_fused_pallas.py:188")
+    conv_case("fused_convlstm_layer", cf.fused_convlstm_layer, [(1, SINGLE_LAYER)],
+              fused_src, "evolutionary_illusion_generator_tpu/ops/convlstm_fused_pallas.py:74")
+    for name, r in results.items():
+        log(f"  {name}: err {r['max_abs_err']:.2e} kernel {r['ms']:.4f} ms "
+            f"plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return results
+
+
+@phase("reference")
+def check_reference(params_cuda):
+    """The port on the card (kernels) against the port on the CPU (plain
+    versions) on a small input: 4 noise images 64x48 at full width."""
+    import torch
+    import torch.nn.functional as F
+
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import load_or_init
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
+
+    gen = torch.Generator().manual_seed(1)
+    imgs = (torch.rand(4, 48, 64, 3, generator=gen) * 255).to(torch.uint8).float() / 255
+    params_cpu = load_or_init(None, (3, 48, 96, 192), device="cpu")
+    channels, bf16 = (3, 48, 96, 192), torch.bfloat16
+
+    def rollout(params, device, steps, state=None):
+        state = state or model.init_state(4, 48, 64, channels, dtype=bf16, device=device)
+        preds = []
+        with torch.inference_mode():
+            for _ in range(steps):
+                state, pred = model.prednet_step(params, state, imgs.to(device),
+                                                 compute_dtype=bf16)
+                preds.append(pred)
+        return state, preds
+
+    # one step from the CPU's state after 3 steps
+    state3, _ = rollout(params_cpu, "cpu", 3)
+    ref_state, ref_pred = rollout(params_cpu, "cpu", 1, state3)
+    state3_cuda = [{k: v.cuda() for k, v in layer.items()} for layer in state3]
+    out_state, out_pred = rollout(params_cuda, "cuda", 1, state3_cuda)
+    pairs = [(out_pred[0], ref_pred[0])] + [
+        (o[k], r[k]) for o, r in zip(out_state, ref_state) for k in "rce"]
+    for a, b in pairs:
+        if not (a.shape == b.shape and torch.isfinite(a).all()):
+            raise AssertionError("step outputs not finite or of the wrong shape")
+        d = (a.cpu().float() - b.float()).abs()
+        share = (d > 0).float().mean().item()
+        if not (d.max().item() <= STEP_ATOL and share <= STEP_DIFF_SHARE):
+            raise AssertionError(f"one step on the card disagrees with the CPU: "
+                                 f"max {d.max().item():.3e}, {share:.2%} differ")
+    worst = max((a.cpu().float() - b.float()).abs().max().item() for a, b in pairs)
+    log(f"  one step card vs cpu: max abs {worst:.3e} over prediction and states")
+
+    # 22 steps: card vs CPU, and the CPU against itself with the fused
+    # layers' float32 sums taken over the concatenated sources
+    _, ref = rollout(params_cpu, "cpu", STEPS)
+    _, out = rollout(params_cuda, "cuda", STEPS)
+    plain = cf.convlstm_layer_plain
+
+    def concat_sums(srcs, wks, b, c_prev):
+        x = torch.cat([t.to(bf16).float() for t in srcs], dim=-1).permute(0, 3, 1, 2)
+        w = torch.cat([cf.unpack_gate_weight(wk.float()) for wk in wks], dim=1)
+        gates = F.conv2d(x, w, padding=1).permute(0, 2, 3, 1) + b.float()
+        h, c = cf.lstm_gates_plain(gates, c_prev)
+        return h.to(c_prev.dtype), c
+
+    cf.convlstm_layer_plain = concat_sums
+    try:
+        _, drift = rollout(params_cpu, "cpu", STEPS)
+    finally:
+        cf.convlstm_layer_plain = plain
+    for t in (STEPS - 3, STEPS - 2):  # the population flow pair
+        if not (out[t].shape == ref[t].shape and torch.isfinite(out[t]).all()):
+            raise AssertionError("rollout frames not finite or of the wrong shape")
+        d = (out[t].cpu() - ref[t]).abs()
+        dd = (drift[t] - ref[t]).abs()
+        log(f"  step {t}: card vs cpu max {d.max().item():.3e} mean {d.mean().item():.3e}; "
+            f"cpu reordered sums vs cpu max {dd.max().item():.3e} mean {dd.mean().item():.3e}")
+        if not d.mean().item() <= ROLLOUT_MEAN_TOL:
+            raise AssertionError("rollout on the card disagrees with the CPU")
+
+
+def _reset_counts():
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
+
+    for fn in (cg.fused_lstm_gates, cf.fused_convlstm_layer_multi, cf.fused_convlstm_layer):
+        fn.launches = 0
+
+
+def _counts():
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
+
+    return {
+        "fused_lstm_gates": cg.fused_lstm_gates.launches,
+        "fused_convlstm_layer_multi": cf.fused_convlstm_layer_multi.launches,
+        "fused_convlstm_layer": cf.fused_convlstm_layer.launches,
+    }
+
+
+def run_generations(label, generations, steps, **kwargs):
+    """``neat_illusion`` on the card; checks the launch counts (one chunk
+    per generation), finite fitness and the generation count."""
+    from evolutionary_illusion_generator_tpu_torch.evolution import neat_illusion
+
+    with tempfile.TemporaryDirectory() as out:
+        _reset_counts()
+        pop = neat_illusion(out, None, generations=generations, seed=0,
+                            save_artifacts=False, quiet=True, device="cuda", **kwargs)
+        counts = _counts()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    want = {"fused_lstm_gates": generations * steps,
+            "fused_convlstm_layer_multi": generations * steps * 3,
+            "fused_convlstm_layer": 0}
+    if counts != want:
+        raise AssertionError(f"{label}: kernel launches {counts}, expected {want}")
+    if pop.generation != generations or len(recs) != generations:
+        raise AssertionError(f"{label}: ran {pop.generation} generations")
+    for r in recs:
+        if not all(map(math.isfinite, (r["fitness_mean"], r["fitness_max"],
+                                       r["fitness_std"]))):
+            raise AssertionError(f"{label}: non-finite fitness {r}")
+        log(f"  {label} generation {r['generation']}: pop {r['pop_size']} "
+            f"{r['eval_seconds']:.3f} s fitness max {r['fitness_max']:.5f} "
+            f"mean {r['fitness_mean']:.5f}")
+    log(f"  {label} launches {counts}")
+    return counts, recs
+
+
+@phase("main_path")
+def main_path():
+    from evolutionary_illusion_generator_tpu_torch.structure import StructureType
+
+    counts, recs = run_generations(
+        "main", 2, STEPS, config=None, structure=StructureType.Circles, w=160, h=120,
+        channels=(3, 48, 96, 192), c_dim=3)
+    log(f"  main s/generation (generation 1): {recs[1]['eval_seconds']:.4f}")
+    return counts
+
+
+@phase("default_color")
+def default_color():
+    from evolutionary_illusion_generator_tpu_torch.neat import preset
+    from evolutionary_illusion_generator_tpu_torch.structure import StructureType
+
+    _, recs = run_generations(
+        "default_color", 2, 5 + 2, config=preset("circles").replace(pop_size=40),
+        structure=StructureType.CirclesFree, w=320, h=240, channels=(3, 48, 96, 192),
+        c_dim=3, repeat=5)
+    log(f"  default_color s/generation (generation 1): {recs[1]['eval_seconds']:.4f}")
+
+
+@phase("profile")
+def profile_generation(params):
+    """Device time by kernel over one warm main-path generation (the first
+    population of the ``circles`` preset, one chunk of 8), from
+    torch.profiler; the device busy share is the kernels' summed time over
+    the profiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from evolutionary_illusion_generator_tpu_torch.evolution import (
+        EvalConfig,
+        GenerationEvaluator,
+    )
+    from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
+
+    cfg = preset("circles")
+    items = list(Population(cfg, seed=0).population.items())
+    evaluator = GenerationEvaluator(EvalConfig(), params, cfg, device="cuda")
+    evaluator(items)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        evaluator(items)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"  profiled generation: wall {wall * 1e3:.1f} ms (profiler on), device "
+        f"kernels {busy_us / 1e3:.1f} ms, busy share {busy_us / 1e6 / wall:.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+
+
+def main():
+    watchdog = threading.Timer(WATCHDOG_S, lambda: (log("watchdog: time limit"),
+                                                    os._exit(3)))
+    watchdog.daemon = True
+    watchdog.start()
+    t0 = time.time()
+    check_device()
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import load_or_init
+
+    build()
+    params = load_or_init(None, (3, 48, 96, 192), device="cuda")
+    kernels = check_kernels(params)
+    check_reference(params)
+    counts = main_path()
+    default_color()
+    profile_generation(params)
+    log(f"[total] {time.time() - t0:.1f} s")
+    rows = [dict(name=name, launches=counts[name], **r) for name, r in kernels.items()]
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    watchdog.cancel()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,23 @@
+"""PyTorch/CUDA port of EIGen-TPU for NVIDIA Hopper GPUs.
+
+A second package beside ``evolutionary_illusion_generator_tpu`` (the JAX
+reference, which it never imports).  Plain tensor code is PyTorch; the
+ConvLSTM Pallas kernels of the JAX package are hand-written CUDA kernels
+for ``sm_90a`` (``csrc/``, built with one ``nvcc`` call at first use by
+:mod:`._build`).  On the CPU every kernel wrapper runs its plain PyTorch
+version instead, which is what the tests use.
+
+Subpackages
+-----------
+- ``neat``       host-side NEAT engine (a copy of the reference's)
+- ``models``     CPPN level evaluator and the PredNet predictive coder
+- ``ops``        coordinate grids, rendering, optical flow, fitness metrics,
+                 the CUDA kernel wrappers
+- ``evolution``  the generation evaluator and the ``neat_illusion`` driver
+"""
+
+__version__ = "0.1.0"
+
+from .structure import StructureType
+
+__all__ = ["StructureType", "__version__"]

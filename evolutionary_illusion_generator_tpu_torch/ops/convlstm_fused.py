@@ -1,0 +1,166 @@
+"""Fused ConvLSTM layer update: CUDA kernel and plain version.
+
+The CUDA counterpart of the JAX package's ``ops/convlstm_fused_pallas.py``:
+``fused_convlstm_layer`` (one concatenated source, Pallas body ``_kernel``)
+and ``fused_convlstm_layer_multi`` (separate E / R / upsampled-R_above
+sources, Pallas body ``_kernel_multi``).  Both wrappers here launch the one
+kernel of ``csrc/convlstm_fused.cu``: the 3x3 SAME gate convolution over up
+to three sources, bias, gates and cell update in one pass, each source read
+in place.  It is bound by operations on the H100 (see the note in the
+source); this first version runs the products on the CUDA cores.
+
+Math (the Pallas kernels' contract): bfloat16 sources and weights, float32
+accumulation, float32 gates; ``h`` comes out in ``c_prev``'s dtype and ``c``
+in float32.
+
+Weights are taken in the kernel's layout ``(Cin, 9, C, 4)`` — input
+channel, tap ``ky * 3 + kx``, channel, gate [i, f, o, g] — made once from
+an HWIO ``(3, 3, Cin, 4C)`` gate kernel by :func:`pack_gate_weight`
+(``models/prednet/loader.py`` does so when it loads the weights).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from .convlstm_gates import lstm_gates_plain
+
+__all__ = [
+    "pack_gate_weight",
+    "unpack_gate_weight",
+    "fused_convlstm_layer",
+    "fused_convlstm_layer_multi",
+    "convlstm_layer_plain",
+]
+
+MAX_SOURCES = 3
+
+
+def pack_gate_weight(w_hwio: torch.Tensor) -> torch.Tensor:
+    """HWIO ``(3, 3, Cin, 4C)`` gate kernel (gate-major output channels)
+    -> the kernel's bfloat16 ``(Cin, 9, C, 4)`` layout."""
+    kh, kw, cin, c4 = w_hwio.shape
+    if (kh, kw) != (3, 3) or c4 % 4:
+        raise ValueError(f"need a (3, 3, Cin, 4C) kernel, got {tuple(w_hwio.shape)}")
+    w = w_hwio.float().reshape(3, 3, cin, 4, c4 // 4)  # (ky, kx, ci, gate, c)
+    w = w.permute(2, 0, 1, 4, 3).reshape(cin, 9, c4 // 4, 4)
+    return w.to(torch.bfloat16).contiguous()
+
+
+def unpack_gate_weight(wk: torch.Tensor) -> torch.Tensor:
+    """Kernel layout ``(Cin, 9, C, 4)`` -> OIHW ``(4C, Cin, 3, 3)``."""
+    cin, _, C, _ = wk.shape
+    return wk.reshape(cin, 3, 3, C, 4).permute(4, 3, 0, 1, 2).reshape(4 * C, cin, 3, 3)
+
+
+def convlstm_layer_plain(srcs: Sequence[torch.Tensor], wks: Sequence[torch.Tensor],
+                         b: torch.Tensor, c_prev: torch.Tensor):
+    """Plain PyTorch version: per-source float32 convolutions of the
+    bfloat16-rounded sources and weights (exact products, float32 sums),
+    then the gate math.  Returns (h in ``c_prev``'s dtype, c float32)."""
+    gates = None
+    for x, wk in zip(srcs, wks):
+        xb = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
+        y = F.conv2d(xb, unpack_gate_weight(wk.to(torch.bfloat16).float()), padding=1)
+        gates = y if gates is None else gates + y
+    gates = gates.permute(0, 2, 3, 1) + b.float()
+    h, c = lstm_gates_plain(gates, c_prev)
+    return h.to(c_prev.dtype), c
+
+
+def _check(srcs, wks, b, c_prev) -> None:
+    if not 1 <= len(srcs) <= MAX_SOURCES or len(srcs) != len(wks):
+        raise ValueError(f"need 1..{MAX_SOURCES} sources with one weight each, "
+                         f"got {len(srcs)} and {len(wks)}")
+    if c_prev.dim() != 4:
+        raise ValueError(f"c_prev must be (B, H, W, C), got {tuple(c_prev.shape)}")
+    B, H, W, C = c_prev.shape
+    if tuple(b.shape) != (4 * C,):
+        raise ValueError(f"bias must be ({4 * C},), got {tuple(b.shape)}")
+    for x, wk in zip(srcs, wks):
+        if x.dim() != 4 or tuple(x.shape[:3]) != (B, H, W):
+            raise ValueError(f"source {tuple(x.shape)} does not match c_prev {tuple(c_prev.shape)}")
+        if tuple(wk.shape) != (x.shape[3], 9, C, 4):
+            raise ValueError(
+                f"weight {tuple(wk.shape)} is not the kernel layout "
+                f"({x.shape[3]}, 9, {C}, 4) for source {tuple(x.shape)}"
+            )
+    devices = {t.device for t in (*srcs, *wks, b, c_prev)}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+
+
+def _launch(srcs, wks, b, c_prev, stream: int):
+    """Run ``csrc/convlstm_fused.cu`` on device tensors; returns (h, c)."""
+    for t in (*srcs, *wks):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"sources and weights must be bfloat16, got {t.dtype}")
+    if c_prev.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"c_prev must be float32 or bfloat16, got {c_prev.dtype}")
+    if not all(t.is_contiguous() for t in (*srcs, *wks, c_prev)):
+        raise ValueError("sources, weights and c_prev must be contiguous")
+    bias = b.float().contiguous()
+    h = torch.empty_like(c_prev)
+    c = torch.empty(c_prev.shape, dtype=torch.float32, device=c_prev.device)
+    args = []
+    for s in range(MAX_SOURCES):
+        if s < len(srcs):
+            args += [srcs[s].data_ptr(), wks[s].data_ptr(), srcs[s].shape[3]]
+        else:
+            args += [None, None, 0]
+    B, H, W, C = c_prev.shape
+    rc = _build.library().eigen_convlstm_fused(
+        *args, len(srcs), bias.data_ptr(), c_prev.data_ptr(),
+        int(c_prev.dtype == torch.bfloat16), h.data_ptr(), c.data_ptr(),
+        B, H, W, C, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"convlstm_fused kernel launch failed: CUDA error {rc}")
+    return h, c
+
+
+def _run(srcs, wks, b, c_prev, wrapper):
+    """The kernel on CUDA tensors (counted on ``wrapper``), the plain
+    version on CPU tensors."""
+    _check(srcs, wks, b, c_prev)
+    if c_prev.device.type == "cpu":
+        return convlstm_layer_plain(srcs, wks, b, c_prev)
+    if c_prev.device.type != "cuda":
+        raise ValueError(f"unsupported device {c_prev.device}")
+    out = _launch(srcs, wks, b, c_prev, torch.cuda.current_stream(c_prev.device).cuda_stream)
+    wrapper.launches += 1
+    return out
+
+
+def fused_convlstm_layer_multi(srcs: Sequence[torch.Tensor],
+                               wks: Sequence[torch.Tensor], b: torch.Tensor,
+                               c_prev: torch.Tensor):
+    """ConvLSTM layer update reading each gate-conv source separately.
+
+    Args:
+      srcs: 1..3 NHWC ``(B, H, W, Cin_s)`` bfloat16 sources (E, R,
+        upsampled R_above).
+      wks: their weight slices in the kernel layout ``(Cin_s, 9, C, 4)``.
+      b: ``(4C,)`` bias.
+      c_prev: ``(B, H, W, C)`` previous cell state, float32 or bfloat16.
+    Returns:
+      (h, c): h in ``c_prev``'s dtype, c float32, both ``(B, H, W, C)``.
+    """
+    return _run(srcs, wks, b, c_prev, fused_convlstm_layer_multi)
+
+
+def fused_convlstm_layer(x: torch.Tensor, wk: torch.Tensor, b: torch.Tensor,
+                         c_prev: torch.Tensor):
+    """ConvLSTM layer update from one concatenated input ``x``
+    ``(B, H, W, Cin)`` with the full gate kernel ``wk`` ``(Cin, 9, C, 4)``;
+    otherwise as :func:`fused_convlstm_layer_multi`."""
+    return _run([x], [wk], b, c_prev, fused_convlstm_layer)
+
+
+# kernel launches (not plain-version calls)
+fused_convlstm_layer_multi.launches = 0
+fused_convlstm_layer.launches = 0

@@ -1,0 +1,90 @@
+"""ConvLSTM gate nonlinearities and cell update: CUDA kernel and plain version.
+
+The CUDA counterpart of the JAX package's
+``ops/convlstm_pallas.py::fused_lstm_gates`` (Pallas body ``_gates_kernel``).
+Gate order [i, f, o, g]:
+
+    c = sigmoid(f) * c_prev + sigmoid(i) * tanh(g),   h = sigmoid(o) * tanh(c)
+
+The kernel is ``csrc/lstm_gates.cu``.  It is bound by bytes on the H100:
+one thread per (pixel, channel) reads each operand once and writes h and c
+once (see the note in the source).  On the main path it is the epilogue of
+the narrow pixel layer (C = 3 or 1), after the split gate convolutions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+__all__ = ["fused_lstm_gates", "lstm_gates_plain"]
+
+
+def lstm_gates_plain(gates: torch.Tensor, c_prev: torch.Tensor):
+    """Plain PyTorch version: the same math in float32.
+
+    Args:
+      gates: (B, H, W, 4C) pre-activations.
+      c_prev: (B, H, W, C) previous cell state, any float dtype.
+    Returns:
+      (h, c), both (B, H, W, C) float32.
+    """
+    i, f, o, g = gates.float().split(c_prev.shape[-1], dim=-1)
+    c = torch.sigmoid(f) * c_prev.float() + torch.sigmoid(i) * torch.tanh(g)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h, c
+
+
+def _check(gates: torch.Tensor, c_prev: torch.Tensor) -> None:
+    if gates.dim() != 4 or c_prev.dim() != 4:
+        raise ValueError(f"need NHWC tensors, got {tuple(gates.shape)} and {tuple(c_prev.shape)}")
+    if gates.shape[:3] != c_prev.shape[:3] or gates.shape[3] != 4 * c_prev.shape[3]:
+        raise ValueError(
+            f"gates {tuple(gates.shape)} do not match c_prev {tuple(c_prev.shape)}"
+        )
+    if gates.device != c_prev.device:
+        raise ValueError(f"gates on {gates.device}, c_prev on {c_prev.device}")
+
+
+def _launch(gates: torch.Tensor, c_prev: torch.Tensor, stream: int):
+    """Run ``csrc/lstm_gates.cu`` on device tensors; returns (h, c)."""
+    if gates.dtype != torch.float32:
+        raise TypeError(f"gates must be float32, got {gates.dtype}")
+    if c_prev.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"c_prev must be float32 or bfloat16, got {c_prev.dtype}")
+    if not (gates.is_contiguous() and c_prev.is_contiguous()):
+        raise ValueError("gates and c_prev must be contiguous")
+    h = torch.empty(c_prev.shape, dtype=torch.float32, device=c_prev.device)
+    c = torch.empty_like(h)
+    B, H, W, C = c_prev.shape
+    rc = _build.library().eigen_lstm_gates(
+        gates.data_ptr(), c_prev.data_ptr(), int(c_prev.dtype == torch.bfloat16),
+        h.data_ptr(), c.data_ptr(), B * H * W, C, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"lstm_gates kernel launch failed: CUDA error {rc}")
+    return h, c
+
+
+def fused_lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor):
+    """ConvLSTM cell update; the kernel on a CUDA tensor, the plain version
+    on a CPU tensor.
+
+    Args:
+      gates: (B, H, W, 4C) float32 pre-activations (conv output).
+      c_prev: (B, H, W, C) previous cell state, float32 or bfloat16.
+    Returns:
+      (h, c), both (B, H, W, C) float32.
+    """
+    _check(gates, c_prev)
+    if gates.device.type == "cpu":
+        return lstm_gates_plain(gates, c_prev)
+    if gates.device.type != "cuda":
+        raise ValueError(f"unsupported device {gates.device}")
+    out = _launch(gates, c_prev, torch.cuda.current_stream(gates.device).cuda_stream)
+    fused_lstm_gates.launches += 1
+    return out
+
+
+fused_lstm_gates.launches = 0  # kernel launches (not plain-version calls)

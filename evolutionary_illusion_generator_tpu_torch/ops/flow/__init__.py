@@ -1,0 +1,17 @@
+"""On-device sparse optical flow: Shi-Tomasi corners and pyramidal
+Lucas-Kanade as fixed-K masked tensors, batched over the population."""
+
+from .api import FlowConfig, batched_flow, flow_vectors
+from .corners import shi_tomasi_corners
+from .lk import pyramid_lk
+from .pyramid import build_pyramid, to_gray
+
+__all__ = [
+    "FlowConfig",
+    "batched_flow",
+    "flow_vectors",
+    "shi_tomasi_corners",
+    "pyramid_lk",
+    "build_pyramid",
+    "to_gray",
+]

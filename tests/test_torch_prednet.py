@@ -1,0 +1,157 @@
+"""The port's PredNet and weight loader against the JAX package.
+
+Params are made once in numpy (seeded) or read from the bundled NPZ and
+handed to both frameworks; images come from numpy too.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from evolutionary_illusion_generator_tpu.models.prednet import loader as jax_loader
+from evolutionary_illusion_generator_tpu.models.prednet import model as jm
+from evolutionary_illusion_generator_tpu_torch.models.prednet import loader, model
+from evolutionary_illusion_generator_tpu_torch.ops.convlstm_fused import pack_gate_weight
+
+# the suite runs in several worker processes: one torch thread each keeps
+# them from oversubscribing the cores
+torch.set_num_threads(1)
+
+B, H, W = 2, 40, 48
+
+# float32 params and compute: same math, other summation order (1e-7 measured)
+F32_ATOL = 1e-4
+# bfloat16 params, state and compute.  The narrow layers' gates go through
+# the float32 gate kernel in the port and through bfloat16 gate math on the
+# JAX default path, and every step rounds states to bfloat16 (2**-8 relative)
+# — a handful of rounding flips over the rollout; 2e-3 measured.
+BF16_ATOL = 2e-2
+
+
+def _numpy_params(channels, seed=3):
+    layers = loader.init_params_numpy(channels, seed=seed)
+    rng = np.random.default_rng(seed)
+    for layer in layers:  # nonzero biases so they are exercised too
+        for k in layer:
+            if k.endswith("_b"):
+                layer[k] = rng.normal(0, 0.1, layer[k].shape).astype(np.float32)
+    return layers
+
+
+def _both(layers, dtype):
+    jp = [{k: jnp.asarray(v, getattr(jnp, dtype)) for k, v in l.items()} for l in layers]
+    tp = loader.params_from_numpy(layers, dtype=getattr(torch, dtype), device="cpu")
+    return jp, tp
+
+
+def _images(c0, seed=0):
+    return np.random.default_rng(seed).uniform(0, 1, (B, H, W, c0)).astype(np.float32)
+
+
+def test_params_from_numpy_matches_jax_load_params():
+    path = loader.bundled_weights_path((3, 48, 96, 192))
+    assert path is not None and path == jax_loader.bundled_weights_path((3, 48, 96, 192))
+    jp = jax_loader.load_params(path)
+    tp = loader.load_params(path, device="cpu")
+    assert len(jp) == len(tp) == 4
+    for l, (ja, t) in enumerate(zip(jp, tp)):
+        C = ja["ahat_w"].shape[2]
+        lstm = np.asarray(ja["lstm_w"], np.float32)
+        slices = {"e": lstm[:, :, : 2 * C], "r": lstm[:, :, 2 * C : 3 * C]}
+        if l < 3:
+            slices["up"] = lstm[:, :, 3 * C :]
+        else:
+            assert "lstm_w_up" not in t and "a_w" not in t
+        for name, w in slices.items():
+            np.testing.assert_array_equal(
+                t[f"lstm_w_{name}"].float().numpy(), w.transpose(3, 2, 0, 1))
+            np.testing.assert_array_equal(
+                t[f"lstm_k_{name}"].float().numpy(),
+                pack_gate_weight(torch.as_tensor(w)).float().numpy())
+        for k in ("ahat_w", "a_w"):
+            if k in ja:
+                np.testing.assert_array_equal(
+                    t[k].float().numpy(), np.asarray(ja[k], np.float32).transpose(3, 2, 0, 1))
+        for k in ("lstm_b", "ahat_b", "a_b"):
+            if k in ja:
+                np.testing.assert_array_equal(t[k].float().numpy(), np.asarray(ja[k], np.float32))
+        assert all(v.dtype == torch.bfloat16 for v in t.values())
+
+
+@pytest.mark.parametrize("channels", [(1, 4, 8), (3, 8, 16)])
+def test_prednet_step_f32_matches_jax(channels):
+    jp, tp = _both(_numpy_params(channels), "float32")
+    img = _images(channels[0])
+    js = jm.init_state(B, H, W, channels, dtype=jnp.float32)
+    ts = model.init_state(B, H, W, channels, dtype=torch.float32)
+    jax_step = jax.jit(jm.prednet_step)
+    for _ in range(3):  # past step 1, so c and e are nonzero
+        js, jpred = jax_step(jp, js, jnp.asarray(img))
+        ts, tpred = model.prednet_step(tp, ts, torch.as_tensor(img))
+    np.testing.assert_allclose(tpred.numpy(), np.asarray(jpred), atol=F32_ATOL, rtol=0)
+    for l in range(len(channels)):
+        for k in "rce":
+            np.testing.assert_allclose(ts[l][k].numpy(), np.asarray(js[l][k]),
+                                       atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("pair", ["population", "probe"])
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+def test_rollout_flow_frames_matches_jax(pair, dtype, atol):
+    channels = (3, 8, 16)
+    jp, tp = _both(_numpy_params(channels), dtype)
+    img = _images(channels[0], seed=1)
+    jax_frames = jax.jit(jm.rollout_flow_frames,
+                         static_argnames=("repeat", "extension", "pair", "compute_dtype"))
+    jf = jax_frames(jp, jnp.asarray(img), repeat=4, extension=2, pair=pair,
+                    compute_dtype=getattr(jnp, dtype))
+    tf = model.rollout_flow_frames(tp, torch.as_tensor(img), repeat=4, extension=2,
+                                   pair=pair, compute_dtype=getattr(torch, dtype))
+    for a, b in zip(jf, tf):
+        assert b.dtype == torch.float32 and b.shape == (B, H, W, 3)
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=atol, rtol=0)
+
+
+def test_wide_layer_matches_jax_fused_path():
+    """A C >= 32 layer takes the fused kernel route: the JAX
+    ``use_pallas="fused"`` math (bfloat16 sources and weights, float32
+    sums and gates).  Same sums in another order; bf16 state rounding
+    flips give the measured 3e-4."""
+    channels = (1, 32)
+    jp, tp = _both(_numpy_params(channels, seed=1), "bfloat16")
+    img = np.random.default_rng(2).uniform(0, 1, (2, 16, 24, 1)).astype(np.float32)
+    jax_frames = jax.jit(jm.rollout_flow_frames, static_argnames=(
+        "repeat", "extension", "pair", "use_pallas", "compute_dtype"))
+    jf = jax_frames(jp, jnp.asarray(img), repeat=3, extension=2, pair="probe",
+                    use_pallas="fused", compute_dtype=jnp.bfloat16)
+    tf = model.rollout_flow_frames(tp, torch.as_tensor(img), repeat=3, extension=2,
+                                   pair="probe", compute_dtype=torch.bfloat16)
+    np.testing.assert_allclose(tf[1].numpy(), np.asarray(jf[1]), atol=BF16_ATOL, rtol=0)
+
+
+def test_peephole_layer_keeps_plain_gate_math():
+    channels = (1, 4)
+    layers = _numpy_params(channels)
+    rng = np.random.default_rng(9)
+    for layer, C in zip(layers, channels):
+        for k in ("w_ci", "w_cf", "w_co"):
+            layer[k] = rng.normal(0, 0.5, (C,)).astype(np.float32)
+    jp, tp = _both(layers, "float32")
+    img = _images(1, seed=3)
+    js, ts = jm.init_state(B, H, W, channels, dtype=jnp.float32), model.init_state(
+        B, H, W, channels, dtype=torch.float32)
+    jax_step = jax.jit(jm.prednet_step)
+    for _ in range(2):
+        js, jpred = jax_step(jp, js, jnp.asarray(img))
+        ts, tpred = model.prednet_step(tp, ts, torch.as_tensor(img))
+    np.testing.assert_allclose(tpred.numpy(), np.asarray(jpred), atol=F32_ATOL, rtol=0)
+
+
+def test_load_or_init_without_bundled_weights_is_seeded():
+    a = loader.load_or_init(None, (1, 4, 8), seed=4, device="cpu")
+    b = loader.load_or_init(None, (1, 4, 8), seed=4, device="cpu")
+    assert all(torch.equal(a[l][k], b[l][k]) for l in range(3) for k in a[l])
+    assert tuple(a[0]["lstm_w_up"].shape) == (4, 4, 3, 3)
