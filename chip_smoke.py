@@ -16,7 +16,14 @@ Phases, each printing its wall time and raising on failure:
    bundled color predictor (3,48,96,192), 160x120, the ``circles`` preset;
    asserts the kernel launch counts, finite fitness, two generations;
 6. load: two generations at the ``default_color`` run preset's shape
-   (CirclesFree, 320x240, pop 40, repeat 5).
+   (CirclesFree, 320x240, pop 40, repeat 5);
+7. profile: device time by kernel over one warm main-path generation;
+8. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
+   its north-star layer-1 shape (``--big --rows 48``, all ten rungs);
+   asserts each rung's launch count, then holds each of the seven rung
+   kernels against its plain version on the card and times the kernel,
+   its host glue (padding, window stack), the plain version and a library
+   yardstick.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -66,6 +73,17 @@ STEP_DIFF_SHARE = 0.01
 # far the CPU drifts from itself when only the order of the fused layers'
 # float32 sums changes.
 ROLLOUT_MEAN_TOL = 2e-2
+
+# the bisection ladder at its --big shape; every rung runs 1 + 10 * (1 + 5)
+# times (check, warm loop, timed loops)
+BISECT_ARGS = ["--big", "--rows", "48", "--variants", "ABCDHEIJFX"]
+BISECT_ROWS = 48
+BISECT_GATES_TOL = 1e-3  # C's float32 gates: sums of 2,160 products, another order
+BISECT_RUNGS = {  # ladder key -> (kernel name, line of the Pallas function)
+    "A": ("variant_A", 65), "C": ("variant_C", 104), "D": ("variant_D", 151),
+    "H": ("variant_H", 192), "E": ("variant_E", 245), "J": ("variant_E2", 300),
+    "I": ("variant_H2", 365),
+}
 
 
 def log(msg):
@@ -326,23 +344,29 @@ def check_reference(params_cuda):
             raise AssertionError("rollout on the card disagrees with the CPU")
 
 
-def _reset_counts():
+def _wrappers():
+    """Every kernel wrapper of the port by kernel name."""
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_bisect as cb
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
 
-    for fn in (cg.fused_lstm_gates, cf.fused_convlstm_layer_multi, cf.fused_convlstm_layer):
+    out = {
+        "fused_lstm_gates": cg.fused_lstm_gates,
+        "fused_convlstm_layer_multi": cf.fused_convlstm_layer_multi,
+        "fused_convlstm_layer": cf.fused_convlstm_layer,
+    }
+    for key, (name, _) in BISECT_RUNGS.items():
+        out[name] = cb.RUNGS[key]
+    return out
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def _counts():
-    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
-    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
-
-    return {
-        "fused_lstm_gates": cg.fused_lstm_gates.launches,
-        "fused_convlstm_layer_multi": cf.fused_convlstm_layer_multi.launches,
-        "fused_convlstm_layer": cf.fused_convlstm_layer.launches,
-    }
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def run_generations(label, generations, steps, **kwargs):
@@ -357,9 +381,9 @@ def run_generations(label, generations, steps, **kwargs):
         counts = _counts()
         with open(os.path.join(out, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
-    want = {"fused_lstm_gates": generations * steps,
-            "fused_convlstm_layer_multi": generations * steps * 3,
-            "fused_convlstm_layer": 0}
+    want = dict.fromkeys(counts, 0)
+    want.update({"fused_lstm_gates": generations * steps,
+                 "fused_convlstm_layer_multi": generations * steps * 3})
     if counts != want:
         raise AssertionError(f"{label}: kernel launches {counts}, expected {want}")
     if pop.generation != generations or len(recs) != generations:
@@ -432,6 +456,110 @@ def profile_generation(params):
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
+@phase("bisect")
+def bisect():
+    """The port's kernel-bisection ladder at --big, counted; then each rung
+    kernel against its plain version on the card, with times."""
+    import torch
+    import torch.nn.functional as F
+
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_bisect as cb
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
+    from evolutionary_illusion_generator_tpu_torch.scripts import kernel_bisect as kb
+
+    _reset_counts()
+    kb.main(BISECT_ARGS)
+    counts = _counts()
+    want = dict.fromkeys(counts, 1 + kb.LOOP_OPS * (1 + kb.REPS))
+    want["fused_convlstm_layer_multi"] = 0
+    if counts != want:
+        raise AssertionError(f"bisect: kernel launches {counts}, expected {want}")
+    log(f"  bisect launches {counts}")
+
+    B, H, W, Cin, C = kb.BIG_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(B, H, W, Cin, device="cuda", generator=gen).bfloat16()
+    w = torch.randn(3, 3, Cin, 4 * C, device="cuda", generator=gen).mul_(0.05).bfloat16()
+    b = torch.randn(4 * C, device="cuda", generator=gen).mul_(0.1).bfloat16()
+    c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).bfloat16()
+    wk = cf.pack_gate_weight(w)  # the plain version's and the yardstick's layout
+    wt = cb.pack_rung_weight(w)  # the rung kernels' layout
+    stream = torch.cuda.current_stream().cuda_stream
+    source = "evolutionary_illusion_generator_tpu_torch/csrc/convlstm_bisect.cu"
+    results = {}
+
+    def row(key, err, ms, plain_ms, library_ms, flops, peak, moved):
+        name, line = BISECT_RUNGS[key]
+        b_ms, b_by = bound_ms(flops, moved, peak)
+        results[name] = dict(route="cuda", source=source,
+                             replaces=f"scripts/pallas_bisect.py:{line}", max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms)
+        log(f"  {name} ({key}): err {err:.2e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"library {library_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+
+    # A: float32(c_prev) * 2; the yardstick is one torch.mul into a float32 out
+    a_out, _ = cb.variant_A(x, w, b, c_prev)
+    torch.cuda.synchronize()
+    err = (a_out - c_prev.float() * 2).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f"variant_A: max abs err {err} (must be exact)")
+    out32 = torch.empty_like(a_out)
+    row("A", err, cuda_ms(lambda: cb.variant_A(x, w, b, c_prev), 20),
+        cuda_ms(lambda: cb.plain("A", x, w, b, c_prev), 20),
+        cuda_ms(lambda: torch.mul(c_prev, 2.0, out=out32), 20),
+        float(c_prev.numel()), PEAK_F32_FLOPS, nbytes(c_prev, a_out))
+    del a_out, out32
+
+    # the conv rungs; plain versions and yardstick on the same inputs
+    gates_p = cf.gate_conv_plain([x], [wk], b)
+    h_p, c_p = cf.lstm_gates_plain(gates_p, c_prev)
+    h_p = h_p.to(c_prev.dtype)
+    xp = cb.pad_input(x)
+    w_cl = cf.unpack_gate_weight(wk).contiguous(memory_format=torch.channels_last)
+
+    def library_gates():  # cuDNN bf16 conv of xp + bias
+        return F.conv2d(xp.permute(0, 3, 1, 2), w_cl).permute(0, 2, 3, 1).float() + b.float()
+
+    def library_layer():  # ... + eager gate math
+        i, f, o, g = library_gates().split(C, dim=-1)
+        cc = torch.sigmoid(f) * c_prev.float() + torch.sigmoid(i) * torch.tanh(g)
+        return (torch.sigmoid(o) * torch.tanh(cc)).to(c_prev.dtype), cc
+
+    flops = 2.0 * B * H * W * 9 * Cin * 4 * C
+    for key in "CDHEIJ":
+        rows = BISECT_ROWS if key in kb.ROW_BLOCK_KEYS else None
+        xin = cb.prepare(key, x, rows)
+        out = cb.launch(key, xin, wt, b, c_prev, rows, stream)
+        torch.cuda.synchronize()
+        if key == "C":
+            err = (out - gates_p).abs().max().item()
+            if not err <= BISECT_GATES_TOL:
+                raise AssertionError(f"variant_C: gates max abs err {err}")
+            plain = lambda: cf.gate_conv_plain([x], [wk], b)  # noqa: E731
+            outs, library = (out,), library_gates
+        else:
+            eh = (out[0].float() - h_p.float()).abs().max().item()
+            ec = (out[1] - c_p).abs().max().item()
+            if not (eh <= H_TOL and ec <= C_TOL):
+                raise AssertionError(f"rung {key}: max abs err h {eh} c {ec}")
+            err = max(eh, ec)
+            plain = lambda: cb.plain(key, x, w, b, c_prev)  # noqa: E731
+            outs, library = out, library_layer
+        ms = cuda_ms(lambda: cb.launch(key, xin, wt, b, c_prev, rows, stream), 5, warmup=1)
+        glue = f"pad {cuda_ms(lambda: cb.pad_input(x, key in 'IJ'), 5, warmup=1):.4f} ms"
+        if key in "HI":
+            xpk = cb.pad_input(x, key == "I")
+            glue += f", window stack {cuda_ms(lambda: cb.window_stack(xpk, rows), 5, warmup=1):.4f} ms"
+            del xpk
+        log(f"  rung {key} host glue: {glue}")
+        row(key, err, ms, cuda_ms(plain, 3, warmup=1), cuda_ms(library, 5, warmup=1),
+            flops, PEAK_BF16_FLOPS,
+            nbytes(xin, wt, b, *outs, *(() if key == "C" else (c_prev,))))
+        del xin, out, outs
+    return results, counts
+
+
 def main():
     watchdog = threading.Timer(WATCHDOG_S, lambda: (log("watchdog: time limit"),
                                                     os._exit(3)))
@@ -451,8 +579,12 @@ def main():
     counts = main_path()
     default_color()
     profile_generation(params)
+    bisect_kernels, bisect_counts = bisect()
+    kernels.update(bisect_kernels)
     log(f"[total] {time.time() - t0:.1f} s")
-    rows = [dict(name=name, launches=counts[name], **r) for name, r in kernels.items()]
+    # launches over the driven paths: main_path, then the bisection ladder
+    rows = [dict(name=name, launches=counts[name] + bisect_counts[name], **r)
+            for name, r in kernels.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 A second package beside ``evolutionary_illusion_generator_tpu`` (the JAX
 reference, which it never imports).  Plain tensor code is PyTorch; the
-ConvLSTM Pallas kernels of the JAX package are hand-written CUDA kernels
-for ``sm_90a`` (``csrc/``, built with one ``nvcc`` call at first use by
-:mod:`._build`).  On the CPU every kernel wrapper runs its plain PyTorch
+Pallas kernels of the JAX package (ConvLSTM and the bisection ladder's
+rungs) are hand-written CUDA kernels for ``sm_90a`` (``csrc/``, built with
+one ``nvcc`` call at first use by :mod:`._build`).  On the CPU every kernel wrapper runs its plain PyTorch
 version instead, which is what the tests use.
 
 Subpackages
@@ -14,6 +14,8 @@ Subpackages
 - ``ops``        coordinate grids, rendering, optical flow, fitness metrics,
                  the CUDA kernel wrappers
 - ``evolution``  the generation evaluator and the ``neat_illusion`` driver
+- ``scripts``    command-line tools: ``kernel_bisect``, the kernel-bisection
+                 ladder on the card
 """
 
 __version__ = "0.1.0"

@@ -41,6 +41,14 @@ _SIGNATURES = {
         _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
         _P, _P, _I, _P, _P, _I, _I, _I, _I, _P,
     ),
+    # csrc/convlstm_bisect.cu: the bisection ladder's rungs
+    "eigen_bisect_a": (_P, _I, _P, _LL, _P),
+    "eigen_bisect_c": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "eigen_bisect_d": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
+    "eigen_bisect_h": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "eigen_bisect_e": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "eigen_bisect_i": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "eigen_bisect_j": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,385 @@
+// The rungs of the kernel-bisection ladder: one C entry per Pallas kernel of
+// evolutionary_illusion_generator_tpu's scripts/pallas_bisect.py.
+//
+//   eigen_bisect_a   variant_A   c_prev * 2 as float32 (elementwise)
+//   eigen_bisect_c   variant_C   3x3 SAME conv of the padded input + bias -> float32 gates
+//   eigen_bisect_d   variant_D   C + gates + cell update, input read in place
+//   eigen_bisect_h   variant_H   D over row blocks of the window stack xh
+//   eigen_bisect_e   variant_E   D over row blocks, input staged with cp.async
+//   eigen_bisect_i   variant_H2  H with windows of the aligned width Wp
+//   eigen_bisect_j   variant_E2  E with the padded width Wp
+//
+// The wrappers, their plain versions and the host glue (zero padding to xp,
+// the window stack xh, the weight layout) are in ops/convlstm_bisect.py.
+// Math as in the Pallas rungs: bfloat16 input and weights, float32 sums,
+// float32 gates; h in the state's type and c in float32.  Gate order
+// [i, f, o, g].
+//
+// Bound on the H100.  A: bytes (2 read and 4 written per element, no
+// arithmetic to speak of); a grid-stride loop, each element read and written
+// once, neighbouring threads on neighbouring elements.  The conv rungs:
+// operations.  At the ladder's --big shape (Cin 240, 4C 192) a pixel needs
+// 9 * 240 * 192 * 2 = 829k operations for about 1 KB moved, far above the
+// ~295 operations per byte where the bfloat16 tensor cores stop waiting on
+// memory.  So the conv body runs on the tensor cores: the 9 shifted dots of
+// the reference are 9 products per chunk of input channels with
+// mma.sync.m16n8k16 (bfloat16 in, float32 sums), the warp-level instruction;
+// wgmma, TMA and a deeper pipeline are later work.
+//
+// Design.  A TPU grid step holds a whole padded image (C, D) or a whole
+// (rows+2) x (W+2) x Cin window (H, E): megabytes of VMEM.  A block here has
+// at most 227 KB of shared memory, so a block owns an 8 x 16 output tile of
+// one row block (`rows` is the row-block height the grid walks; the
+// whole-image rungs take rows = H) and a group of 16 channels with all four
+// gates (N = 64), and walks the input channels in chunks of 16, one k16 step
+// per tap.  Warp w computes tile row w: M = its 16 pixels, all 64 outputs,
+// 8 mma tiles of 16 x 8.  Per chunk the 9 x 64 x 16 weight slice goes into
+// shared memory with cp.async, two chunks in flight.  What the rungs vary is
+// how the halo'd input reaches the A operand:
+//   - in place (C, D from xp; H, I from xh): each thread loads its fragment
+//     (2 pixels x 2 pairs of channels per tap) as 4-byte reads from device
+//     memory, through L1;
+//   - staged (E, J, the Pallas make_async_copy): the (10 x 18) x 16-channel
+//     halo slab of the chunk is copied into shared memory with cp.async
+//     (16-byte pieces where Cin % 8 == 0, zero-filled at the edges), in the
+//     same two-chunk pipeline as the weights, and the fragments are read
+//     there.
+// Shared-memory rows are padded from 16 to 24 values so that the 8 rows a
+// fragment load touches fall in distinct banks.  After the last chunk the
+// accumulators go through shared memory, so that one thread holds the four
+// gates of a (pixel, channel) for the epilogue (gates, or the cell update).
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int TH = 8;    // output tile rows, one warp each
+constexpr int TW = 16;   // output tile columns: the M = 16 of a warp's products
+constexpr int CG = 16;   // channels per block
+constexpr int NOUT = 4 * CG;  // gate outputs per block, n = 4 * (c - c0) + gate
+constexpr int NTILES = NOUT / 8;
+constexpr int KC = 16;   // input channels per chunk: one k16 step per tap
+constexpr int KP = KC + 8;  // padded shared-memory row (bank spread; 48 bytes)
+constexpr int NT = 32 * TH;
+constexpr int STAGES = 2;
+constexpr int HALO_H = TH + 2;
+constexpr int HALO_W = TW + 2;
+constexpr int WS_ELEMS = 9 * NOUT * KP;       // bfloat16 per weight stage
+constexpr int XS_ELEMS = HALO_H * HALO_W * KP;  // bfloat16 per input stage
+constexpr int EP = NOUT + 4;  // epilogue row of floats
+
+static_assert(TH * TW * EP * 4 <= STAGES * WS_ELEMS * 2, "the epilogue fits in the weight buffers");
+
+enum class Input { kPadded, kWindows, kStaged };
+
+template <Input IN>
+constexpr int smem_bytes() {
+  return 2 * STAGES * (WS_ELEMS + (IN == Input::kStaged ? XS_ELEMS : 0));
+}
+
+struct Geometry {
+  int B, H, W, cin, C;
+  int rows;   // row-block height (H for the whole-image rungs); H % rows == 0
+  int pitch;  // pixels per padded row: W + 2, or Wp for the aligned rungs
+  int tiles_x, tiles_y;  // output tiles per row block
+};
+
+// 16 bytes global -> shared without a register round trip; `valid` false
+// writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// d += a * b for one 16 x 8 tile: a is 16 x 16 (row major), b 16 x 8 (column
+// major), bfloat16 pairs packed in 32-bit registers, d float32.
+__device__ __forceinline__ void mma16816(float* d, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+template <Input IN, bool FUSE, typename ST>
+__global__ void __launch_bounds__(NT)
+    bisect_conv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
+                       const float* __restrict__ bias, const ST* __restrict__ c_prev,
+                       ST* __restrict__ h_out, float* __restrict__ out, Geometry g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][9][NOUT][KP]
+  __nv_bfloat16* xs = ws + STAGES * WS_ELEMS;                    // [STAGES][HALO_H][HALO_W][KP]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;  // the warp's tile row
+  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int b = blockIdx.z;
+  const int c0 = blockIdx.y * CG;
+  int t = blockIdx.x;
+  const int tx = t % g.tiles_x;
+  t /= g.tiles_x;
+  const int ty = t % g.tiles_y;
+  const int r = t / g.tiles_y;  // row block
+  const int yb = r * g.rows;
+  const int y0 = yb + ty * TH, x0 = tx * TW;
+  const int y_end = yb + g.rows;  // output rows of this row block end here
+
+  // The halo'd input of output row y, tap row ky, is row (lrow0 + y - y0 + ky)
+  // of `win`, a stack of `win_rows` padded rows of `pitch` pixels.
+  const __nv_bfloat16* win;
+  int lrow0, win_rows;
+  if constexpr (IN == Input::kWindows) {
+    const int nblk = g.H / g.rows;
+    win = x + ((long long)b * nblk + r) * (g.rows + 2) * g.pitch * g.cin;
+    lrow0 = y0 - yb;
+    win_rows = g.rows + 2;
+  } else {
+    win = x + (long long)b * (g.H + 2) * g.pitch * g.cin;
+    lrow0 = y0;
+    win_rows = g.H + 2;
+  }
+  const bool vec = g.cin % 8 == 0;  // 16-byte pieces of a pixel's channels are aligned and whole
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+
+  auto stage = [&](int s, int k0) {
+    // weights: row n of tap `tap` is wt[tap][c][gate][k0 .. k0 + 16), two
+    // 16-byte pieces
+    for (int i = tid; i < 9 * NOUT * 2; i += NT) {
+      const int half = i & 1, row = i >> 1;
+      const int n = row % NOUT, tap = row / NOUT;
+      const int c = c0 + n / 4, k = k0 + 8 * half;
+      __nv_bfloat16* dst = ws + ((s * 9 + tap) * NOUT + n) * KP + 8 * half;
+      const __nv_bfloat16* src = wt + (((long long)tap * g.C + c) * 4 + n % 4) * g.cin + k;
+      if (vec) {
+        const bool valid = c < g.C && k < g.cin;
+        cp_async16(dst, valid ? src : wt, valid);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dst[e] = (c < g.C && k + e < g.cin) ? src[e] : zero;
+      }
+    }
+    if constexpr (IN == Input::kStaged) {
+      for (int i = tid; i < HALO_H * HALO_W * 2; i += NT) {
+        const int half = i & 1, p = i >> 1;
+        const int hy = p / HALO_W, hx = p % HALO_W;
+        const int row = lrow0 + hy, col = x0 + hx, k = k0 + 8 * half;
+        const bool valid = row < win_rows && col < g.W + 2;
+        const __nv_bfloat16* src = win + ((long long)row * g.pitch + col) * g.cin + k;
+        __nv_bfloat16* dst = xs + ((s * HALO_H + hy) * HALO_W + hx) * KP + 8 * half;
+        if (vec) {
+          cp_async16(dst, valid && k < g.cin ? src : x, valid && k < g.cin);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dst[e] = (valid && k + e < g.cin) ? src[e] : zero;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // two channels k, k + 1 of the input pixel at window row `row`, column
+  // `col`, read in place; zeros outside the window and past cin
+  auto in_place = [&](int row, int col, int k) -> unsigned {
+    if (row >= win_rows || col >= g.W + 2 || k >= g.cin) return 0u;
+    const __nv_bfloat16* p = win + ((long long)row * g.pitch + col) * g.cin + k;
+    if (g.cin % 2 == 0) return __ldg(reinterpret_cast<const unsigned*>(p));
+    const unsigned lo = __bfloat16_as_ushort(p[0]);
+    const unsigned hi = k + 1 < g.cin ? __bfloat16_as_ushort(p[1]) : 0u;
+    return lo | (hi << 16);
+  };
+
+  float acc[NTILES][4];
+#pragma unroll
+  for (int nt = 0; nt < NTILES; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
+
+  const int nk = (g.cin + KC - 1) / KC;
+  stage(0, 0);
+  for (int kc = 0; kc < nk; ++kc) {
+    const int s = kc & 1;
+    const int k0 = kc * KC;
+    if (kc + 1 < nk) {
+      stage(s ^ 1, k0 + KC);
+      cp_async_wait<1>();  // chunk kc has landed, kc + 1 may still fly
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+      // A: rows = pixels gid, gid + 8 of the warp's tile row, shifted by the
+      // tap; columns = channels 2 tig (+1) and 2 tig + 8 (+1) of the chunk
+      unsigned a[4];
+      if constexpr (IN == Input::kStaged) {
+        const __nv_bfloat16* xr = xs + ((s * HALO_H + warp + ky) * HALO_W + kx) * KP + 2 * tig;
+        a[0] = ld_pair(xr + gid * KP);
+        a[1] = ld_pair(xr + (gid + 8) * KP);
+        a[2] = ld_pair(xr + gid * KP + 8);
+        a[3] = ld_pair(xr + (gid + 8) * KP + 8);
+      } else {
+        const int row = lrow0 + warp + ky, col = x0 + kx + gid, k = k0 + 2 * tig;
+        a[0] = in_place(row, col, k);
+        a[1] = in_place(row, col + 8, k);
+        a[2] = in_place(row, col, k + 8);
+        a[3] = in_place(row, col + 8, k + 8);
+      }
+      // B: rows = channels 2 tig (+1) and 2 tig + 8 (+1), column = output
+      // 8 nt + gid
+      const __nv_bfloat16* wr = ws + ((s * 9 + tap) * NOUT + gid) * KP + 2 * tig;
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt) {
+        const unsigned bf[2] = {ld_pair(wr + 8 * nt * KP), ld_pair(wr + 8 * nt * KP + 8)};
+        mma16816(acc[nt], a, bf);
+      }
+    }
+    __syncthreads();  // stage s is refilled in the next round
+  }
+
+  // D fragment: rows = pixels gid, gid + 8; columns = outputs 8 nt + 2 tig (+1)
+  float* ep = reinterpret_cast<float*>(smem);  // [TH * TW][EP]; the stages are done
+  const int m0 = warp * TW + gid;
+#pragma unroll
+  for (int nt = 0; nt < NTILES; ++nt) {
+    const int n = 8 * nt + 2 * tig;
+    ep[m0 * EP + n] = acc[nt][0];
+    ep[m0 * EP + n + 1] = acc[nt][1];
+    ep[(m0 + 8) * EP + n] = acc[nt][2];
+    ep[(m0 + 8) * EP + n + 1] = acc[nt][3];
+  }
+  __syncthreads();
+  for (int i = tid; i < TH * TW * CG; i += NT) {
+    const int cl = i % CG, p = i / CG;
+    const int y = y0 + p / TW, xx = x0 + p % TW, c = c0 + cl;
+    if (y >= y_end || xx >= g.W || c >= g.C) continue;
+    const long long pix = ((long long)b * g.H + y) * g.W + xx;
+    const float* gv = ep + p * EP + 4 * cl;
+    const float gi = gv[0] + bias[c];
+    const float gf = gv[1] + bias[g.C + c];
+    const float go = gv[2] + bias[2 * g.C + c];
+    const float gg = gv[3] + bias[3 * g.C + c];
+    if constexpr (FUSE) {
+      const long long o = pix * g.C + c;
+      const float cn = eigen::sigmoid(gf) * eigen::to_float(c_prev[o]) + eigen::sigmoid(gi) * tanhf(gg);
+      out[o] = cn;
+      h_out[o] = eigen::from_float<ST>(eigen::sigmoid(go) * tanhf(cn));
+    } else {
+      float* o = out + pix * 4 * g.C + c;
+      o[0] = gi;
+      o[g.C] = gf;
+      o[2 * g.C] = go;
+      o[3 * g.C] = gg;
+    }
+  }
+}
+
+template <Input IN, bool FUSE, typename ST>
+int launch_conv(const void* x, const void* wt, const void* bias, const void* c_prev, void* h_out,
+                void* out, Geometry g, void* stream) {
+  if (g.rows <= 0 || g.H % g.rows != 0 || g.pitch < g.W + 2) return (int)cudaErrorInvalidValue;
+  if (g.B == 0 || g.H == 0 || g.W == 0 || g.C == 0) return (int)cudaSuccess;
+  g.tiles_x = (g.W + TW - 1) / TW;
+  g.tiles_y = (g.rows + TH - 1) / TH;
+  const dim3 grid((unsigned)(g.H / g.rows * g.tiles_y * g.tiles_x), (unsigned)((g.C + CG - 1) / CG),
+                  (unsigned)g.B);
+  const int bytes = smem_bytes<IN>();  // above the 48 KB of static shared memory
+  const cudaError_t rc = cudaFuncSetAttribute(bisect_conv_kernel<IN, FUSE, ST>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  bisect_conv_kernel<IN, FUSE, ST><<<grid, NT, bytes, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)wt, (const float*)bias, (const ST*)c_prev,
+      (ST*)h_out, (float*)out, g);
+  return (int)cudaGetLastError();
+}
+
+template <Input IN>
+int launch_fused(const void* x, const void* wt, const void* bias, const void* c_prev,
+                 int state_bf16, void* h_out, void* c_out, Geometry g, void* stream) {
+  if (state_bf16)
+    return launch_conv<IN, true, __nv_bfloat16>(x, wt, bias, c_prev, h_out, c_out, g, stream);
+  return launch_conv<IN, true, float>(x, wt, bias, c_prev, h_out, c_out, g, stream);
+}
+
+template <typename T>
+__global__ void double_kernel(const T* __restrict__ in, float* __restrict__ out, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+    out[i] = eigen::to_float(in[i]) * 2.0f;
+}
+
+}  // namespace
+
+// variant_A: out = float32(c_prev) * 2, n elements; c_prev float32 or
+// bfloat16 (c_prev_bf16 != 0).
+extern "C" int eigen_bisect_a(const void* c_prev, int c_prev_bf16, void* out, long long n,
+                              void* stream) {
+  if (n == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  long long blocks = (n + threads - 1) / threads;
+  if (blocks > 132LL * 32) blocks = 132LL * 32;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (c_prev_bf16)
+    double_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, 0, st>>>(
+        (const __nv_bfloat16*)c_prev, (float*)out, n);
+  else
+    double_kernel<float><<<(unsigned)blocks, threads, 0, st>>>((const float*)c_prev, (float*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// The conv rungs.  xp: (B, H + 2, pitch, cin) bfloat16, the zero-padded
+// input (pitch = W + 2, or Wp for J); xh: (B, H / rows, rows + 2, pitch,
+// cin) bfloat16, the window stack (pitch = W + 2, or Wp for I); wt: (9, C, 4,
+// cin) bfloat16, [tap][channel][gate][input channel]; bias: (4C,) float32;
+// c_prev and h_out: (B, H, W, C) float32 or bfloat16 (state_bf16 != 0);
+// c_out: (B, H, W, C) float32; gates (C only): (B, H, W, 4C) float32.  All
+// contiguous.  Each launches on `stream` and returns the CUDA error of the
+// launch.
+extern "C" int eigen_bisect_c(const void* xp, const void* wt, const void* bias, void* gates,
+                              int B, int H, int W, int cin, int C, void* stream) {
+  const Geometry g{B, H, W, cin, C, H, W + 2, 0, 0};
+  return launch_conv<Input::kPadded, false, float>(xp, wt, bias, nullptr, nullptr, gates, g, stream);
+}
+
+extern "C" int eigen_bisect_d(const void* xp, const void* wt, const void* bias, const void* c_prev,
+                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
+                              int cin, int C, void* stream) {
+  const Geometry g{B, H, W, cin, C, H, W + 2, 0, 0};
+  return launch_fused<Input::kPadded>(xp, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
+}
+
+extern "C" int eigen_bisect_h(const void* xh, const void* wt, const void* bias, const void* c_prev,
+                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
+                              int cin, int C, int rows, void* stream) {
+  const Geometry g{B, H, W, cin, C, rows, W + 2, 0, 0};
+  return launch_fused<Input::kWindows>(xh, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
+}
+
+extern "C" int eigen_bisect_e(const void* xp, const void* wt, const void* bias, const void* c_prev,
+                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
+                              int cin, int C, int rows, void* stream) {
+  const Geometry g{B, H, W, cin, C, rows, W + 2, 0, 0};
+  return launch_fused<Input::kStaged>(xp, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
+}
+
+extern "C" int eigen_bisect_i(const void* xh, const void* wt, const void* bias, const void* c_prev,
+                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
+                              int cin, int C, int rows, int wp, void* stream) {
+  const Geometry g{B, H, W, cin, C, rows, wp, 0, 0};
+  return launch_fused<Input::kWindows>(xh, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
+}
+
+extern "C" int eigen_bisect_j(const void* xp, const void* wt, const void* bias, const void* c_prev,
+                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
+                              int cin, int C, int rows, int wp, void* stream) {
+  const Geometry g{B, H, W, cin, C, rows, wp, 0, 0};
+  return launch_fused<Input::kStaged>(xp, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
+}

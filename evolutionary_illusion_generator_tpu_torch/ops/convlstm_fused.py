@@ -34,6 +34,7 @@ __all__ = [
     "unpack_gate_weight",
     "fused_convlstm_layer",
     "fused_convlstm_layer_multi",
+    "gate_conv_plain",
     "convlstm_layer_plain",
 ]
 
@@ -57,18 +58,24 @@ def unpack_gate_weight(wk: torch.Tensor) -> torch.Tensor:
     return wk.reshape(cin, 3, 3, C, 4).permute(4, 3, 0, 1, 2).reshape(4 * C, cin, 3, 3)
 
 
-def convlstm_layer_plain(srcs: Sequence[torch.Tensor], wks: Sequence[torch.Tensor],
-                         b: torch.Tensor, c_prev: torch.Tensor):
-    """Plain PyTorch version: per-source float32 convolutions of the
-    bfloat16-rounded sources and weights (exact products, float32 sums),
-    then the gate math.  Returns (h in ``c_prev``'s dtype, c float32)."""
+def gate_conv_plain(srcs: Sequence[torch.Tensor], wks: Sequence[torch.Tensor],
+                    b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch gate convolution: per-source float32 3x3 SAME
+    convolutions of the bfloat16-rounded sources and weights (exact
+    products, float32 sums) plus the bias.  Returns (B, H, W, 4C) float32."""
     gates = None
     for x, wk in zip(srcs, wks):
         xb = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
         y = F.conv2d(xb, unpack_gate_weight(wk.to(torch.bfloat16).float()), padding=1)
         gates = y if gates is None else gates + y
-    gates = gates.permute(0, 2, 3, 1) + b.float()
-    h, c = lstm_gates_plain(gates, c_prev)
+    return gates.permute(0, 2, 3, 1) + b.float()
+
+
+def convlstm_layer_plain(srcs: Sequence[torch.Tensor], wks: Sequence[torch.Tensor],
+                         b: torch.Tensor, c_prev: torch.Tensor):
+    """Plain PyTorch version: :func:`gate_conv_plain`, then the gate math.
+    Returns (h in ``c_prev``'s dtype, c float32)."""
+    h, c = lstm_gates_plain(gate_conv_plain(srcs, wks, b), c_prev)
     return h.to(c_prev.dtype), c
 
 
