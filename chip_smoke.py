@@ -9,7 +9,9 @@ Phases, each printing its wall time and raising on failure:
 2. build: compiles the port's CUDA kernels from ``csrc/`` with nvcc;
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, in the main path's types, with CUDA-event times of the
-   kernel, the plain version and a library yardstick, and its bound;
+   kernel, the plain version and a library yardstick, and its bound; the
+   fused kernel per layer with its TFLOP/s, at every tile mapping the
+   wrapper chooses from, and at ragged shapes;
 4. reference: the port's rollout on the card against the same rollout on
    the CPU (plain versions) on a small input with the bundled weights;
 5. main path: ``neat_illusion`` for two generations at the full width of the
@@ -56,6 +58,14 @@ MULTI_LAYERS = (  # (H, W, C, source channels [E, R, up(R_above)])
     (15, 20, 192, (384, 192)),
 )
 SINGLE_LAYER = (60, 80, 48, (240,))  # layer 1's concatenated input
+# (B, H, W, source channels, C, state dtype name) held against the plain
+# version at every tile mapping
+RAGGED_CASES = (
+    (2, 13, 21, (40,), 24, "float32"),
+    (2, 13, 21, (40, 12), 24, "bfloat16"),
+    (2, 13, 21, (40, 12, 24), 24, "float32"),
+    (2, 13, 21, (12, 40, 24), 24, "bfloat16"),
+)
 STEPS = 22  # 20 open-loop + 2 closed-loop steps per chunk
 
 # kernel vs plain version, both at bf16 inputs with float32 sums:
@@ -166,7 +176,7 @@ def _layer_inputs(gen, params, layer, H, W, cins):
             .mul_(2).sub_(1).bfloat16() for ci in cins]
     wks = [p[k] for k in ("lstm_k_e", "lstm_k_r", "lstm_k_up") if k in p]
     if len(cins) == 1:  # the single-source kernel takes the whole gate kernel
-        wks = [torch.cat(wks, dim=0)]
+        wks = [torch.cat(wks, dim=3).contiguous()]
     c_prev = torch.randn(MAIN_BATCH, H, W, C, device="cuda", generator=gen).bfloat16()
     return srcs, wks, p["lstm_b"], c_prev
 
@@ -216,6 +226,15 @@ def check_kernels(params):
         library_ms=cuda_ms(eager_gates, 200),
     )
 
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def check_out(label, out, ref):
+        eh = (out[0].float() - ref[0].float()).abs().max().item()
+        ec = (out[1] - ref[1]).abs().max().item()
+        if not (out[0].dtype == ref[0].dtype and eh <= H_TOL and ec <= C_TOL):
+            raise AssertionError(f"{label}: max abs err h {eh} c {ec}")
+        return max(eh, ec)
+
     def conv_case(name, wrapper, shapes, source, replaces):
         err = 0.0
         ms = plain_ms = lib_ms = b_total = ops_total = bytes_total = 0.0
@@ -224,13 +243,10 @@ def check_kernels(params):
             call = (lambda: wrapper(srcs, wks, b, c_prev)) if len(cins) > 1 else (
                 lambda: wrapper(srcs[0], wks[0], b, c_prev))
             h, c = call()
-            h_p, c_p = cf.convlstm_layer_plain(srcs, wks, b, c_prev)
+            ref = cf.convlstm_layer_plain(srcs, wks, b, c_prev)
             torch.cuda.synchronize()
-            eh = (h.float() - h_p.float()).abs().max().item()
-            ec = (c - c_p).abs().max().item()
-            if not (eh <= H_TOL and ec <= C_TOL):
-                raise AssertionError(f"{name} layer {layer}: max abs err h {eh} c {ec}")
-            err = max(err, eh, ec)
+            e = check_out(f"{name} layer {layer}", (h, c), ref)
+            err = max(err, e)
             w_oihw = torch.cat([cf.unpack_gate_weight(wk) for wk in wks], dim=1).contiguous()
             w_cl = w_oihw.to(memory_format=torch.channels_last)
 
@@ -241,22 +257,65 @@ def check_kernels(params):
                 cc = torch.sigmoid(f) * c_prev.float() + torch.sigmoid(i) * torch.tanh(g)
                 return (torch.sigmoid(o) * torch.tanh(cc)).bfloat16(), cc
 
-            ms += cuda_ms(call, 50)
-            plain_ms += cuda_ms(lambda: cf.convlstm_layer_plain(srcs, wks, b, c_prev), 20)
-            lib_ms += cuda_ms(library, 50)
+            # the float32 sums against float64 ones: the kernel's c may drift no
+            # further than the plain version's
+            g64 = sum(F.conv2d(x.double().permute(0, 3, 1, 2), cf.unpack_gate_weight(wk).double(),
+                               padding=1) for x, wk in zip(srcs, wks))
+            i, f, o, g = (g64.permute(0, 2, 3, 1) + b.double()).split(C, dim=-1)
+            c64 = torch.sigmoid(f) * c_prev.double() + torch.sigmoid(i) * torch.tanh(g)
+            drift, drift_p = ((t.double() - c64).abs().mean().item() for t in (c, ref[1]))
+            if not drift <= drift_p:
+                raise AssertionError(f"{name} layer {layer}: mean |c - c_float64| {drift:.3e} "
+                                     f"above the plain version's {drift_p:.3e}")
             flops = _gate_flops(H, W, cins, C)
+            layer_ms, layer_lib = cuda_ms(call, 50), cuda_ms(library, 50)
+            ms += layer_ms
+            plain_ms += cuda_ms(lambda: cf.convlstm_layer_plain(srcs, wks, b, c_prev), 20)
+            lib_ms += layer_lib
             moved = nbytes(*srcs, *wks, b, c_prev, h, c)
             ops_total += flops / PEAK_BF16_FLOPS * 1e3
             bytes_total += moved / PEAK_BYTES_PER_S * 1e3
             b_total += bound_ms(flops, moved)[0]
             log(f"  {name} layer {layer} {MAIN_BATCH}x{H}x{W} C={C} sources {cins}: "
-                f"err {max(eh, ec):.2e}")
+                f"err {e:.2e} kernel {layer_ms:.4f} ms ({flops / layer_ms / 1e9:.1f} TFLOP/s) "
+                f"library {layer_lib:.4f} ms; mean |c - c_float64| kernel {drift:.2e} "
+                f"plain {drift_p:.2e}")
+            # the tile mappings the wrapper chooses from, each checked and timed
+            chosen = cf.tile_width(MAIN_BATCH, H, W)
+            sweep = []
+            for tw in cf.tile_candidates(W):
+                check_out(f"{name} layer {layer} tw={tw}",
+                          cf.launch(srcs, wks, b, c_prev, stream, tw=tw), ref)
+                t = cuda_ms(lambda: cf.launch(srcs, wks, b, c_prev, stream, tw=tw), 50)
+                sweep.append(f"tw={tw}{'*' if tw == chosen else ''} {t:.4f} ms "
+                             f"({flops / t / 1e9:.1f} TFLOP/s)")
+            log("    tiles (* the wrapper's choice): " + ", ".join(sweep))
         results[name] = dict(
             route="cuda", source=source, replaces=replaces, max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=b_total,
             bound_by="operations" if ops_total >= bytes_total else "bytes",
             library_ms=lib_ms,
         )
+
+    # ragged shapes: image edges inside a tile, channel counts not a multiple
+    # of 16 (40) or of 8 (12, staged without cp.async), C not a multiple of
+    # 16; every tile mapping, both state types, one to three sources
+    for B, H, W, cins, C, state in RAGGED_CASES:
+        srcs = [torch.randn(B, H, W, ci, device="cuda", generator=gen).bfloat16() for ci in cins]
+        wks = [cf.pack_gate_weight(torch.randn(3, 3, ci, 4 * C, device="cuda", generator=gen)
+                                   .mul_(0.1)) for ci in cins]
+        b = torch.randn(4 * C, device="cuda", generator=gen).mul_(0.1)
+        c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).to(getattr(torch, state))
+        ref = cf.convlstm_layer_plain(srcs, wks, b, c_prev)
+        out = (cf.fused_convlstm_layer_multi(srcs, wks, b, c_prev) if len(cins) > 1
+               else cf.fused_convlstm_layer(srcs[0], wks[0], b, c_prev))
+        torch.cuda.synchronize()
+        e = check_out(f"ragged {B}x{H}x{W} {cins} C={C} {state}", out, ref)
+        for tw in cf.tile_candidates(W):
+            e = max(e, check_out(f"ragged {B}x{H}x{W} {cins} C={C} {state} tw={tw}",
+                                 cf.launch(srcs, wks, b, c_prev, stream, tw=tw), ref))
+        log(f"  ragged {B}x{H}x{W} sources {cins} C={C} {state}: err {e:.2e} "
+            f"at tw {cf.tile_candidates(W)}")
 
     fused_src = "evolutionary_illusion_generator_tpu_torch/csrc/convlstm_fused.cu"
     conv_case("fused_convlstm_layer_multi", cf.fused_convlstm_layer_multi,
@@ -312,8 +371,10 @@ def check_reference(params_cuda):
         if not (d.max().item() <= STEP_ATOL and share <= STEP_DIFF_SHARE):
             raise AssertionError(f"one step on the card disagrees with the CPU: "
                                  f"max {d.max().item():.3e}, {share:.2%} differ")
-    worst = max((a.cpu().float() - b.float()).abs().max().item() for a, b in pairs)
-    log(f"  one step card vs cpu: max abs {worst:.3e} over prediction and states")
+    diffs = [(a.cpu().float() - b.float()).abs() for a, b in pairs]
+    log(f"  one step card vs cpu: max abs {max(d.max().item() for d in diffs):.3e}, at most "
+        f"{max((d > 0).float().mean().item() for d in diffs):.2%} of a tensor's elements "
+        f"differ, over prediction and states")
 
     # 22 steps: card vs CPU, and the CPU against itself with the fused
     # layers' float32 sums taken over the concatenated sources
@@ -482,8 +543,7 @@ def bisect():
     w = torch.randn(3, 3, Cin, 4 * C, device="cuda", generator=gen).mul_(0.05).bfloat16()
     b = torch.randn(4 * C, device="cuda", generator=gen).mul_(0.1).bfloat16()
     c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).bfloat16()
-    wk = cf.pack_gate_weight(w)  # the plain version's and the yardstick's layout
-    wt = cb.pack_rung_weight(w)  # the rung kernels' layout
+    wk = cf.pack_gate_weight(w)  # the kernels', the plain version's and the yardstick's layout
     stream = torch.cuda.current_stream().cuda_stream
     source = "evolutionary_illusion_generator_tpu_torch/csrc/convlstm_bisect.cu"
     results = {}
@@ -530,7 +590,7 @@ def bisect():
     for key in "CDHEIJ":
         rows = BISECT_ROWS if key in kb.ROW_BLOCK_KEYS else None
         xin = cb.prepare(key, x, rows)
-        out = cb.launch(key, xin, wt, b, c_prev, rows, stream)
+        out = cb.launch(key, xin, wk, b, c_prev, rows, stream)
         torch.cuda.synchronize()
         if key == "C":
             err = (out - gates_p).abs().max().item()
@@ -546,7 +606,7 @@ def bisect():
             err = max(eh, ec)
             plain = lambda: cb.plain(key, x, w, b, c_prev)  # noqa: E731
             outs, library = out, library_layer
-        ms = cuda_ms(lambda: cb.launch(key, xin, wt, b, c_prev, rows, stream), 5, warmup=1)
+        ms = cuda_ms(lambda: cb.launch(key, xin, wk, b, c_prev, rows, stream), 5, warmup=1)
         glue = f"pad {cuda_ms(lambda: cb.pad_input(x, key in 'IJ'), 5, warmup=1):.4f} ms"
         if key in "HI":
             xpk = cb.pad_input(x, key == "I")
@@ -555,8 +615,16 @@ def bisect():
         log(f"  rung {key} host glue: {glue}")
         row(key, err, ms, cuda_ms(plain, 3, warmup=1), cuda_ms(library, 5, warmup=1),
             flops, PEAK_BF16_FLOPS,
-            nbytes(xin, wt, b, *outs, *(() if key == "C" else (c_prev,))))
+            nbytes(xin, wk, b, *outs, *(() if key == "C" else (c_prev,))))
         del xin, out, outs
+    # ladder key F's kernel alone (the fused kernel on the unpadded input,
+    # weights packed once), against rung E's kernel above
+    out = cf.launch([x], [wk], b, c_prev, stream)
+    torch.cuda.synchronize()
+    err = max((out[0].float() - h_p.float()).abs().max().item(), (out[1] - c_p).abs().max().item())
+    ms = cuda_ms(lambda: cf.launch([x], [wk], b, c_prev, stream), 5, warmup=1)
+    log(f"  fused kernel (F) at --big: err {err:.2e} kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), tw={cf.tile_width(B, H, W)}")
     return results, counts
 
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources go through ONE ``nvcc`` call into one shared
-library with a plain C interface, loaded with :mod:`ctypes`.  The sources
-include no PyTorch headers, so the build takes seconds, not the minutes of
+Each ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface, loaded with :mod:`ctypes`.  The sources include no
+PyTorch headers, so the build takes seconds, not the minutes of
 ``torch.utils.cpp_extension``.  The library lands in ``.build/<hash>/``
 beside this file (listed in ``.gitignore``), keyed by a hash of the sources
 and flags, so an edited source is rebuilt and an unchanged one is reused.
@@ -28,7 +29,7 @@ _BUILD_ROOT = _HERE / ".build"
 _LIB_NAME = "libeigen_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -39,7 +40,7 @@ _SIGNATURES = {
     "eigen_lstm_gates": (_P, _P, _I, _P, _P, _LL, _I, _P),
     "eigen_convlstm_fused": (
         _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
-        _P, _P, _I, _P, _P, _I, _I, _I, _I, _P,
+        _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
     ),
     # csrc/convlstm_bisect.cu: the bisection ladder's rungs
     "eigen_bisect_a": (_P, _I, _P, _LL, _P),
@@ -77,15 +78,29 @@ def _source_hash(sources) -> str:
 
 def _build(out: Path, sources) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
+    nvcc, tag = _find_nvcc(), f"{os.getpid()}.tmp"
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in sources]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [(src, proc.returncode, log)
+              for src, proc, log in zip(sources, procs, logs) if proc.returncode]
+    if not failed:
+        tmp = out.with_name(f"{out.name}.{tag}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode:
+            failed.append(("link", link.returncode, link.stderr))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{src}: exit code {rc}\n{log}" for src, rc, log in failed))
     # ptxas -v reports registers, shared memory and spills per kernel
-    (out.parent / "build.log").write_text(proc.stderr)
+    (out.parent / "build.log").write_text("".join(logs))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 

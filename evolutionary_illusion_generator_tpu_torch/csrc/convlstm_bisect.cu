@@ -86,28 +86,11 @@ struct Geometry {
   int tiles_x, tiles_y;  // output tiles per row block
 };
 
-// 16 bytes global -> shared without a register round trip; `valid` false
-// writes 16 zero bytes and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// d += a * b for one 16 x 8 tile: a is 16 x 16 (row major), b 16 x 8 (column
-// major), bfloat16 pairs packed in 32-bit registers, d float32.
-__device__ __forceinline__ void mma16816(float* d, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ unsigned ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
+using eigen::cp_async16;
+using eigen::cp_async_commit;
+using eigen::cp_async_wait;
+using eigen::ld_pair;
+using eigen::mma16816;
 
 template <Input IN, bool FUSE, typename ST>
 __global__ void __launch_bounds__(NT)

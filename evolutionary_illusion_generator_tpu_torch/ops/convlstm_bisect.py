@@ -24,7 +24,8 @@ them on the H100 and how a block replaces a TPU grid step).  The host glue
 the reference does in XLA stays in PyTorch here: the zero padding to ``xp``
 (:func:`pad_input`, to ``Wp = ceil16(W + 2)`` for I and J) and the
 materialised overlapped windows ``xh`` (:func:`window_stack`, H and I);
-the weights go to the kernels' layout by :func:`pack_rung_weight`.
+the weights go to the kernels' layout ``(9, C, 4, Cin)`` by
+:func:`.convlstm_fused.pack_gate_weight`, the fused kernel's layout too.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel (counted on the wrapper's ``launches``) or raises.  The
@@ -48,7 +49,6 @@ __all__ = [
     "aligned_width",
     "pad_input",
     "window_stack",
-    "pack_rung_weight",
     "reference",
     "plain",
     "prepare",
@@ -85,18 +85,6 @@ def window_stack(xp: torch.Tensor, rows: int) -> torch.Tensor:
     ``i * rows .. i * rows + rows + 1``."""
     nblk = (xp.shape[1] - 2) // rows
     return torch.stack([xp[:, i * rows : i * rows + rows + 2] for i in range(nblk)], dim=1)
-
-
-def pack_rung_weight(w: torch.Tensor) -> torch.Tensor:
-    """HWIO ``(3, 3, Cin, 4C)`` gate kernel (gate-major output channels)
-    -> the rung kernels' bfloat16 ``(9, C, 4, Cin)`` layout: tap
-    ``ky * 3 + kx``, channel, gate [i, f, o, g], input channel, so that a
-    chunk of input channels of one output is contiguous."""
-    kh, kw, cin, c4 = w.shape
-    if (kh, kw) != (3, 3) or c4 % 4:
-        raise ValueError(f"need a (3, 3, Cin, 4C) kernel, got {tuple(w.shape)}")
-    w = w.to(torch.bfloat16).reshape(3, 3, cin, 4, c4 // 4).permute(0, 1, 4, 3, 2)
-    return w.reshape(9, c4 // 4, 4, cin).contiguous()
 
 
 def reference(x, w, b, c_prev):
@@ -180,9 +168,9 @@ def prepare(key: str, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tens
 def launch(key: str, xin: torch.Tensor, wt: torch.Tensor, b: torch.Tensor,
            c_prev: torch.Tensor, rows: Optional[int], stream):
     """Run conv rung ``key``'s kernel on the output of :func:`prepare` and
-    the weights ``wt`` of :func:`pack_rung_weight`.  Returns the float32
-    gates ``(B, H, W, 4C)`` for C, else (h in ``c_prev``'s dtype, c
-    float32).  Counts nothing: the wrappers do."""
+    the weights ``wt`` of :func:`.convlstm_fused.pack_gate_weight`.  Returns
+    the float32 gates ``(B, H, W, 4C)`` for C, else (h in ``c_prev``'s
+    dtype, c float32).  Counts nothing: the wrappers do."""
     rung = _CONV_RUNGS[key]
     B, H, W, C = c_prev.shape
     cin = xin.shape[-1]
@@ -224,7 +212,7 @@ def _conv_rung(key, wrapper, x, w, b, c_prev, rows=None):
     _check(x, w, b, c_prev, rows)
     if c_prev.device.type == "cpu":
         return plain(key, x, w, b, c_prev)
-    out = launch(key, prepare(key, x, rows), pack_rung_weight(w), b, c_prev, rows,
+    out = launch(key, prepare(key, x, rows), pack_gate_weight(w), b, c_prev, rows,
                  _stream(c_prev))
     wrapper.launches += 1
     if key == "C":  # the gate math after the kernel, plain as in the reference

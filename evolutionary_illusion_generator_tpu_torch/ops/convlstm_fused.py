@@ -5,23 +5,24 @@ The CUDA counterpart of the JAX package's ``ops/convlstm_fused_pallas.py``:
 and ``fused_convlstm_layer_multi`` (separate E / R / upsampled-R_above
 sources, Pallas body ``_kernel_multi``).  Both wrappers here launch the one
 kernel of ``csrc/convlstm_fused.cu``: the 3x3 SAME gate convolution over up
-to three sources, bias, gates and cell update in one pass, each source read
-in place.  It is bound by operations on the H100 (see the note in the
-source); this first version runs the products on the CUDA cores.
+to three sources on the tensor cores, bias, gates and cell update in one
+pass, each source read in place.  The wrapper picks the kernel's tile
+mapping per layer shape (:func:`tile_width`).
 
 Math (the Pallas kernels' contract): bfloat16 sources and weights, float32
 accumulation, float32 gates; ``h`` comes out in ``c_prev``'s dtype and ``c``
 in float32.
 
-Weights are taken in the kernel's layout ``(Cin, 9, C, 4)`` — input
-channel, tap ``ky * 3 + kx``, channel, gate [i, f, o, g] — made once from
-an HWIO ``(3, 3, Cin, 4C)`` gate kernel by :func:`pack_gate_weight`
+Weights are taken in the kernel's layout ``(9, C, 4, Cin)`` — tap
+``ky * 3 + kx``, channel, gate [i, f, o, g], input channel, so that a chunk
+of input channels of one output is contiguous — made once from an HWIO
+``(3, 3, Cin, 4C)`` gate kernel by :func:`pack_gate_weight`
 (``models/prednet/loader.py`` does so when it loads the weights).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +33,9 @@ from .convlstm_gates import lstm_gates_plain
 __all__ = [
     "pack_gate_weight",
     "unpack_gate_weight",
+    "tile_candidates",
+    "tile_width",
+    "launch",
     "fused_convlstm_layer",
     "fused_convlstm_layer_multi",
     "gate_conv_plain",
@@ -43,19 +47,18 @@ MAX_SOURCES = 3
 
 def pack_gate_weight(w_hwio: torch.Tensor) -> torch.Tensor:
     """HWIO ``(3, 3, Cin, 4C)`` gate kernel (gate-major output channels)
-    -> the kernel's bfloat16 ``(Cin, 9, C, 4)`` layout."""
+    -> the kernels' bfloat16 ``(9, C, 4, Cin)`` layout."""
     kh, kw, cin, c4 = w_hwio.shape
     if (kh, kw) != (3, 3) or c4 % 4:
         raise ValueError(f"need a (3, 3, Cin, 4C) kernel, got {tuple(w_hwio.shape)}")
-    w = w_hwio.float().reshape(3, 3, cin, 4, c4 // 4)  # (ky, kx, ci, gate, c)
-    w = w.permute(2, 0, 1, 4, 3).reshape(cin, 9, c4 // 4, 4)
-    return w.to(torch.bfloat16).contiguous()
+    w = w_hwio.to(torch.bfloat16).reshape(3, 3, cin, 4, c4 // 4)  # (ky, kx, ci, gate, c)
+    return w.permute(0, 1, 4, 3, 2).reshape(9, c4 // 4, 4, cin).contiguous()
 
 
 def unpack_gate_weight(wk: torch.Tensor) -> torch.Tensor:
-    """Kernel layout ``(Cin, 9, C, 4)`` -> OIHW ``(4C, Cin, 3, 3)``."""
-    cin, _, C, _ = wk.shape
-    return wk.reshape(cin, 3, 3, C, 4).permute(4, 3, 0, 1, 2).reshape(4 * C, cin, 3, 3)
+    """Kernel layout ``(9, C, 4, Cin)`` -> OIHW ``(4C, Cin, 3, 3)``."""
+    _, C, _, cin = wk.shape
+    return wk.reshape(3, 3, C, 4, cin).permute(3, 2, 4, 0, 1).reshape(4 * C, cin, 3, 3)
 
 
 def gate_conv_plain(srcs: Sequence[torch.Tensor], wks: Sequence[torch.Tensor],
@@ -91,18 +94,48 @@ def _check(srcs, wks, b, c_prev) -> None:
     for x, wk in zip(srcs, wks):
         if x.dim() != 4 or tuple(x.shape[:3]) != (B, H, W):
             raise ValueError(f"source {tuple(x.shape)} does not match c_prev {tuple(c_prev.shape)}")
-        if tuple(wk.shape) != (x.shape[3], 9, C, 4):
+        if tuple(wk.shape) != (9, C, 4, x.shape[3]):
             raise ValueError(
                 f"weight {tuple(wk.shape)} is not the kernel layout "
-                f"({x.shape[3]}, 9, {C}, 4) for source {tuple(x.shape)}"
+                f"(9, {C}, 4, {x.shape[3]}) for source {tuple(x.shape)}"
             )
     devices = {t.device for t in (*srcs, *wks, b, c_prev)}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
 
 
-def _launch(srcs, wks, b, c_prev, stream: int):
-    """Run ``csrc/convlstm_fused.cu`` on device tensors; returns (h, c)."""
+# the kernel's block: TILE_PIXELS output pixels x 16 channels (csrc/convlstm_fused.cu TM)
+TILE_PIXELS = 128
+
+
+def _tiles(B: int, H: int, W: int, tw: int):
+    """(blocks per channel group, halo slab pixels) of strip width ``tw``,
+    as csrc/convlstm_fused.cu lays them out."""
+    tile_rows = TILE_PIXELS // tw if TILE_PIXELS % tw == 0 else (TILE_PIXELS + tw - 2) // tw + 1
+    blocks = -(-W // tw) * -(-B * H * tw // TILE_PIXELS)
+    return blocks, (tile_rows + 2) * (tw + 2)
+
+
+def tile_candidates(W: int):
+    """Strip widths worth trying at image width ``W``: 4-32 columns, and the
+    whole row (the flattened batch) where its halo slab stays small."""
+    widths = {tw for tw in (4, 8, 16, 32) if tw <= W}
+    if W <= 64:
+        widths.add(W)
+    return sorted(widths)
+
+
+def tile_width(B: int, H: int, W: int) -> int:
+    """The kernel's strip width for a ``(B, H, W)`` layer: the fewest blocks
+    (so the fewest pixels computed past the image edge), then the smallest
+    halo slab, then the wider strip."""
+    return min(tile_candidates(W), key=lambda tw: (*_tiles(B, H, W, tw), -tw))
+
+
+def launch(srcs, wks, b, c_prev, stream: int, tw: Optional[int] = None):
+    """Run ``csrc/convlstm_fused.cu`` on device tensors with strip width
+    ``tw`` (default :func:`tile_width`); returns (h, c).  Counts nothing:
+    the wrappers do."""
     for t in (*srcs, *wks):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"sources and weights must be bfloat16, got {t.dtype}")
@@ -110,6 +143,10 @@ def _launch(srcs, wks, b, c_prev, stream: int):
         raise TypeError(f"c_prev must be float32 or bfloat16, got {c_prev.dtype}")
     if not all(t.is_contiguous() for t in (*srcs, *wks, c_prev)):
         raise ValueError("sources, weights and c_prev must be contiguous")
+    B, H, W, C = c_prev.shape
+    tw = tile_width(B, H, W) if tw is None else tw
+    if not 1 <= tw <= W:
+        raise ValueError(f"strip width {tw} outside 1..{W}")
     bias = b.float().contiguous()
     h = torch.empty_like(c_prev)
     c = torch.empty(c_prev.shape, dtype=torch.float32, device=c_prev.device)
@@ -119,11 +156,10 @@ def _launch(srcs, wks, b, c_prev, stream: int):
             args += [srcs[s].data_ptr(), wks[s].data_ptr(), srcs[s].shape[3]]
         else:
             args += [None, None, 0]
-    B, H, W, C = c_prev.shape
     rc = _build.library().eigen_convlstm_fused(
         *args, len(srcs), bias.data_ptr(), c_prev.data_ptr(),
         int(c_prev.dtype == torch.bfloat16), h.data_ptr(), c.data_ptr(),
-        B, H, W, C, stream,
+        B, H, W, C, tw, stream,
     )
     if rc != 0:
         raise RuntimeError(f"convlstm_fused kernel launch failed: CUDA error {rc}")
@@ -138,7 +174,7 @@ def _run(srcs, wks, b, c_prev, wrapper):
         return convlstm_layer_plain(srcs, wks, b, c_prev)
     if c_prev.device.type != "cuda":
         raise ValueError(f"unsupported device {c_prev.device}")
-    out = _launch(srcs, wks, b, c_prev, torch.cuda.current_stream(c_prev.device).cuda_stream)
+    out = launch(srcs, wks, b, c_prev, torch.cuda.current_stream(c_prev.device).cuda_stream)
     wrapper.launches += 1
     return out
 
@@ -151,7 +187,7 @@ def fused_convlstm_layer_multi(srcs: Sequence[torch.Tensor],
     Args:
       srcs: 1..3 NHWC ``(B, H, W, Cin_s)`` bfloat16 sources (E, R,
         upsampled R_above).
-      wks: their weight slices in the kernel layout ``(Cin_s, 9, C, 4)``.
+      wks: their weight slices in the kernel layout ``(9, C, 4, Cin_s)``.
       b: ``(4C,)`` bias.
       c_prev: ``(B, H, W, C)`` previous cell state, float32 or bfloat16.
     Returns:
@@ -163,7 +199,7 @@ def fused_convlstm_layer_multi(srcs: Sequence[torch.Tensor],
 def fused_convlstm_layer(x: torch.Tensor, wk: torch.Tensor, b: torch.Tensor,
                          c_prev: torch.Tensor):
     """ConvLSTM layer update from one concatenated input ``x``
-    ``(B, H, W, Cin)`` with the full gate kernel ``wk`` ``(Cin, 9, C, 4)``;
+    ``(B, H, W, Cin)`` with the full gate kernel ``wk`` ``(9, C, 4, Cin)``;
     otherwise as :func:`fused_convlstm_layer_multi`."""
     return _run([x], [wk], b, c_prev, fused_convlstm_layer)
 

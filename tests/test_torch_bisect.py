@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from evolutionary_illusion_generator_tpu_torch.ops import convlstm_bisect as cb
+from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused
 from evolutionary_illusion_generator_tpu_torch.scripts import kernel_bisect as kb
 
 # the suite runs in several worker processes: one torch thread each keeps
@@ -123,14 +124,22 @@ def test_glue_matches_the_reference(aligned):
 
 
 def test_pack_rung_weight_layout():
-    """(9, C, 4, Cin)[ky*3+kx, c, g, ci] == HWIO[ky, kx, ci, g*C + c]."""
+    """The rung kernels take the fused kernel's layout from the one packer:
+    (9, C, 4, Cin)[ky*3+kx, c, g, ci] == HWIO[ky, kx, ci, g*C + c]; a
+    weight in another layout is refused."""
     rng = np.random.default_rng(4)
-    w = torch.from_numpy(rng.normal(0, 1, (3, 3, 5, 4 * 6)).astype(np.float32))
-    wt = cb.pack_rung_weight(w)
-    assert wt.shape == (9, 6, 4, 5) and wt.dtype == torch.bfloat16 and wt.is_contiguous()
+    w = torch.from_numpy(rng.normal(0, 1, (3, 3, 7, 4 * 3)).astype(np.float32))
+    wt = cb.pack_gate_weight(w)
+    assert cb.pack_gate_weight is convlstm_fused.pack_gate_weight
+    assert wt.shape == (9, 3, 4, 7) and wt.dtype == torch.bfloat16 and wt.is_contiguous()
     ref = w.bfloat16()
-    for ci, ky, kx, c, g in [(0, 0, 0, 0, 0), (4, 2, 1, 5, 3), (2, 1, 2, 3, 1)]:
-        assert wt[ky * 3 + kx, c, g, ci] == ref[ky, kx, ci, g * 6 + c]
+    for ci, ky, kx, c, g in [(0, 0, 0, 0, 0), (6, 2, 1, 2, 3), (3, 1, 2, 1, 1)]:
+        assert wt[ky * 3 + kx, c, g, ci] == ref[ky, kx, ci, g * 3 + c]
+    x = torch.zeros(1, 4, 4, 7)
+    c_prev = torch.zeros(1, 4, 4, 3)
+    with pytest.raises(ValueError, match=r"\(9, 3, 4, 7\)"):
+        cb.launch("D", cb.prepare("D", x), wt.reshape(7, 9, 3, 4), torch.zeros(12), c_prev,
+                  None, 0)
 
 
 @pytest.mark.parametrize("key", list(kb.ROW_BLOCK_KEYS))

@@ -93,14 +93,39 @@ def test_fused_multi_matches_pallas():
 
 
 def test_pack_gate_weight_layout():
-    """(Cin, 9, C, 4)[ci, ky*3+kx, c, g] == HWIO[ky, kx, ci, g*C + c]."""
+    """(9, C, 4, Cin)[ky*3+kx, c, g, ci] == HWIO[ky, kx, ci, g*C + c], and
+    unpack_gate_weight gives the OIHW kernel back."""
     rng = np.random.default_rng(4)
     w = rng.normal(0, 1, (3, 3, 5, 4 * 6)).astype(np.float32)
     wk = pack_gate_weight(torch.as_tensor(w))
-    assert wk.shape == (5, 9, 6, 4) and wk.dtype == torch.bfloat16 and wk.is_contiguous()
+    assert wk.shape == (9, 6, 4, 5) and wk.dtype == torch.bfloat16 and wk.is_contiguous()
     ref = torch.as_tensor(w).bfloat16()
     for ci, ky, kx, c, g in [(0, 0, 0, 0, 0), (4, 2, 1, 5, 3), (2, 1, 2, 3, 1)]:
-        assert wk[ci, ky * 3 + kx, c, g] == ref[ky, kx, ci, g * 6 + c]
+        assert wk[ky * 3 + kx, c, g, ci] == ref[ky, kx, ci, g * 6 + c]
+    assert torch.equal(convlstm_fused.unpack_gate_weight(wk), ref.permute(3, 2, 0, 1))
+
+
+@pytest.mark.parametrize("shape,tw", [
+    ((8, 60, 80), 16),   # layer 1 of the main path: 8 x 16 tiles, no pixel wasted
+    ((8, 30, 40), 8),    # layer 2: 16 x 8 tiles, no pixel wasted
+    ((8, 15, 20), 20),   # layer 3: the flattened batch, 19 blocks against 20 at tw=4
+    ((25, 240, 320), 16),
+    ((1, 13, 21), 8),    # 3 blocks as at tw=21, with the smaller slab
+])
+def test_tile_width_picks_fewest_blocks(shape, tw):
+    """The wrapper's tile mapping: the fewest blocks, then the smallest
+    halo slab (chip_smoke.py's tile sweep times every candidate)."""
+    assert convlstm_fused.tile_width(*shape) == tw
+    assert tw in convlstm_fused.tile_candidates(shape[2])
+
+
+def test_launch_rejects_a_bad_tile_width():
+    srcs, ws, b, c_prev = _layer_inputs(8, 1, 4, 6, (8,), 4)
+    args = ([torch.as_tensor(srcs[0]).bfloat16()], [pack_gate_weight(torch.as_tensor(ws[0]))],
+            torch.as_tensor(b), torch.as_tensor(c_prev))
+    for tw in (0, 7):
+        with pytest.raises(ValueError, match="strip width"):
+            convlstm_fused.launch(*args, stream=0, tw=tw)
 
 
 def test_cpu_calls_are_not_launches():
@@ -159,17 +184,39 @@ def test_cuda_gates_kernel_matches_plain():
     torch.testing.assert_close(c, c_p, atol=GATES_ATOL, rtol=0)
 
 
+# (B, H, W, source channels, C): the main path's three layers at a chunk of
+# 2, then ragged shapes — image edges inside a tile, channel counts not a
+# multiple of 16 (40) or of 8 (12), C not a multiple of 16
+FUSED_CASES = {
+    "layer1": (2, 60, 80, (96, 48, 96), 48),
+    "layer2": (2, 30, 40, (192, 96, 192), 96),
+    "layer3": (2, 15, 20, (384, 192), 192),
+    "single": (2, 60, 80, (240,), 48),
+    "ragged1": (2, 13, 21, (40,), 24),
+    "ragged2": (2, 13, 21, (40, 12), 24),
+    "ragged3": (2, 13, 21, (12, 40, 24), 24),
+}
+
+
 @pytest.mark.cuda
-def test_cuda_fused_kernel_matches_plain():
+@pytest.mark.parametrize("state", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_cuda_fused_kernel_matches_plain(case, state):
     _cuda_or_skip()
-    srcs, ws, b, c_prev = _layer_inputs(7, 2, 15, 20, (96, 48, 96), 48)
+    B, H, W, cins, C = FUSED_CASES[case]
+    srcs, ws, b, c_prev = _layer_inputs(7, B, H, W, cins, C)
     srcs = [torch.as_tensor(s).cuda().bfloat16() for s in srcs]
     wks = [pack_gate_weight(torch.as_tensor(w)).cuda() for w in ws]
     b = torch.as_tensor(b).cuda()
-    c_prev = torch.as_tensor(c_prev).cuda().bfloat16()
-    h, c = fused_convlstm_layer_multi(srcs, wks, b, c_prev)
+    c_prev = torch.as_tensor(c_prev).cuda().to(getattr(torch, state))
+    wrapper = fused_convlstm_layer_multi if len(cins) > 1 else fused_convlstm_layer
+    n = wrapper.launches
+    h, c = (wrapper(srcs, wks, b, c_prev) if len(cins) > 1
+            else wrapper(srcs[0], wks[0], b, c_prev))
     torch.cuda.synchronize()
+    assert wrapper.launches == n + 1
     h_p, c_p = convlstm_fused.convlstm_layer_plain(srcs, wks, b, c_prev)
-    # h is bfloat16: one rounding flip is 2**-8 at |h| < 1
+    assert h.dtype == h_p.dtype
+    # h in bfloat16 state: one rounding flip is 2**-8 at |h| < 1
     torch.testing.assert_close(h.float(), h_p.float(), atol=1e-2, rtol=0)
     torch.testing.assert_close(c, c_p, atol=1e-4, rtol=0)

@@ -132,6 +132,37 @@ def test_wide_layer_matches_jax_fused_path():
     np.testing.assert_allclose(tf[1].numpy(), np.asarray(jf[1]), atol=BF16_ATOL, rtol=0)
 
 
+# One bf16 step of the wide layers against the JAX default path.  The JAX
+# default rounds each source's gate conv to bfloat16 and adds them, and does
+# the gate math, in bfloat16; the port sums in float32 and rounds once.
+# From the same state that moves a few elements by one or two bfloat16 ulps
+# (2**-7 at |x| in [1, 2), 2**-6 at [2, 4)); 1.2e-2 max, 4.5e-4 mean
+# measured over four seeds.
+WIDE_STEP_ATOL = 2e-2
+WIDE_STEP_MEAN = 2e-3
+
+
+def test_wide_layer_step_matches_jax_default_path():
+    """Layer 1 of (3, 48, 96) reads E 96, R 48 and R_above 96 — the main
+    path's layer-1 sources — through the fused kernel's route; layer 2
+    (C = 96) too.  One step from a state the JAX default path made."""
+    channels = (3, 48, 96)
+    jp, tp = _both(_numpy_params(channels, seed=2), "bfloat16")
+    img = np.random.default_rng(5).uniform(0, 1, (2, 16, 24, 3)).astype(np.float32)
+    jax_step = jax.jit(jm.prednet_step, static_argnames=("compute_dtype",))
+    js = jm.init_state(2, 16, 24, channels, dtype=jnp.bfloat16)
+    for _ in range(3):  # past step 1, so every state is nonzero
+        js, _ = jax_step(jp, js, jnp.asarray(img), compute_dtype=jnp.bfloat16)
+    ts = [{k: torch.from_numpy(np.asarray(v, np.float32)).bfloat16() for k, v in l.items()}
+          for l in js]
+    js, jpred = jax_step(jp, js, jnp.asarray(img), compute_dtype=jnp.bfloat16)
+    ts, tpred = model.prednet_step(tp, ts, torch.as_tensor(img), compute_dtype=torch.bfloat16)
+    pairs = [(tpred, jpred)] + [(ts[l][k], js[l][k]) for l in range(3) for k in "rce"]
+    for t, j in pairs:
+        d = np.abs(t.float().numpy() - np.asarray(j, np.float32))
+        assert d.max() <= WIDE_STEP_ATOL and d.mean() <= WIDE_STEP_MEAN
+
+
 def test_peephole_layer_keeps_plain_gate_math():
     channels = (1, 4)
     layers = _numpy_params(channels)
