@@ -23,9 +23,11 @@ Phases, each printing its wall time and raising on failure:
 8. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
    its north-star layer-1 shape (``--big --rows 48``, all ten rungs);
    asserts each rung's launch count, then holds each of the seven rung
-   kernels against its plain version on the card and times the kernel,
-   its host glue (padding, window stack), the plain version and a library
-   yardstick.
+   kernels against its plain version on the card and times the kernel
+   (with its TFLOP/s), its host glue (padding, window stack), the plain
+   version and a library yardstick (and cuDNN's conv alone); holds the
+   wgmma rungs C and D against float64 sums on two images, and against
+   their plain versions at the tests' ragged and wide shapes.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -35,6 +37,7 @@ without a card or without the port beside it.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -94,6 +97,14 @@ BISECT_RUNGS = {  # ladder key -> (kernel name, line of the Pallas function)
     "H": ("variant_H", 192), "E": ("variant_E", 245), "J": ("variant_E2", 300),
     "I": ("variant_H2", 365),
 }
+WGMMA_RUNGS = "CD"  # in csrc/bisect_wgmma.cu; the others in csrc/convlstm_bisect.cu
+# (B, H, W, Cin, C) of tests/test_torch_bisect.py's ragged and wide shapes,
+# and a Cin that is not a multiple of 8 with a C that is not a multiple of 4:
+# rungs C and D against their plain versions on the card at every
+# channel-group width (N 64, 192 and 128), both main loops (TMA, cp.async)
+# and both ways of each epilogue (C's 16-byte or 4-byte stores, D's c_prev
+# staged or read in place)
+BISECT_SHAPES = ((2, 16, 20, 24, 8), (2, 24, 70, 40, 72), (2, 5, 66, 12, 18))
 
 
 def log(msg):
@@ -160,9 +171,13 @@ def build():
     from evolutionary_illusion_generator_tpu_torch import _build
 
     _build.library()
+    kernel = ""
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+        entry = re.search(r"Compiling entry function .*?(?<=\d)([a-z][a-z_]*_kernel)(I\w*?)EEv", line)
+        if entry:  # the kernel's name and its mangled template arguments
+            kernel = entry.group(1) + entry.group(2)
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {kernel}: " + line.split(":", 1)[-1].strip())
 
 
 def _layer_inputs(gen, params, layer, H, W, cins):
@@ -545,17 +560,19 @@ def bisect():
     c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).bfloat16()
     wk = cf.pack_gate_weight(w)  # the kernels', the plain version's and the yardstick's layout
     stream = torch.cuda.current_stream().cuda_stream
-    source = "evolutionary_illusion_generator_tpu_torch/csrc/convlstm_bisect.cu"
+    csrc = "evolutionary_illusion_generator_tpu_torch/csrc/"
     results = {}
 
     def row(key, err, ms, plain_ms, library_ms, flops, peak, moved):
         name, line = BISECT_RUNGS[key]
         b_ms, b_by = bound_ms(flops, moved, peak)
+        source = csrc + ("bisect_wgmma.cu" if key in WGMMA_RUNGS else "convlstm_bisect.cu")
         results[name] = dict(route="cuda", source=source,
                              replaces=f"scripts/pallas_bisect.py:{line}", max_abs_err=err,
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=library_ms)
-        log(f"  {name} ({key}): err {err:.2e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        rate = f" ({flops / ms / 1e9:.1f} TFLOP/s)" if peak == PEAK_BF16_FLOPS else ""
+        log(f"  {name} ({key}): err {err:.2e} kernel {ms:.4f} ms{rate} plain {plain_ms:.4f} ms "
             f"library {library_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
 
     # A: float32(c_prev) * 2; the yardstick is one torch.mul into a float32 out
@@ -587,6 +604,9 @@ def bisect():
         return (torch.sigmoid(o) * torch.tanh(cc)).to(c_prev.dtype), cc
 
     flops = 2.0 * B * H * W * 9 * Cin * 4 * C
+    conv_ms = cuda_ms(lambda: F.conv2d(xp.permute(0, 3, 1, 2), w_cl), 5, warmup=1)
+    log(f"  cuDNN bf16 conv of xp alone: {conv_ms:.4f} ms ({flops / conv_ms / 1e9:.1f} TFLOP/s); "
+        f"the library yardstick of C adds the float32 cast and the bias to it")
     for key in "CDHEIJ":
         rows = BISECT_ROWS if key in kb.ROW_BLOCK_KEYS else None
         xin = cb.prepare(key, x, rows)
@@ -617,6 +637,7 @@ def bisect():
             flops, PEAK_BF16_FLOPS,
             nbytes(xin, wk, b, *outs, *(() if key == "C" else (c_prev,))))
         del xin, out, outs
+    check_wgmma_rungs(x, wk, b, c_prev, stream)
     # ladder key F's kernel alone (the fused kernel on the unpadded input,
     # weights packed once), against rung E's kernel above
     out = cf.launch([x], [wk], b, c_prev, stream)
@@ -626,6 +647,63 @@ def bisect():
     log(f"  fused kernel (F) at --big: err {err:.2e} kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s), tw={cf.tile_width(B, H, W)}")
     return results, counts
+
+
+def check_wgmma_rungs(x, wk, b, c_prev, stream):
+    """Rungs C and D (wgmma, two levels of float32 sums): on two images of
+    the --big inputs, the kernel's mean |gates - float64 gates| (C) and
+    mean |c - float64 c| (D) may be no larger than the plain version's; and
+    both against their plain versions at BISECT_SHAPES, both state types."""
+    import torch
+    import torch.nn.functional as F
+
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_bisect as cb
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
+
+    x2, c2 = x[:2].contiguous(), c_prev[:2].contiguous()
+    C = c2.shape[-1]
+    g64 = (F.conv2d(x2.double().permute(0, 3, 1, 2), cf.unpack_gate_weight(wk).double(), padding=1)
+           .permute(0, 2, 3, 1) + b.double())
+    i, f, o, g = g64.split(C, dim=-1)
+    c64 = torch.sigmoid(f) * c2.double() + torch.sigmoid(i) * torch.tanh(g)
+    gates_p = cf.gate_conv_plain([x2], [wk], b)
+    c_p = cf.lstm_gates_plain(gates_p, c2)[1]
+    xp2 = cb.prepare("C", x2)
+    gates = cb.launch("C", xp2, wk, b, c2, None, stream)
+    c = cb.launch("D", xp2, wk, b, c2, None, stream)[1]
+    torch.cuda.synchronize()
+    for key, got, plain, ref in (("C", gates, gates_p, g64), ("D", c, c_p, c64)):
+        drift, drift_p = ((t.double() - ref).abs().mean().item() for t in (got, plain))
+        what = "gates" if key == "C" else "c"
+        log(f"  rung {key} on 2 images: mean |{what} - {what}_float64| kernel {drift:.3e} "
+            f"plain {drift_p:.3e}")
+        if not drift <= drift_p:
+            raise AssertionError(f"rung {key}: mean |{what} - {what}_float64| {drift:.3e} above "
+                                 f"the plain version's {drift_p:.3e}")
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for B, H, W, Cin, C in BISECT_SHAPES:
+        x = torch.randn(B, H, W, Cin, device="cuda", generator=gen).bfloat16()
+        w = torch.randn(3, 3, Cin, 4 * C, device="cuda", generator=gen).mul_(0.05).bfloat16()
+        b = torch.randn(4 * C, device="cuda", generator=gen).mul_(0.1).bfloat16()
+        wk, xp = cf.pack_gate_weight(w), cb.pad_input(x)
+        errs = []
+        for state in (torch.float32, torch.bfloat16):
+            c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).to(state)
+            gates = cb.launch("C", xp, wk, b, c_prev, None, stream)
+            h, c = cb.launch("D", xp, wk, b, c_prev, None, stream)
+            h_p, c_p = cb.plain("D", x, w, b, c_prev)
+            torch.cuda.synchronize()
+            eg = (gates - cf.gate_conv_plain([x], [wk], b)).abs().max().item()
+            eh = (h.float() - h_p.float()).abs().max().item()
+            ec = (c - c_p).abs().max().item()
+            if not (h.dtype == h_p.dtype and eg <= BISECT_GATES_TOL and eh <= H_TOL
+                    and ec <= C_TOL):
+                raise AssertionError(f"rungs C/D at {(B, H, W, Cin, C)} {state}: max abs err "
+                                     f"gates {eg} h {eh} c {ec}")
+            errs.append(max(eg, eh, ec))
+        log(f"  rungs C and D at {(B, H, W, Cin, C)}: max abs err {max(errs):.2e} "
+            f"(float32 and bfloat16 state)")
 
 
 def main():

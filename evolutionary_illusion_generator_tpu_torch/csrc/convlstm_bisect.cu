@@ -2,12 +2,16 @@
 // evolutionary_illusion_generator_tpu's scripts/pallas_bisect.py.
 //
 //   eigen_bisect_a   variant_A   c_prev * 2 as float32 (elementwise)
-//   eigen_bisect_c   variant_C   3x3 SAME conv of the padded input + bias -> float32 gates
-//   eigen_bisect_d   variant_D   C + gates + cell update, input read in place
-//   eigen_bisect_h   variant_H   D over row blocks of the window stack xh
-//   eigen_bisect_e   variant_E   D over row blocks, input staged with cp.async
+//   eigen_bisect_h   variant_H   conv + gates + cell update over row blocks of
+//                                the window stack xh, input read in place
+//   eigen_bisect_e   variant_E   H's function over row blocks of the padded
+//                                input xp, staged with cp.async
 //   eigen_bisect_i   variant_H2  H with windows of the aligned width Wp
 //   eigen_bisect_j   variant_E2  E with the padded width Wp
+//
+// Rungs C and D (eigen_bisect_c, eigen_bisect_d: the conv of the padded input
+// to float32 gates, and the same with the cell update) run on wgmma in
+// bisect_wgmma.cu.
 //
 // The wrappers, their plain versions and the host glue (zero padding to xp,
 // the window stack xh, the weight layout) are in ops/convlstm_bisect.py.
@@ -24,19 +28,18 @@
 // memory.  So the conv body runs on the tensor cores: the 9 shifted dots of
 // the reference are 9 products per chunk of input channels with
 // mma.sync.m16n8k16 (bfloat16 in, float32 sums), the warp-level instruction;
-// wgmma, TMA and a deeper pipeline are later work.
+// bisect_wgmma.cu has the warpgroup-level form of rungs C and D.
 //
-// Design.  A TPU grid step holds a whole padded image (C, D) or a whole
-// (rows+2) x (W+2) x Cin window (H, E): megabytes of VMEM.  A block here has
-// at most 227 KB of shared memory, so a block owns an 8 x 16 output tile of
-// one row block (`rows` is the row-block height the grid walks; the
-// whole-image rungs take rows = H) and a group of 16 channels with all four
-// gates (N = 64), and walks the input channels in chunks of 16, one k16 step
-// per tap.  Warp w computes tile row w: M = its 16 pixels, all 64 outputs,
+// Design.  A TPU grid step holds a whole (rows+2) x (W+2) x Cin window:
+// megabytes of VMEM.  A block here has at most 227 KB of shared memory, so a
+// block owns an 8 x 16 output tile of one row block (`rows` is the row-block
+// height the grid walks) and a group of 16 channels with all four gates
+// (N = 64), and walks the input channels in chunks of 16, one k16 step per
+// tap.  Warp w computes tile row w: M = its 16 pixels, all 64 outputs,
 // 8 mma tiles of 16 x 8.  Per chunk the 9 x 64 x 16 weight slice goes into
 // shared memory with cp.async, two chunks in flight.  What the rungs vary is
 // how the halo'd input reaches the A operand:
-//   - in place (C, D from xp; H, I from xh): each thread loads its fragment
+//   - in place (H, I from xh): each thread loads its fragment
 //     (2 pixels x 2 pairs of channels per tap) as 4-byte reads from device
 //     memory, through L1;
 //   - staged (E, J, the Pallas make_async_copy): the (10 x 18) x 16-channel
@@ -47,7 +50,7 @@
 // Shared-memory rows are padded from 16 to 24 values so that the 8 rows a
 // fragment load touches fall in distinct banks.  After the last chunk the
 // accumulators go through shared memory, so that one thread holds the four
-// gates of a (pixel, channel) for the epilogue (gates, or the cell update).
+// gates of a (pixel, channel) for the epilogue, the cell update.
 
 #include <cstdint>
 
@@ -72,7 +75,7 @@ constexpr int EP = NOUT + 4;  // epilogue row of floats
 
 static_assert(TH * TW * EP * 4 <= STAGES * WS_ELEMS * 2, "the epilogue fits in the weight buffers");
 
-enum class Input { kPadded, kWindows, kStaged };
+enum class Input { kWindows, kStaged };
 
 template <Input IN>
 constexpr int smem_bytes() {
@@ -81,7 +84,7 @@ constexpr int smem_bytes() {
 
 struct Geometry {
   int B, H, W, cin, C;
-  int rows;   // row-block height (H for the whole-image rungs); H % rows == 0
+  int rows;   // row-block height; H % rows == 0
   int pitch;  // pixels per padded row: W + 2, or Wp for the aligned rungs
   int tiles_x, tiles_y;  // output tiles per row block
 };
@@ -92,7 +95,7 @@ using eigen::cp_async_wait;
 using eigen::ld_pair;
 using eigen::mma16816;
 
-template <Input IN, bool FUSE, typename ST>
+template <Input IN, typename ST>
 __global__ void __launch_bounds__(NT)
     bisect_conv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
                        const float* __restrict__ bias, const ST* __restrict__ c_prev,
@@ -250,22 +253,14 @@ __global__ void __launch_bounds__(NT)
     const float gf = gv[1] + bias[g.C + c];
     const float go = gv[2] + bias[2 * g.C + c];
     const float gg = gv[3] + bias[3 * g.C + c];
-    if constexpr (FUSE) {
-      const long long o = pix * g.C + c;
-      const float cn = eigen::sigmoid(gf) * eigen::to_float(c_prev[o]) + eigen::sigmoid(gi) * tanhf(gg);
-      out[o] = cn;
-      h_out[o] = eigen::from_float<ST>(eigen::sigmoid(go) * tanhf(cn));
-    } else {
-      float* o = out + pix * 4 * g.C + c;
-      o[0] = gi;
-      o[g.C] = gf;
-      o[2 * g.C] = go;
-      o[3 * g.C] = gg;
-    }
+    const long long o = pix * g.C + c;
+    const float cn = eigen::sigmoid(gf) * eigen::to_float(c_prev[o]) + eigen::sigmoid(gi) * tanhf(gg);
+    out[o] = cn;
+    h_out[o] = eigen::from_float<ST>(eigen::sigmoid(go) * tanhf(cn));
   }
 }
 
-template <Input IN, bool FUSE, typename ST>
+template <Input IN, typename ST>
 int launch_conv(const void* x, const void* wt, const void* bias, const void* c_prev, void* h_out,
                 void* out, Geometry g, void* stream) {
   if (g.rows <= 0 || g.H % g.rows != 0 || g.pitch < g.W + 2) return (int)cudaErrorInvalidValue;
@@ -275,10 +270,10 @@ int launch_conv(const void* x, const void* wt, const void* bias, const void* c_p
   const dim3 grid((unsigned)(g.H / g.rows * g.tiles_y * g.tiles_x), (unsigned)((g.C + CG - 1) / CG),
                   (unsigned)g.B);
   const int bytes = smem_bytes<IN>();  // above the 48 KB of static shared memory
-  const cudaError_t rc = cudaFuncSetAttribute(bisect_conv_kernel<IN, FUSE, ST>,
+  const cudaError_t rc = cudaFuncSetAttribute(bisect_conv_kernel<IN, ST>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return (int)rc;
-  bisect_conv_kernel<IN, FUSE, ST><<<grid, NT, bytes, (cudaStream_t)stream>>>(
+  bisect_conv_kernel<IN, ST><<<grid, NT, bytes, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)wt, (const float*)bias, (const ST*)c_prev,
       (ST*)h_out, (float*)out, g);
   return (int)cudaGetLastError();
@@ -288,8 +283,8 @@ template <Input IN>
 int launch_fused(const void* x, const void* wt, const void* bias, const void* c_prev,
                  int state_bf16, void* h_out, void* c_out, Geometry g, void* stream) {
   if (state_bf16)
-    return launch_conv<IN, true, __nv_bfloat16>(x, wt, bias, c_prev, h_out, c_out, g, stream);
-  return launch_conv<IN, true, float>(x, wt, bias, c_prev, h_out, c_out, g, stream);
+    return launch_conv<IN, __nv_bfloat16>(x, wt, bias, c_prev, h_out, c_out, g, stream);
+  return launch_conv<IN, float>(x, wt, bias, c_prev, h_out, c_out, g, stream);
 }
 
 template <typename T>
@@ -323,22 +318,8 @@ extern "C" int eigen_bisect_a(const void* c_prev, int c_prev_bf16, void* out, lo
 // cin) bfloat16, the window stack (pitch = W + 2, or Wp for I); wt: (9, C, 4,
 // cin) bfloat16, [tap][channel][gate][input channel]; bias: (4C,) float32;
 // c_prev and h_out: (B, H, W, C) float32 or bfloat16 (state_bf16 != 0);
-// c_out: (B, H, W, C) float32; gates (C only): (B, H, W, 4C) float32.  All
-// contiguous.  Each launches on `stream` and returns the CUDA error of the
-// launch.
-extern "C" int eigen_bisect_c(const void* xp, const void* wt, const void* bias, void* gates,
-                              int B, int H, int W, int cin, int C, void* stream) {
-  const Geometry g{B, H, W, cin, C, H, W + 2, 0, 0};
-  return launch_conv<Input::kPadded, false, float>(xp, wt, bias, nullptr, nullptr, gates, g, stream);
-}
-
-extern "C" int eigen_bisect_d(const void* xp, const void* wt, const void* bias, const void* c_prev,
-                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
-                              int cin, int C, void* stream) {
-  const Geometry g{B, H, W, cin, C, H, W + 2, 0, 0};
-  return launch_fused<Input::kPadded>(xp, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
-}
-
+// c_out: (B, H, W, C) float32.  All contiguous.  Each launches on `stream`
+// and returns the CUDA error of the launch.
 extern "C" int eigen_bisect_h(const void* xh, const void* wt, const void* bias, const void* c_prev,
                               int state_bf16, void* h_out, void* c_out, int B, int H, int W,
                               int cin, int C, int rows, void* stream) {

@@ -12,15 +12,17 @@ key    wrapper         what the kernel computes
 A      ``variant_A``   ``float32(c_prev) * 2``, returned as ``(out, out)``
 C      ``variant_C``   3x3 SAME conv + bias -> float32 gates (the gate math
                        after it is plain PyTorch, as it is XLA in the reference)
-D      ``variant_D``   conv + gates + cell update, reading ``xp`` in place
+D      ``variant_D``   conv + gates + cell update over ``xp``
 H      ``variant_H``   D over row blocks of the window stack ``xh``
 E      ``variant_E``   D over row blocks, staging the input with ``cp.async``
 I      ``variant_H2``  H with windows of the aligned width ``Wp``
 J      ``variant_E2``  E over ``xp`` padded to the aligned width ``Wp``
 =====  ==============  ==========================================================
 
-The kernels are ``csrc/convlstm_bisect.cu`` (its note says what bounds
-them on the H100 and how a block replaces a TPU grid step).  The host glue
+The kernels are ``csrc/bisect_wgmma.cu`` for C and D (warpgroup products,
+``wgmma``, fed by the TMA) and ``csrc/convlstm_bisect.cu`` for the others
+(``mma.sync``); their notes say what bounds them on the H100 and how a
+block replaces a TPU grid step.  The host glue
 the reference does in XLA stays in PyTorch here: the zero padding to ``xp``
 (:func:`pad_input`, to ``Wp = ceil16(W + 2)`` for I and J) and the
 materialised overlapped windows ``xh`` (:func:`window_stack`, H and I);
@@ -95,7 +97,7 @@ def reference(x, w, b, c_prev):
 
 
 class _Rung(NamedTuple):
-    entry: str        # C entry in csrc/convlstm_bisect.cu
+    entry: str        # C entry in csrc/bisect_wgmma.cu (C, D) or csrc/convlstm_bisect.cu
     windows: bool     # reads the window stack xh, else the padded input xp
     aligned: bool     # padded width Wp = aligned_width(W), else W + 2
     row_blocks: bool  # the grid walks row blocks of `rows`

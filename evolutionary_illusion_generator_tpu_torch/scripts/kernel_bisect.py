@@ -9,8 +9,8 @@ each run once against the plain reference and then timed::
 
   A  elementwise kernel, c_prev * 2                   (sanity)
   B  F.conv2d + the gates kernel (ops/convlstm_gates)
-  C  conv kernel to gates, then plain gate math       (the 9 shifted dots)
-  D  C + fused gate math, input read in place
+  C  conv kernel to gates, then plain gate math       (the 9 shifted dots; wgmma)
+  D  C + fused gate math in the same kernel (wgmma)
   H  D over row blocks of a materialised window stack
   E  D over row blocks, input staged with cp.async
   I  H with windows of the aligned width ceil16(W + 2)

@@ -4,10 +4,12 @@ Each rung of ``scripts/pallas_bisect.py`` runs its Pallas kernel in TPU
 interpret mode on the CPU; the port's wrapper in
 ``evolutionary_illusion_generator_tpu_torch.ops.convlstm_bisect`` runs its
 plain version on CPU tensors.  Both get the same numpy arrays (bfloat16
-values, made from a seed) at the ladder's default shape and at a ragged one
-(W not a multiple of the 16-pixel tile, Cin not a multiple of 16).  The
-``cuda`` tests hold each CUDA kernel against its plain version on a card
-and skip without one.
+values, made from a seed) at the ladder's default shape, at a ragged one
+(W not a multiple of the 16-pixel tile, Cin not a multiple of 16) and at a
+wide one (W not a multiple of the 64-pixel row tile of rungs C and D, Cin
+not a multiple of 16, 4C = 288 above the 192 gate outputs of one of their
+blocks).  The ``cuda`` tests hold each CUDA kernel against its plain
+version on a card, at every shape, and skip without one.
 """
 
 import importlib.util
@@ -23,6 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 from evolutionary_illusion_generator_tpu_torch.ops import convlstm_bisect as cb
 from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused
 from evolutionary_illusion_generator_tpu_torch.scripts import kernel_bisect as kb
+from evolutionary_illusion_generator_tpu_torch.scripts import wgmma_breakdown as wb
 
 # the suite runs in several worker processes: one torch thread each keeps
 # them from oversubscribing the cores
@@ -37,6 +40,7 @@ _spec.loader.exec_module(pb)
 SHAPES = {
     "default": (kb.DEFAULT_SHAPE, 32),
     "ragged": ((2, 16, 20, 24, 8), 8),
+    "wide": ((2, 24, 70, 40, 72), 8),
 }
 JAX_RUNGS = {"A": pb.variant_A, "C": pb.variant_C, "D": pb.variant_D, "H": pb.variant_H,
              "E": pb.variant_E, "I": pb.variant_H2, "J": pb.variant_E2}
@@ -212,6 +216,16 @@ def test_ladder_needs_a_card_or_the_cpu(monkeypatch):
         kb.main([])
 
 
+@pytest.mark.parametrize("name", list(wb.VARIANTS))
+def test_wgmma_breakdown_variants_apply(name):
+    """Each timing variant of rungs C and D still finds its text in
+    csrc/bisect_wgmma.cu once (the script raises otherwise), and all but
+    the kernel itself change it."""
+    source = wb._SOURCE.read_text()
+    variant = wb.variant_source(name)
+    assert (variant == source) == (name == "kernel")
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -219,10 +233,11 @@ def _cuda_or_skip():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SHAPES))
 @pytest.mark.parametrize("key", sorted(JAX_RUNGS))
-def test_cuda_rung_kernel_matches_plain(key):
+def test_cuda_rung_kernel_matches_plain(key, shape):
     _cuda_or_skip()
-    dims, rows = SHAPES["ragged"]
+    dims, rows = SHAPES[shape]
     args = [t.cuda() for t in _torch(_inputs(dims))]
     kw = {"rows": rows} if key in kb.ROW_BLOCK_KEYS else {}
     n = cb.RUNGS[key].launches
