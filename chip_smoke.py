@@ -26,8 +26,9 @@ Phases, each printing its wall time and raising on failure:
    kernels against its plain version on the card and times the kernel
    (with its TFLOP/s), its host glue (padding, window stack), the plain
    version and a library yardstick (and cuDNN's conv alone); holds the
-   wgmma rungs C and D against float64 sums on two images, and against
-   their plain versions at the tests' ragged and wide shapes.
+   wgmma rungs C, D, H and I against float64 sums on two images, and
+   against their plain versions at the tests' ragged, wide and odd-rows
+   shapes.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -97,14 +98,17 @@ BISECT_RUNGS = {  # ladder key -> (kernel name, line of the Pallas function)
     "H": ("variant_H", 192), "E": ("variant_E", 245), "J": ("variant_E2", 300),
     "I": ("variant_H2", 365),
 }
-WGMMA_RUNGS = "CD"  # in csrc/bisect_wgmma.cu; the others in csrc/convlstm_bisect.cu
-# (B, H, W, Cin, C) of tests/test_torch_bisect.py's ragged and wide shapes,
-# and a Cin that is not a multiple of 8 with a C that is not a multiple of 4:
-# rungs C and D against their plain versions on the card at every
-# channel-group width (N 64, 192 and 128), both main loops (TMA, cp.async)
-# and both ways of each epilogue (C's 16-byte or 4-byte stores, D's c_prev
-# staged or read in place)
-BISECT_SHAPES = ((2, 16, 20, 24, 8), (2, 24, 70, 40, 72), (2, 5, 66, 12, 18))
+WGMMA_RUNGS = "CDHI"  # in csrc/bisect_wgmma.cu; the others in csrc/convlstm_bisect.cu
+# ((B, H, W, Cin, C), rows) of tests/test_torch_bisect.py's ragged, wide and
+# odd-rows shapes, and a Cin that is not a multiple of 8 with a C that is not
+# a multiple of 4: rungs C, D, H and I against their plain versions on the
+# card at every channel-group width (N 64, 192 and 128), both main loops
+# (TMA, cp.async), both ways of each epilogue (C's 16-byte or 4-byte stores,
+# the c_prev tile staged or read in place), and for H and I windows of odd
+# `rows` (a row pair whose second row is past its window) through the
+# rank-5 map (rows 3, 7 windows) and the cp.async loop (rows 5, one window)
+BISECT_SHAPES = (((2, 16, 20, 24, 8), 8), ((2, 24, 70, 40, 72), 8), ((2, 5, 66, 12, 18), 5),
+                 ((2, 21, 70, 40, 18), 3))
 
 
 def log(msg):
@@ -650,10 +654,11 @@ def bisect():
 
 
 def check_wgmma_rungs(x, wk, b, c_prev, stream):
-    """Rungs C and D (wgmma, two levels of float32 sums): on two images of
-    the --big inputs, the kernel's mean |gates - float64 gates| (C) and
-    mean |c - float64 c| (D) may be no larger than the plain version's; and
-    both against their plain versions at BISECT_SHAPES, both state types."""
+    """Rungs C, D, H and I (wgmma, two levels of float32 sums): on two
+    images of the --big inputs, the kernel's mean |gates - float64 gates|
+    (C) and mean |c - float64 c| (D, H and I at rows 48) may be no larger
+    than the plain version's; and each against its plain version at
+    BISECT_SHAPES, both state types."""
     import torch
     import torch.nn.functional as F
 
@@ -668,13 +673,13 @@ def check_wgmma_rungs(x, wk, b, c_prev, stream):
     c64 = torch.sigmoid(f) * c2.double() + torch.sigmoid(i) * torch.tanh(g)
     gates_p = cf.gate_conv_plain([x2], [wk], b)
     c_p = cf.lstm_gates_plain(gates_p, c2)[1]
-    xp2 = cb.prepare("C", x2)
-    gates = cb.launch("C", xp2, wk, b, c2, None, stream)
-    c = cb.launch("D", xp2, wk, b, c2, None, stream)[1]
-    torch.cuda.synchronize()
-    for key, got, plain, ref in (("C", gates, gates_p, g64), ("D", c, c_p, c64)):
-        drift, drift_p = ((t.double() - ref).abs().mean().item() for t in (got, plain))
-        what = "gates" if key == "C" else "c"
+    for key in WGMMA_RUNGS:
+        rows = None if key in "CD" else BISECT_ROWS
+        out = cb.launch(key, cb.prepare(key, x2, rows), wk, b, c2, rows, stream)
+        torch.cuda.synchronize()
+        out, plain, ref, what = ((out, gates_p, g64, "gates") if key == "C"
+                                 else (out[1], c_p, c64, "c"))
+        drift, drift_p = ((t.double() - ref).abs().mean().item() for t in (out, plain))
         log(f"  rung {key} on 2 images: mean |{what} - {what}_float64| kernel {drift:.3e} "
             f"plain {drift_p:.3e}")
         if not drift <= drift_p:
@@ -682,7 +687,7 @@ def check_wgmma_rungs(x, wk, b, c_prev, stream):
                                  f"the plain version's {drift_p:.3e}")
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for B, H, W, Cin, C in BISECT_SHAPES:
+    for (B, H, W, Cin, C), rows in BISECT_SHAPES:
         x = torch.randn(B, H, W, Cin, device="cuda", generator=gen).bfloat16()
         w = torch.randn(3, 3, Cin, 4 * C, device="cuda", generator=gen).mul_(0.05).bfloat16()
         b = torch.randn(4 * C, device="cuda", generator=gen).mul_(0.1).bfloat16()
@@ -691,19 +696,24 @@ def check_wgmma_rungs(x, wk, b, c_prev, stream):
         for state in (torch.float32, torch.bfloat16):
             c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).to(state)
             gates = cb.launch("C", xp, wk, b, c_prev, None, stream)
-            h, c = cb.launch("D", xp, wk, b, c_prev, None, stream)
             h_p, c_p = cb.plain("D", x, w, b, c_prev)
             torch.cuda.synchronize()
             eg = (gates - cf.gate_conv_plain([x], [wk], b)).abs().max().item()
-            eh = (h.float() - h_p.float()).abs().max().item()
-            ec = (c - c_p).abs().max().item()
-            if not (h.dtype == h_p.dtype and eg <= BISECT_GATES_TOL and eh <= H_TOL
-                    and ec <= C_TOL):
-                raise AssertionError(f"rungs C/D at {(B, H, W, Cin, C)} {state}: max abs err "
-                                     f"gates {eg} h {eh} c {ec}")
-            errs.append(max(eg, eh, ec))
-        log(f"  rungs C and D at {(B, H, W, Cin, C)}: max abs err {max(errs):.2e} "
-            f"(float32 and bfloat16 state)")
+            if not eg <= BISECT_GATES_TOL:
+                raise AssertionError(f"rung C at {(B, H, W, Cin, C)}: max abs err gates {eg}")
+            errs.append(eg)
+            for key in "DHI":
+                r = None if key == "D" else rows
+                h, c = cb.launch(key, cb.prepare(key, x, r), wk, b, c_prev, r, stream)
+                torch.cuda.synchronize()
+                eh = (h.float() - h_p.float()).abs().max().item()
+                ec = (c - c_p).abs().max().item()
+                if not (h.dtype == h_p.dtype and eh <= H_TOL and ec <= C_TOL):
+                    raise AssertionError(f"rung {key} at {(B, H, W, Cin, C)} rows {r} {state}: "
+                                         f"max abs err h {eh} c {ec}")
+                errs.append(max(eh, ec))
+        log(f"  rungs C, D, H and I at {(B, H, W, Cin, C)} rows {rows}: max abs err "
+            f"{max(errs):.2e} (float32 and bfloat16 state)")
 
 
 def main():

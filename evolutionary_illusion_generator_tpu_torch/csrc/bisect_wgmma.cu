@@ -1,26 +1,38 @@
-// Rungs C and D of the kernel-bisection ladder on Hopper's warpgroup tensor
-// cores (wgmma): one kernel behind the C entries eigen_bisect_c and
-// eigen_bisect_d.
+// Rungs C, D, H and I of the kernel-bisection ladder on Hopper's warpgroup
+// tensor cores (wgmma): one kernel behind the C entries eigen_bisect_c,
+// eigen_bisect_d, eigen_bisect_h and eigen_bisect_i.
 //
 // Replaces scripts/pallas_bisect.py::variant_C (:104; the 3x3 SAME conv of
 // the padded input xp + bias -> float32 gates (B, H, W, 4C), gate order
-// [i | f | o | g]) and ::variant_D (:151; the same conv, the gate
-// nonlinearities and the cell update -> h in the state's type, c float32).
-// The other rungs are in convlstm_bisect.cu; the wrappers, plain versions and
-// host glue in ops/convlstm_bisect.py.
+// [i | f | o | g]), ::variant_D (:151; the same conv, the gate
+// nonlinearities and the cell update -> h in the state's type, c float32),
+// ::variant_H (:192; D's function over row blocks of `rows` rows, read from
+// the window stack xh (B, H / rows, rows + 2, W + 2, Cin): the overlapped
+// row windows of xp, materialised) and ::variant_H2 (:365, ladder key I; H
+// with windows of the aligned width Wp = ceil16(W + 2), whose columns past
+// W + 1 are zeros).  The other rungs are in convlstm_bisect.cu; the
+// wrappers, plain versions and host glue in ops/convlstm_bisect.py.
+//
+// The kernel addresses its input as windows: `windows` stacked windows of
+// rows + 2 padded rows of `pitch` pixels, each giving `rows` output rows.
+// xp is one window of H rows (C and D); xh is H / rows windows (H and I).
+// A block's two output rows are a row pair of one window, and a window of
+// odd `rows` ends on a pair whose second row it does not own: that row's
+// warpgroup computes on zeros and writes nothing.
 //
 // Bound on the H100: operations.  At the ladder's --big shape (B 25, 240 x
 // 320, Cin 240, C 48) a call is 1.59 TFLOP of bfloat16 products, 1.61 ms at
 // the 989 TFLOP/s peak, against 0.72 ms to read xp and write the gates once
-// at 3.35 TB/s.  The warpgroup product (wgmma) is the only instruction that
-// reaches that peak, so the products run on it.
+// at 3.35 TB/s (xh at rows 48 is 3% more bytes than xp, 8% at I's width).  The warpgroup product
+// (wgmma) is the only instruction that reaches that peak, so the products
+// run on it.
 //
 // Design.  An implicit GEMM: M = output pixels, N = gate outputs, K = 9 taps
 // x Cin, walked in chunks of 16 input channels, one k16 step per tap.
 //   - A block owns two image rows of 64 pixels each (one warpgroup a row: the
 //     M = 64 of its products) and a group of CG channels with all four gates,
 //     N = 4 CG gate outputs (n = 4 (c - c0) + gate): CG = 48 (N = 192) when
-//     C >= 48, so that at --big one block stages each xp pixel once, not
+//     C >= 48, so that at --big one block stages each input pixel once, not
 //     three times as with 16 channels.  Wider C is split into channel groups;
 //     channels past C have zero weights and are masked.  Ragged W is masked.
 //   - Per chunk and warpgroup, 9 wgmma.m64nNk16 (one a tap) read A and B
@@ -36,10 +48,12 @@
 //     12.4 GB of weight slices from L2 a call (55 KB a chunk).  So one thread
 //     of each block asks the TMA for each chunk, into a ring of three chunks,
 //     completing an mbarrier: the halo slab (4 rows x 66 pixels x 16
-//     channels of xp) and the weights (9 x N x 16), where two blocks of
-//     neighbouring tiles form a cluster and each loads every other tap's
-//     weights for both (multicast), so each block asks for half.  The TMA
-//     fills zeros past the image, past Cin and past 4C.  Both operands are
+//     channels of the block's window: a rank-4 map over one window, a
+//     rank-5 one over several) and the weights (9 x N x 16), where two
+//     blocks of neighbouring tiles form a cluster and each loads every
+//     other tap's weights for both (multicast), so each block asks for
+//     half.  The TMA
+//     fills zeros past the window, past Cin and past 4C.  Both operands are
 //     in wgmma's K-major 32-byte-swizzle layout: a pixel's (or an output's)
 //     16 channels are one 32-byte row, so the TMA moves 32-byte rows (16-byte
 //     rows, the no-swizzle layout, took 1.5 ms more), and a tap's shift (ky,
@@ -54,9 +68,9 @@
 //     the totals go through shared memory as [pixel][gate][channel], padded
 //     so that the fragments' stores and the epilogue's reads are free of bank
 //     conflicts, and the writes coalesce as streaming stores: C writes bias +
-//     gates, 16 bytes a store; D computes the gates and the cell update, one
-//     thread a (pixel, channel), from a c_prev tile that cp.async brought
-//     into shared memory while the products ran.
+//     gates, 16 bytes a store; D, H and I compute the gates and the cell
+//     update, one thread a (pixel, channel), from a c_prev tile that cp.async
+//     brought into shared memory while the products ran.
 
 #include <cuda.h>
 
@@ -99,8 +113,11 @@ struct Tile {
 
 struct Geometry {
   int B, H, W, cin, C;
-  int tiles_x, row_pairs;  // 64-pixel tiles of a row; ceil(H / 2)
-  int tiles;               // B * row_pairs * tiles_x: blocks past it (cluster padding) write nothing
+  int pitch;    // pixels per input row: W + 2, or Wp (rung I)
+  int rows;     // output rows per input window: H for xp, the row-block height for xh
+  int windows;  // input windows per image (rows + 2 padded rows each): 1 for xp, H / rows for xh
+  int tiles_x, row_pairs;  // 64-pixel tiles of a row; ceil(rows / 2) per window
+  int tiles;  // B * windows * row_pairs * tiles_x: blocks past it (cluster padding) write nothing
   int cprev_vec;           // D: c_prev's pixel rows are 16-byte aligned, staged with cp.async
 };
 
@@ -115,7 +132,7 @@ template <int N, bool TMA, bool FUSE, typename ST>
 __global__ void __launch_bounds__(NT, 1)
     wgmma_conv_kernel(const __grid_constant__ CUtensorMap map_x,
                       const __grid_constant__ CUtensorMap map_w,
-                      const __nv_bfloat16* __restrict__ xp, const __nv_bfloat16* __restrict__ wt,
+                      const __nv_bfloat16* __restrict__ xin, const __nv_bfloat16* __restrict__ wt,
                       const float* __restrict__ bias, Cell<ST> cell, float* __restrict__ out,
                       Geometry g) {
   using T = Tile<N>;
@@ -130,8 +147,12 @@ __global__ void __launch_bounds__(NT, 1)
   int t = blockIdx.x;
   const int tx = t % g.tiles_x;
   t /= g.tiles_x;
-  const int y0 = 2 * (t % g.row_pairs);
-  const int b = t / g.row_pairs;    // >= B for a cluster's padding block
+  const int yw = 2 * (t % g.row_pairs);  // the slab's first row in its window
+  t /= g.row_pairs;
+  const int win = t % g.windows;
+  const int b = t / g.windows;      // >= B for a cluster's padding block
+  const int y0 = win * g.rows + yw;  // warpgroup 0's output row
+  const int y_end = (win + 1) * g.rows;  // the window's output rows end here
   const int x0 = tx * TM;
   const int nk = (g.cin + KC - 1) / KC;
   const unsigned base = eigen::smem_addr(smem);
@@ -144,7 +165,10 @@ __global__ void __launch_bounds__(NT, 1)
     const unsigned st = base + s * T::STAGE, bar = bars + 8 * s;
     const int k0 = kc * KC;
     eigen::mbar_arrive_expect_tx(bar, T::STAGE);
-    eigen::tma_load_4d(st + T::W_BYTES, &map_x, bar, k0, x0, y0, b);
+    if (g.windows > 1)
+      eigen::tma_load_5d(st + T::W_BYTES, &map_x, bar, k0, x0, yw, win, b);
+    else
+      eigen::tma_load_4d(st + T::W_BYTES, &map_x, bar, k0, x0, yw, b);
     for (int tap = (int)eigen::cluster_rank(); tap < 9; tap += CLUSTER)
       eigen::tma_load_3d_multicast(st + tap * T::W_TAP, &map_w, bar, (1 << CLUSTER) - 1, k0,
                                    4 * c0, tap);
@@ -152,8 +176,8 @@ __global__ void __launch_bounds__(NT, 1)
 
   // cp.async path (Cin % 8 != 0 takes its st.shared branch): every thread
   // stages its share of chunk kc in slot s
-  const int pitch = g.W + 2;  // pixels per row of xp
-  const __nv_bfloat16* slab_src = xp + ((long long)b * (g.H + 2) + y0) * pitch * g.cin;
+  const __nv_bfloat16* slab_src =
+      xin + (((long long)b * g.windows + win) * (g.rows + 2) + yw) * g.pitch * g.cin;
   const bool vec = g.cin % 8 == 0;
   auto stage = [&](int s, int kc) {
     unsigned char* st = smem + s * T::STAGE;
@@ -176,17 +200,17 @@ __global__ void __launch_bounds__(NT, 1)
         for (int e = 0; e < 8; ++e) dst[e] = (c < g.C && k + e < g.cin) ? src[e] : zero;
       }
     }
-    // the halo slab: padded rows y0 .. y0 + 3, columns x0 .. x0 + 65 of xp
+    // the halo slab: rows yw .. yw + 3 of the window, columns x0 .. x0 + 65
     for (int i = tid; i < SLAB_PX * 2; i += NT) {
       const int half = i & 1, px = i >> 1;
       const int row = px / SLAB_W, col = x0 + px % SLAB_W, k = k0 + 8 * half;
-      const bool inside = b < g.B && y0 + row < g.H + 2 && col < pitch;
+      const bool inside = b < g.B && yw + row < g.rows + 2 && col < g.pitch;
       __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(
           st + T::W_BYTES + eigen::swizzle32(px * 32 + half * 16));
-      const __nv_bfloat16* src = slab_src + ((long long)row * pitch + col) * g.cin + k;
+      const __nv_bfloat16* src = slab_src + ((long long)row * g.pitch + col) * g.cin + k;
       if (vec) {
         const bool valid = inside && k < g.cin;
-        eigen::cp_async16(dst, valid ? src : xp, valid);
+        eigen::cp_async16(dst, valid ? src : xin, valid);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) dst[e] = (inside && k + e < g.cin) ? src[e] : zero;
@@ -211,7 +235,7 @@ __global__ void __launch_bounds__(NT, 1)
       for (int i = tid; i < WGS * TM * PIECES; i += NT) {
         const int m = i / PIECES, p = i % PIECES;
         const int y = y0 + m / TM, x = x0 + m % TM, c = c0 + PER * p;
-        const bool valid = b < g.B && y < g.H && x < g.W && c < g.C;
+        const bool valid = b < g.B && y < y_end && x < g.W && c < g.C;
         const ST* src = cell.c_prev + (((long long)b * g.H + y) * g.W + x) * g.C + c;
         eigen::cp_async16(cps + m * T::CG + PER * p, valid ? src : cell.c_prev, valid);
       }
@@ -313,7 +337,7 @@ __global__ void __launch_bounds__(NT, 1)
     for (int i = tid; i < WGS * TM * T::CG; i += NT) {
       const int cl = i % T::CG, m = i / T::CG;
       const int y = y0 + m / TM, x = x0 + m % TM, c = c0 + cl;
-      if (y >= g.H || x >= g.W || c >= g.C) continue;
+      if (y >= y_end || x >= g.W || c >= g.C) continue;
       const float* e = ep + m * T::EP + cl;
       const float gi = e[0] + sb[cl], gf = e[T::EG] + sb[T::CG + cl];
       const float go = e[2 * T::EG] + sb[2 * T::CG + cl], gg = e[3 * T::EG] + sb[3 * T::CG + cl];
@@ -331,7 +355,7 @@ __global__ void __launch_bounds__(NT, 1)
     for (int i = tid; i < WGS * TM * 4 * Q; i += NT) {
       const int gate = i % 4, cq = (i / 4) % Q, m = i / (4 * Q);
       const int y = y0 + m / TM, x = x0 + m % TM, c = c0 + 4 * cq;
-      if (y >= g.H || x >= g.W || c >= g.C) continue;
+      if (y >= y_end || x >= g.W || c >= g.C) continue;
       const float* e = ep + m * T::EP + gate * T::EG + 4 * cq;
       const float4 bv = *reinterpret_cast<const float4*>(sb + gate * T::CG + 4 * cq);
       __stcs(reinterpret_cast<float4*>(out + (((long long)b * g.H + y) * g.W + x) * 4 * g.C +
@@ -344,7 +368,7 @@ __global__ void __launch_bounds__(NT, 1)
     for (int i = tid; i < WGS * TM * N; i += NT) {
       const int n = i % N, m = i / N;
       const int y = y0 + m / TM, x = x0 + m % TM, c = c0 + n / 4, gate = n % 4;
-      if (y >= g.H || x >= g.W || c >= g.C) continue;
+      if (y >= y_end || x >= g.W || c >= g.C) continue;
       __stcs(out + (((long long)b * g.H + y) * g.W + x) * 4 * g.C + gate * g.C + c,
              ep[m * T::EP + gate * T::EG + n / 4] + sb[gate * T::CG + n / 4]);
     }
@@ -385,20 +409,24 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* d
 }
 
 template <int N, bool FUSE, typename ST>
-int launch_n(const void* xp, const void* wt, const void* bias, Cell<ST> cell, void* out,
+int launch_n(const void* xin, const void* wt, const void* bias, Cell<ST> cell, void* out,
              Geometry g, void* stream) {
-  const bool tma = g.cin % 8 == 0;  // 16-byte row strides: the TMA can address xp and wt
+  const bool tma = g.cin % 8 == 0;  // 16-byte row strides: the TMA can address the input and wt
   CUtensorMap map_x{}, map_w{};
   if (tma) {
-    const cuuint64_t pix = (cuuint64_t)g.cin * 2;
-    const cuuint64_t dx[4] = {(cuuint64_t)g.cin, (cuuint64_t)g.W + 2, (cuuint64_t)g.H + 2,
-                              (cuuint64_t)g.B};
-    const cuuint64_t sx[3] = {pix, pix * (g.W + 2), pix * (g.W + 2) * (g.H + 2)};
-    const cuuint32_t bx[4] = {KC, SLAB_W, SLAB_H, 1};
+    // xh: {cin, pitch, rows + 2, windows, B}, innermost first; one window
+    // (xp, or xh at rows = H) is the same without the windows, rank 4
+    const cuuint64_t pix = (cuuint64_t)g.cin * 2, window = pix * g.pitch * (g.rows + 2);
+    const int rank = g.windows > 1 ? 5 : 4;
+    cuuint64_t dx[5] = {(cuuint64_t)g.cin, (cuuint64_t)g.pitch, (cuuint64_t)g.rows + 2,
+                        (cuuint64_t)g.windows, (cuuint64_t)g.B};
+    if (rank == 4) dx[3] = (cuuint64_t)g.B;
+    const cuuint64_t sx[4] = {pix, pix * g.pitch, window, window * g.windows};
+    const cuuint32_t bx[5] = {KC, SLAB_W, SLAB_H, 1, 1};
     const cuuint64_t dw[3] = {(cuuint64_t)g.cin, 4 * (cuuint64_t)g.C, 9};
     const cuuint64_t sw[2] = {pix, pix * 4 * g.C};
     const cuuint32_t bw[3] = {KC, (cuuint32_t)N, 1};
-    if (!tensor_map(&map_x, xp, 4, dx, sx, bx, CU_TENSOR_MAP_SWIZZLE_32B) ||
+    if (!tensor_map(&map_x, xin, rank, dx, sx, bx, CU_TENSOR_MAP_SWIZZLE_32B) ||
         !tensor_map(&map_w, wt, 3, dw, sw, bw, CU_TENSOR_MAP_SWIZZLE_32B))
       return (int)cudaErrorInvalidValue;
   }
@@ -420,7 +448,7 @@ int launch_n(const void* xp, const void* wt, const void* bias, Cell<ST> cell, vo
   cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         Tile<N>::SMEM);
   if (rc != cudaSuccess) return (int)rc;
-  rc = cudaLaunchKernelEx(&cfg, kernel, map_x, map_w, (const __nv_bfloat16*)xp,
+  rc = cudaLaunchKernelEx(&cfg, kernel, map_x, map_w, (const __nv_bfloat16*)xin,
                           (const __nv_bfloat16*)wt, (const float*)bias, cell, (float*)out, g);
   if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
@@ -434,44 +462,69 @@ int channel_group(int C) {
   return per <= 16 ? 16 : per <= 32 ? 32 : 48;
 }
 
+// The input is H / rows windows of rows + 2 padded rows of `pitch` pixels:
+// xp is one window of H rows, the window stack xh H / rows.
 template <bool FUSE, typename ST>
-int launch(const void* xp, const void* wt, const void* bias, Cell<ST> cell, void* out, int B,
-           int H, int W, int cin, int C, void* stream) {
+int launch(const void* xin, const void* wt, const void* bias, Cell<ST> cell, void* out, int B,
+           int H, int W, int cin, int C, int pitch, int rows, void* stream) {
   if (B < 0 || H < 0 || W < 0 || cin < 1 || C < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || W == 0 || C == 0) return (int)cudaSuccess;
-  Geometry g{B, H, W, cin, C, (W + TM - 1) / TM, (H + 1) / 2, 0, 0};
-  g.tiles = B * g.row_pairs * g.tiles_x;
+  if (rows < 1 || H % rows != 0 || pitch < W + 2) return (int)cudaErrorInvalidValue;
+  Geometry g{B, H, W, cin, C, pitch, rows, H / rows, (W + TM - 1) / TM, (rows + 1) / 2, 0, 0};
+  g.tiles = B * g.windows * g.row_pairs * g.tiles_x;
   g.cprev_vec = C * (int)sizeof(ST) % 16 == 0 &&
                 reinterpret_cast<std::uintptr_t>(cell.c_prev) % 16 == 0;
   switch (channel_group(C)) {
-    case 16: return launch_n<64, FUSE, ST>(xp, wt, bias, cell, out, g, stream);
-    case 32: return launch_n<128, FUSE, ST>(xp, wt, bias, cell, out, g, stream);
-    default: return launch_n<192, FUSE, ST>(xp, wt, bias, cell, out, g, stream);
+    case 16: return launch_n<64, FUSE, ST>(xin, wt, bias, cell, out, g, stream);
+    case 32: return launch_n<128, FUSE, ST>(xin, wt, bias, cell, out, g, stream);
+    default: return launch_n<192, FUSE, ST>(xin, wt, bias, cell, out, g, stream);
   }
+}
+
+// D, H and I: the conv, the gates and the cell update, in the state's type
+int fused(const void* xin, const void* wt, const void* bias, const void* c_prev, int state_bf16,
+          void* h_out, void* c_out, int B, int H, int W, int cin, int C, int pitch, int rows,
+          void* stream) {
+  if (state_bf16)
+    return launch<true, __nv_bfloat16>(
+        xin, wt, bias,
+        Cell<__nv_bfloat16>{(const __nv_bfloat16*)c_prev, (__nv_bfloat16*)h_out}, c_out, B, H, W,
+        cin, C, pitch, rows, stream);
+  return launch<true, float>(xin, wt, bias, Cell<float>{(const float*)c_prev, (float*)h_out},
+                             c_out, B, H, W, cin, C, pitch, rows, stream);
 }
 
 }  // namespace
 
-// xp: (B, H + 2, W + 2, cin) bfloat16, the zero-padded input; wt: (9, C, 4,
-// cin) bfloat16, [tap][channel][gate][input channel]; bias: (4C,) float32;
-// gates (C): (B, H, W, 4C) float32; c_prev and h_out (D): (B, H, W, C)
-// float32 or bfloat16 (state_bf16 != 0); c_out (D): (B, H, W, C) float32.
-// All contiguous, xp and wt 16-byte aligned.  Each launches on `stream` and
-// returns the CUDA error of the launch.
+// xp: (B, H + 2, W + 2, cin) bfloat16, the zero-padded input; xh: (B, H /
+// rows, rows + 2, pitch, cin) bfloat16, the window stack (pitch = W + 2 for
+// H, wp for I; H % rows == 0); wt: (9, C, 4, cin) bfloat16,
+// [tap][channel][gate][input channel]; bias: (4C,) float32; gates (C): (B,
+// H, W, 4C) float32; c_prev and h_out (D, H, I): (B, H, W, C) float32 or
+// bfloat16 (state_bf16 != 0); c_out: (B, H, W, C) float32.  All contiguous,
+// the input and wt 16-byte aligned.  Each launches on `stream` and returns
+// the CUDA error of the launch.
 extern "C" int eigen_bisect_c(const void* xp, const void* wt, const void* bias, void* gates,
                               int B, int H, int W, int cin, int C, void* stream) {
   return launch<false, float>(xp, wt, bias, Cell<float>{nullptr, nullptr}, gates, B, H, W, cin, C,
-                              stream);
+                              W + 2, H, stream);
 }
 
 extern "C" int eigen_bisect_d(const void* xp, const void* wt, const void* bias, const void* c_prev,
                               int state_bf16, void* h_out, void* c_out, int B, int H, int W,
                               int cin, int C, void* stream) {
-  if (state_bf16)
-    return launch<true, __nv_bfloat16>(
-        xp, wt, bias,
-        Cell<__nv_bfloat16>{(const __nv_bfloat16*)c_prev, (__nv_bfloat16*)h_out}, c_out, B, H, W,
-        cin, C, stream);
-  return launch<true, float>(xp, wt, bias, Cell<float>{(const float*)c_prev, (float*)h_out},
-                             c_out, B, H, W, cin, C, stream);
+  return fused(xp, wt, bias, c_prev, state_bf16, h_out, c_out, B, H, W, cin, C, W + 2, H, stream);
+}
+
+extern "C" int eigen_bisect_h(const void* xh, const void* wt, const void* bias, const void* c_prev,
+                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
+                              int cin, int C, int rows, void* stream) {
+  return fused(xh, wt, bias, c_prev, state_bf16, h_out, c_out, B, H, W, cin, C, W + 2, rows,
+               stream);
+}
+
+extern "C" int eigen_bisect_i(const void* xh, const void* wt, const void* bias, const void* c_prev,
+                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
+                              int cin, int C, int rows, int wp, void* stream) {
+  return fused(xh, wt, bias, c_prev, state_bf16, h_out, c_out, B, H, W, cin, C, wp, rows, stream);
 }

@@ -121,6 +121,14 @@ __device__ __forceinline__ void tma_load_4d(unsigned dst, const void* map, unsig
       "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_5d(unsigned dst, const void* map, unsigned bar, int c0,
+                                            int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
 
 __device__ __forceinline__ unsigned cluster_rank() {
   unsigned r;

@@ -2,19 +2,16 @@
 // evolutionary_illusion_generator_tpu's scripts/pallas_bisect.py.
 //
 //   eigen_bisect_a   variant_A   c_prev * 2 as float32 (elementwise)
-//   eigen_bisect_h   variant_H   conv + gates + cell update over row blocks of
-//                                the window stack xh, input read in place
-//   eigen_bisect_e   variant_E   H's function over row blocks of the padded
-//                                input xp, staged with cp.async
-//   eigen_bisect_i   variant_H2  H with windows of the aligned width Wp
+//   eigen_bisect_e   variant_E   conv + gates + cell update over row blocks
+//                                of the padded input xp, staged with cp.async
 //   eigen_bisect_j   variant_E2  E with the padded width Wp
 //
-// Rungs C and D (eigen_bisect_c, eigen_bisect_d: the conv of the padded input
-// to float32 gates, and the same with the cell update) run on wgmma in
-// bisect_wgmma.cu.
+// Rungs C, D, H and I (eigen_bisect_c, _d, _h, _i: the conv of the padded
+// input to float32 gates, the same with the cell update, and the latter over
+// the window stack xh at W + 2 and at Wp) run on wgmma in bisect_wgmma.cu.
 //
 // The wrappers, their plain versions and the host glue (zero padding to xp,
-// the window stack xh, the weight layout) are in ops/convlstm_bisect.py.
+// the weight layout) are in ops/convlstm_bisect.py.
 // Math as in the Pallas rungs: bfloat16 input and weights, float32 sums,
 // float32 gates; h in the state's type and c in float32.  Gate order
 // [i, f, o, g].
@@ -28,7 +25,7 @@
 // memory.  So the conv body runs on the tensor cores: the 9 shifted dots of
 // the reference are 9 products per chunk of input channels with
 // mma.sync.m16n8k16 (bfloat16 in, float32 sums), the warp-level instruction;
-// bisect_wgmma.cu has the warpgroup-level form of rungs C and D.
+// bisect_wgmma.cu has the warpgroup-level form of rungs C, D, H and I.
 //
 // Design.  A TPU grid step holds a whole (rows+2) x (W+2) x Cin window:
 // megabytes of VMEM.  A block here has at most 227 KB of shared memory, so a
@@ -37,16 +34,10 @@
 // (N = 64), and walks the input channels in chunks of 16, one k16 step per
 // tap.  Warp w computes tile row w: M = its 16 pixels, all 64 outputs,
 // 8 mma tiles of 16 x 8.  Per chunk the 9 x 64 x 16 weight slice goes into
-// shared memory with cp.async, two chunks in flight.  What the rungs vary is
-// how the halo'd input reaches the A operand:
-//   - in place (H, I from xh): each thread loads its fragment
-//     (2 pixels x 2 pairs of channels per tap) as 4-byte reads from device
-//     memory, through L1;
-//   - staged (E, J, the Pallas make_async_copy): the (10 x 18) x 16-channel
-//     halo slab of the chunk is copied into shared memory with cp.async
-//     (16-byte pieces where Cin % 8 == 0, zero-filled at the edges), in the
-//     same two-chunk pipeline as the weights, and the fragments are read
-//     there.
+// shared memory with cp.async, two chunks in flight, and so does the
+// (10 x 18) x 16-channel halo slab of the input (the Pallas
+// make_async_copy; 16-byte pieces where Cin % 8 == 0, zero-filled at the
+// edges); the A fragments are read there.
 // Shared-memory rows are padded from 16 to 24 values so that the 8 rows a
 // fragment load touches fall in distinct banks.  After the last chunk the
 // accumulators go through shared memory, so that one thread holds the four
@@ -75,17 +66,12 @@ constexpr int EP = NOUT + 4;  // epilogue row of floats
 
 static_assert(TH * TW * EP * 4 <= STAGES * WS_ELEMS * 2, "the epilogue fits in the weight buffers");
 
-enum class Input { kWindows, kStaged };
-
-template <Input IN>
-constexpr int smem_bytes() {
-  return 2 * STAGES * (WS_ELEMS + (IN == Input::kStaged ? XS_ELEMS : 0));
-}
+constexpr int SMEM_BYTES = 2 * STAGES * (WS_ELEMS + XS_ELEMS);
 
 struct Geometry {
   int B, H, W, cin, C;
   int rows;   // row-block height; H % rows == 0
-  int pitch;  // pixels per padded row: W + 2, or Wp for the aligned rungs
+  int pitch;  // pixels per padded row: W + 2, or Wp for J
   int tiles_x, tiles_y;  // output tiles per row block
 };
 
@@ -95,7 +81,7 @@ using eigen::cp_async_wait;
 using eigen::ld_pair;
 using eigen::mma16816;
 
-template <Input IN, typename ST>
+template <typename ST>
 __global__ void __launch_bounds__(NT)
     bisect_conv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
                        const float* __restrict__ bias, const ST* __restrict__ c_prev,
@@ -119,20 +105,9 @@ __global__ void __launch_bounds__(NT)
   const int y0 = yb + ty * TH, x0 = tx * TW;
   const int y_end = yb + g.rows;  // output rows of this row block end here
 
-  // The halo'd input of output row y, tap row ky, is row (lrow0 + y - y0 + ky)
-  // of `win`, a stack of `win_rows` padded rows of `pitch` pixels.
-  const __nv_bfloat16* win;
-  int lrow0, win_rows;
-  if constexpr (IN == Input::kWindows) {
-    const int nblk = g.H / g.rows;
-    win = x + ((long long)b * nblk + r) * (g.rows + 2) * g.pitch * g.cin;
-    lrow0 = y0 - yb;
-    win_rows = g.rows + 2;
-  } else {
-    win = x + (long long)b * (g.H + 2) * g.pitch * g.cin;
-    lrow0 = y0;
-    win_rows = g.H + 2;
-  }
+  // the halo'd input of output row y, tap row ky, is padded row y + ky of
+  // the image
+  const __nv_bfloat16* img = x + (long long)b * (g.H + 2) * g.pitch * g.cin;
   const bool vec = g.cin % 8 == 0;  // 16-byte pieces of a pixel's channels are aligned and whole
   const __nv_bfloat16 zero = __float2bfloat16(0.0f);
 
@@ -153,34 +128,21 @@ __global__ void __launch_bounds__(NT)
         for (int e = 0; e < 8; ++e) dst[e] = (c < g.C && k + e < g.cin) ? src[e] : zero;
       }
     }
-    if constexpr (IN == Input::kStaged) {
-      for (int i = tid; i < HALO_H * HALO_W * 2; i += NT) {
-        const int half = i & 1, p = i >> 1;
-        const int hy = p / HALO_W, hx = p % HALO_W;
-        const int row = lrow0 + hy, col = x0 + hx, k = k0 + 8 * half;
-        const bool valid = row < win_rows && col < g.W + 2;
-        const __nv_bfloat16* src = win + ((long long)row * g.pitch + col) * g.cin + k;
-        __nv_bfloat16* dst = xs + ((s * HALO_H + hy) * HALO_W + hx) * KP + 8 * half;
-        if (vec) {
-          cp_async16(dst, valid && k < g.cin ? src : x, valid && k < g.cin);
-        } else {
+    for (int i = tid; i < HALO_H * HALO_W * 2; i += NT) {
+      const int half = i & 1, p = i >> 1;
+      const int hy = p / HALO_W, hx = p % HALO_W;
+      const int row = y0 + hy, col = x0 + hx, k = k0 + 8 * half;
+      const bool valid = row < g.H + 2 && col < g.W + 2;
+      const __nv_bfloat16* src = img + ((long long)row * g.pitch + col) * g.cin + k;
+      __nv_bfloat16* dst = xs + ((s * HALO_H + hy) * HALO_W + hx) * KP + 8 * half;
+      if (vec) {
+        cp_async16(dst, valid && k < g.cin ? src : x, valid && k < g.cin);
+      } else {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) dst[e] = (valid && k + e < g.cin) ? src[e] : zero;
-        }
+        for (int e = 0; e < 8; ++e) dst[e] = (valid && k + e < g.cin) ? src[e] : zero;
       }
     }
     cp_async_commit();
-  };
-
-  // two channels k, k + 1 of the input pixel at window row `row`, column
-  // `col`, read in place; zeros outside the window and past cin
-  auto in_place = [&](int row, int col, int k) -> unsigned {
-    if (row >= win_rows || col >= g.W + 2 || k >= g.cin) return 0u;
-    const __nv_bfloat16* p = win + ((long long)row * g.pitch + col) * g.cin + k;
-    if (g.cin % 2 == 0) return __ldg(reinterpret_cast<const unsigned*>(p));
-    const unsigned lo = __bfloat16_as_ushort(p[0]);
-    const unsigned hi = k + 1 < g.cin ? __bfloat16_as_ushort(p[1]) : 0u;
-    return lo | (hi << 16);
   };
 
   float acc[NTILES][4];
@@ -205,20 +167,9 @@ __global__ void __launch_bounds__(NT)
       const int ky = tap / 3, kx = tap % 3;
       // A: rows = pixels gid, gid + 8 of the warp's tile row, shifted by the
       // tap; columns = channels 2 tig (+1) and 2 tig + 8 (+1) of the chunk
-      unsigned a[4];
-      if constexpr (IN == Input::kStaged) {
-        const __nv_bfloat16* xr = xs + ((s * HALO_H + warp + ky) * HALO_W + kx) * KP + 2 * tig;
-        a[0] = ld_pair(xr + gid * KP);
-        a[1] = ld_pair(xr + (gid + 8) * KP);
-        a[2] = ld_pair(xr + gid * KP + 8);
-        a[3] = ld_pair(xr + (gid + 8) * KP + 8);
-      } else {
-        const int row = lrow0 + warp + ky, col = x0 + kx + gid, k = k0 + 2 * tig;
-        a[0] = in_place(row, col, k);
-        a[1] = in_place(row, col + 8, k);
-        a[2] = in_place(row, col, k + 8);
-        a[3] = in_place(row, col + 8, k + 8);
-      }
+      const __nv_bfloat16* xr = xs + ((s * HALO_H + warp + ky) * HALO_W + kx) * KP + 2 * tig;
+      const unsigned a[4] = {ld_pair(xr + gid * KP), ld_pair(xr + (gid + 8) * KP),
+                             ld_pair(xr + gid * KP + 8), ld_pair(xr + (gid + 8) * KP + 8)};
       // B: rows = channels 2 tig (+1) and 2 tig + 8 (+1), column = output
       // 8 nt + gid
       const __nv_bfloat16* wr = ws + ((s * 9 + tap) * NOUT + gid) * KP + 2 * tig;
@@ -260,7 +211,7 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <Input IN, typename ST>
+template <typename ST>
 int launch_conv(const void* x, const void* wt, const void* bias, const void* c_prev, void* h_out,
                 void* out, Geometry g, void* stream) {
   if (g.rows <= 0 || g.H % g.rows != 0 || g.pitch < g.W + 2) return (int)cudaErrorInvalidValue;
@@ -269,22 +220,21 @@ int launch_conv(const void* x, const void* wt, const void* bias, const void* c_p
   g.tiles_y = (g.rows + TH - 1) / TH;
   const dim3 grid((unsigned)(g.H / g.rows * g.tiles_y * g.tiles_x), (unsigned)((g.C + CG - 1) / CG),
                   (unsigned)g.B);
-  const int bytes = smem_bytes<IN>();  // above the 48 KB of static shared memory
-  const cudaError_t rc = cudaFuncSetAttribute(bisect_conv_kernel<IN, ST>,
-                                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  // above the 48 KB of static shared memory
+  const cudaError_t rc = cudaFuncSetAttribute(
+      bisect_conv_kernel<ST>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (rc != cudaSuccess) return (int)rc;
-  bisect_conv_kernel<IN, ST><<<grid, NT, bytes, (cudaStream_t)stream>>>(
+  bisect_conv_kernel<ST><<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)wt, (const float*)bias, (const ST*)c_prev,
       (ST*)h_out, (float*)out, g);
   return (int)cudaGetLastError();
 }
 
-template <Input IN>
 int launch_fused(const void* x, const void* wt, const void* bias, const void* c_prev,
                  int state_bf16, void* h_out, void* c_out, Geometry g, void* stream) {
   if (state_bf16)
-    return launch_conv<IN, __nv_bfloat16>(x, wt, bias, c_prev, h_out, c_out, g, stream);
-  return launch_conv<IN, float>(x, wt, bias, c_prev, h_out, c_out, g, stream);
+    return launch_conv<__nv_bfloat16>(x, wt, bias, c_prev, h_out, c_out, g, stream);
+  return launch_conv<float>(x, wt, bias, c_prev, h_out, c_out, g, stream);
 }
 
 template <typename T>
@@ -314,36 +264,21 @@ extern "C" int eigen_bisect_a(const void* c_prev, int c_prev_bf16, void* out, lo
 }
 
 // The conv rungs.  xp: (B, H + 2, pitch, cin) bfloat16, the zero-padded
-// input (pitch = W + 2, or Wp for J); xh: (B, H / rows, rows + 2, pitch,
-// cin) bfloat16, the window stack (pitch = W + 2, or Wp for I); wt: (9, C, 4,
-// cin) bfloat16, [tap][channel][gate][input channel]; bias: (4C,) float32;
-// c_prev and h_out: (B, H, W, C) float32 or bfloat16 (state_bf16 != 0);
-// c_out: (B, H, W, C) float32.  All contiguous.  Each launches on `stream`
-// and returns the CUDA error of the launch.
-extern "C" int eigen_bisect_h(const void* xh, const void* wt, const void* bias, const void* c_prev,
-                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
-                              int cin, int C, int rows, void* stream) {
-  const Geometry g{B, H, W, cin, C, rows, W + 2, 0, 0};
-  return launch_fused<Input::kWindows>(xh, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
-}
-
+// input (pitch = W + 2, or Wp for J); wt: (9, C, 4, cin) bfloat16,
+// [tap][channel][gate][input channel]; bias: (4C,) float32; c_prev and
+// h_out: (B, H, W, C) float32 or bfloat16 (state_bf16 != 0); c_out: (B, H,
+// W, C) float32.  All contiguous.  Each launches on `stream` and returns the
+// CUDA error of the launch.
 extern "C" int eigen_bisect_e(const void* xp, const void* wt, const void* bias, const void* c_prev,
                               int state_bf16, void* h_out, void* c_out, int B, int H, int W,
                               int cin, int C, int rows, void* stream) {
   const Geometry g{B, H, W, cin, C, rows, W + 2, 0, 0};
-  return launch_fused<Input::kStaged>(xp, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
-}
-
-extern "C" int eigen_bisect_i(const void* xh, const void* wt, const void* bias, const void* c_prev,
-                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
-                              int cin, int C, int rows, int wp, void* stream) {
-  const Geometry g{B, H, W, cin, C, rows, wp, 0, 0};
-  return launch_fused<Input::kWindows>(xh, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
+  return launch_fused(xp, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
 }
 
 extern "C" int eigen_bisect_j(const void* xp, const void* wt, const void* bias, const void* c_prev,
                               int state_bf16, void* h_out, void* c_out, int B, int H, int W,
                               int cin, int C, int rows, int wp, void* stream) {
   const Geometry g{B, H, W, cin, C, rows, wp, 0, 0};
-  return launch_fused<Input::kStaged>(xp, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
+  return launch_fused(xp, wt, bias, c_prev, state_bf16, h_out, c_out, g, stream);
 }

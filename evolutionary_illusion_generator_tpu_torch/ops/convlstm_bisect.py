@@ -19,10 +19,12 @@ I      ``variant_H2``  H with windows of the aligned width ``Wp``
 J      ``variant_E2``  E over ``xp`` padded to the aligned width ``Wp``
 =====  ==============  ==========================================================
 
-The kernels are ``csrc/bisect_wgmma.cu`` for C and D (warpgroup products,
-``wgmma``, fed by the TMA) and ``csrc/convlstm_bisect.cu`` for the others
-(``mma.sync``); their notes say what bounds them on the H100 and how a
-block replaces a TPU grid step.  The host glue
+The kernels are ``csrc/bisect_wgmma.cu`` for C, D, H and I (warpgroup
+products, ``wgmma``, fed by the TMA; one kernel body that reads ``xp`` as
+one window of H rows and ``xh`` as H / rows windows) and
+``csrc/convlstm_bisect.cu`` for A, E and J (``mma.sync``); their notes say
+what bounds them on the H100 and how a block replaces a TPU grid step.  The
+host glue
 the reference does in XLA stays in PyTorch here: the zero padding to ``xp``
 (:func:`pad_input`, to ``Wp = ceil16(W + 2)`` for I and J) and the
 materialised overlapped windows ``xh`` (:func:`window_stack`, H and I);
@@ -97,7 +99,7 @@ def reference(x, w, b, c_prev):
 
 
 class _Rung(NamedTuple):
-    entry: str        # C entry in csrc/bisect_wgmma.cu (C, D) or csrc/convlstm_bisect.cu
+    entry: str        # C entry in csrc/bisect_wgmma.cu (C, D, H, I) or csrc/convlstm_bisect.cu
     windows: bool     # reads the window stack xh, else the padded input xp
     aligned: bool     # padded width Wp = aligned_width(W), else W + 2
     row_blocks: bool  # the grid walks row blocks of `rows`

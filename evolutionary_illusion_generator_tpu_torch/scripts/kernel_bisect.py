@@ -11,9 +11,9 @@ each run once against the plain reference and then timed::
   B  F.conv2d + the gates kernel (ops/convlstm_gates)
   C  conv kernel to gates, then plain gate math       (the 9 shifted dots; wgmma)
   D  C + fused gate math in the same kernel (wgmma)
-  H  D over row blocks of a materialised window stack
+  H  D over row blocks of a materialised window stack (wgmma)
   E  D over row blocks, input staged with cp.async
-  I  H with windows of the aligned width ceil16(W + 2)
+  I  H with windows of the aligned width ceil16(W + 2) (wgmma)
   J  E with the padded width ceil16(W + 2)
   F  the main path's fused kernel (ops/convlstm_fused)
   X  the plain PyTorch reference

@@ -5,11 +5,13 @@ interpret mode on the CPU; the port's wrapper in
 ``evolutionary_illusion_generator_tpu_torch.ops.convlstm_bisect`` runs its
 plain version on CPU tensors.  Both get the same numpy arrays (bfloat16
 values, made from a seed) at the ladder's default shape, at a ragged one
-(W not a multiple of the 16-pixel tile, Cin not a multiple of 16) and at a
-wide one (W not a multiple of the 64-pixel row tile of rungs C and D, Cin
-not a multiple of 16, 4C = 288 above the 192 gate outputs of one of their
-blocks).  The ``cuda`` tests hold each CUDA kernel against its plain
-version on a card, at every shape, and skip without one.
+(W not a multiple of the 16-pixel tile, Cin not a multiple of 16), at a
+wide one (W not a multiple of the 64-pixel row tile of rungs C, D, H and I,
+Cin not a multiple of 16, 4C = 288 above the 192 gate outputs of one of
+their blocks) and at one of odd row blocks (rows 3, 7 windows: the
+wgmma body's row pairs straddle the windows).  The ``cuda`` tests hold
+each CUDA kernel against its plain version on a card, at every shape, and
+skip without one.
 """
 
 import importlib.util
@@ -41,6 +43,7 @@ SHAPES = {
     "default": (kb.DEFAULT_SHAPE, 32),
     "ragged": ((2, 16, 20, 24, 8), 8),
     "wide": ((2, 24, 70, 40, 72), 8),
+    "odd_rows": ((2, 21, 70, 40, 18), 3),
 }
 JAX_RUNGS = {"A": pb.variant_A, "C": pb.variant_C, "D": pb.variant_D, "H": pb.variant_H,
              "E": pb.variant_E, "I": pb.variant_H2, "J": pb.variant_E2}
@@ -218,7 +221,7 @@ def test_ladder_needs_a_card_or_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("name", list(wb.VARIANTS))
 def test_wgmma_breakdown_variants_apply(name):
-    """Each timing variant of rungs C and D still finds its text in
+    """Each timing variant of rungs C, D, H and I still finds its text in
     csrc/bisect_wgmma.cu once (the script raises otherwise), and all but
     the kernel itself change it."""
     source = wb._SOURCE.read_text()
