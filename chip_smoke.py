@@ -8,10 +8,13 @@ Phases, each printing its wall time and raising on failure:
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
 2. build: compiles the port's CUDA kernels from ``csrc/`` with nvcc;
 3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes, in the main path's types, with CUDA-event times of the
-   kernel, the plain version and a library yardstick, and its bound; the
-   fused kernel per layer with its TFLOP/s, at every tile mapping the
-   wrapper chooses from, and at ragged shapes;
+   path's shapes, in the main path's types, with times of the kernel, the
+   plain version and a library yardstick, and its bound; the gate kernel in
+   both its contracts (the main path's bfloat16 one and the JAX function's
+   float32 one), timed on the device (``device_ms``) beside the host's call
+   rate (``call_ms``), and at every type and an odd pixel count on views off
+   alignment; the fused kernel per layer with its TFLOP/s (CUDA events),
+   at every tile mapping the wrapper chooses from, and at ragged shapes;
 4. reference: the port's rollout on the card against the same rollout on
    the CPU (plain versions) on a small input with the bundled weights;
 5. main path: ``neat_illusion`` for two generations at the full width of the
@@ -19,22 +22,25 @@ Phases, each printing its wall time and raising on failure:
    asserts the kernel launch counts, finite fitness, two generations;
 6. load: two generations at the ``default_color`` run preset's shape
    (CirclesFree, 320x240, pop 40, repeat 5);
-7. profile: device time by kernel over one warm main-path generation;
+7. profile: device time by kernel and the number of kernel launches over
+   one warm main-path generation;
 8. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
    its north-star layer-1 shape (``--big --rows 48``, all ten rungs);
    asserts each rung's launch count, then holds each of the seven rung
-   kernels against its plain version on the card and times the kernel
-   (with its TFLOP/s), its host glue (padding, window stack), the plain
-   version and a library yardstick (and cuDNN's conv alone); holds the
-   wgmma rungs C, D, H and I against float64 sums on two images, and
-   against their plain versions at the tests' ragged, wide and odd-rows
-   shapes.
+   kernels against its plain version on the card (A also at ragged counts
+   and offsets, exactly; its time and kernel duration beside
+   ``torch.mul``'s) and times the kernel (with its TFLOP/s), its host glue
+   (padding, window stack), the plain version and a library yardstick (and
+   cuDNN's conv alone); holds the wgmma rungs C, D, H and I against float64
+   sums on two images, and against their plain versions at the tests'
+   ragged, wide and odd-rows shapes.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a card or without the port beside it.
 """
 
+import itertools
 import json
 import math
 import os
@@ -74,6 +80,9 @@ STEPS = 22  # 20 open-loop + 2 closed-loop steps per chunk
 
 # kernel vs plain version, both at bf16 inputs with float32 sums:
 GATES_TOL = 1e-5  # float32 elementwise math, last-ulp differences
+# bfloat16 h and c: those differences flip a rounding now and then, by one
+# bfloat16 ulp; a wrong rounding mode or a wrong element flips far more
+GATES_DIFF_SHARE = 0.01
 H_TOL = 1e-2  # bfloat16 h: one rounding flip is 2**-8 at |h| < 1
 C_TOL = 1e-3  # float32 c after sums of up to 9 * 576 products
 # The port on the card vs on the CPU (bf16 params, state and compute).
@@ -141,6 +150,34 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters, warmup=3):
+    """The device time of one call of ``fn``: the durations of the kernels
+    it launches, summed over ``iters`` calls under torch.profiler and
+    divided by ``iters``.  Unlike :func:`cuda_ms`, whose events bracket the
+    calls and so take the host's call rate where a call's kernels are
+    shorter than its host work, the gaps between kernels are not in it.  A
+    kernel's duration ends before the L2 has written its last dirty lines
+    back, so for a kernel that writes more than the L2 holds it is short of
+    the work; time that one with :func:`cuda_ms`.
+    Returns (ms, kernels launched per call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device kernel")
+    return (sum(e.self_device_time_total for e in kernels) / iters / 1e3,
+            sum(e.count for e in kernels) / iters)
+
+
 def bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -204,47 +241,111 @@ def _gate_flops(H, W, cins, C):
     return 2.0 * MAIN_BATCH * H * W * 9 * sum(cins) * 4 * C
 
 
+def _gates_err(out, ref):
+    """Max abs error of (h, c) against the plain version's, and whether it
+    is within GATES_TOL plus, for bfloat16 outputs, one bfloat16 ulp (at most
+    2**-7 of the value) with at most GATES_DIFF_SHARE of the elements off."""
+    import torch
+
+    err, ok = 0.0, True
+    for got, want in zip(out, ref):
+        d = (got.float() - want.float()).abs()
+        tol = GATES_TOL
+        if want.dtype == torch.bfloat16:
+            tol = tol + want.float().abs() * 2.0**-7
+            ok = ok and (d > 0).float().mean().item() <= GATES_DIFF_SHARE
+        ok = ok and got.dtype == want.dtype and bool((d <= tol).all())
+        err = max(err, d.max().item())
+    return err, ok
+
+
+def check_gates(gen):
+    """fused_lstm_gates at layer 0's shape, (8, 120, 160, 3), in the main
+    path's contract (bfloat16 gates, state, h and c) and the JAX function's
+    (float32 gates, float32 h and c; bfloat16 state), each against its plain
+    version, with its device time, call rate and bound, and the eager gate
+    math as the yardstick; then every type and C of the tests at an odd
+    pixel count and on views off the allocations' alignment.  Returns the
+    main-path contract's row with the float32 contract's numbers beside it."""
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
+
+    B, H, W, C = GATES_SHAPE
+    bf16 = torch.bfloat16
+    gates32 = torch.randn(B, H, W, 4 * C, device="cuda", generator=gen).mul_(2)
+    gates16 = gates32.to(bf16)
+    c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).to(bf16)
+    rows = {}
+    for label, gates, out_dtype in (("f32", gates32, torch.float32), ("main", gates16, bf16)):
+        call = lambda: cg.fused_lstm_gates(gates, c_prev, out_dtype=out_dtype)  # noqa: E731
+        h, c = call()
+        err, ok = _gates_err((h, c), cg.lstm_gates_plain(gates, c_prev, out_dtype=out_dtype))
+        if not ok:
+            raise AssertionError(f"fused_lstm_gates ({label} contract): max abs err {err}")
+
+        def eager():  # the yardstick: eager torch gate math, cast to out_dtype
+            i, f, o, g = gates.split(C, dim=-1)
+            cc = torch.sigmoid(f) * c_prev.float() + torch.sigmoid(i) * torch.tanh(g)
+            return (torch.sigmoid(o) * torch.tanh(cc)).to(out_dtype), cc.to(out_dtype)
+
+        # ~10 float32 operations per element (3 sigmoid, 2 tanh, 3 mul, 1 add)
+        b_ms, b_by = bound_ms(10.0 * B * H * W * C, nbytes(gates, c_prev, h, c), PEAK_F32_FLOPS)
+        ms, per_call = device_ms(call, 200)
+        lib_ms, lib_kernels = device_ms(eager, 200)
+        rows[label] = dict(
+            max_abs_err=err, ms=ms, call_ms=cuda_ms(call, 200),
+            plain_ms=device_ms(lambda: cg.lstm_gates_plain(gates, c_prev, out_dtype=out_dtype),
+                               200)[0],
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        log(f"  fused_lstm_gates {label} contract ({gates.dtype} gates, {c_prev.dtype} state, "
+            f"{out_dtype} h and c): err {err:.2e} device {ms * 1e3:.2f} us ({per_call:g} "
+            f"kernel a call), call rate {rows[label]['call_ms'] * 1e3:.2f} us, bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes(gates, c_prev, h, c) / 1e6:.2f} MB); eager "
+            f"gate math device {lib_ms * 1e3:.2f} us ({lib_kernels:g} kernels)")
+
+    def float32_route():  # the main path's gates through the float32 contract
+        hh, cc = cg.fused_lstm_gates(gates16.float(), c_prev)
+        return hh.to(bf16), cc.to(bf16)
+
+    r_ms, r_kernels = device_ms(float32_route, 200)
+    log(f"  the same through the float32 contract (float(), kernel, 2 casts): device "
+        f"{r_ms * 1e3:.2f} us ({r_kernels:g} kernels a call), call rate "
+        f"{cuda_ms(float32_route, 200) * 1e3:.2f} us")
+
+    # every type and C of the tests, an odd pixel count, views off alignment
+    def at_odd_offset(t):
+        v = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:].view(t.shape)
+        return v.copy_(t)
+
+    worst = 0.0
+    for Cx in (1, 3, 8, 48):
+        for gd, sd, od in itertools.product((torch.float32, bf16), repeat=3):
+            gates = torch.randn(1, 7, 9, 4 * Cx, device="cuda", generator=gen).mul_(2).to(gd)
+            state = torch.randn(1, 7, 9, Cx, device="cuda", generator=gen).to(sd)
+            ref = cg.lstm_gates_plain(gates, state, out_dtype=od)
+            for args in ((gates, state), (at_odd_offset(gates), at_odd_offset(state))):
+                err, ok = _gates_err(cg.fused_lstm_gates(*args, out_dtype=od), ref)
+                if not ok:
+                    raise AssertionError(f"fused_lstm_gates C={Cx} {gd} {sd} {od}: err {err}")
+                worst = max(worst, err)
+    log(f"  fused_lstm_gates at 1x7x9, C 1/3/8/48, every type, aligned and odd views: "
+        f"max abs err {worst:.2e}")
+    return dict(route="cuda",
+                source="evolutionary_illusion_generator_tpu_torch/csrc/lstm_gates.cu",
+                replaces="evolutionary_illusion_generator_tpu/ops/convlstm_pallas.py:57",
+                **rows["main"], f32_contract=rows["f32"])
+
+
 @phase("kernels")
 def check_kernels(params):
     import torch
     import torch.nn.functional as F
 
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
-    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {}
-
-    # ---- fused_lstm_gates at layer 0: (8, 120, 160, 3), bf16 state
-    B, H, W, C = GATES_SHAPE
-    gates = torch.randn(B, H, W, 4 * C, device="cuda", generator=gen).mul_(2)
-    c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).bfloat16()
-    h, c = cg.fused_lstm_gates(gates, c_prev)
-    h_p, c_p = cg.lstm_gates_plain(gates, c_prev)
-    torch.cuda.synchronize()
-    err = max((h - h_p).abs().max().item(), (c - c_p).abs().max().item())
-    if not err <= GATES_TOL:
-        raise AssertionError(f"fused_lstm_gates: max abs err {err} > {GATES_TOL}")
-
-    def eager_gates():  # the yardstick: eager torch gate math
-        i, f, o, g = gates.split(C, dim=-1)
-        cc = torch.sigmoid(f) * c_prev.float() + torch.sigmoid(i) * torch.tanh(g)
-        return torch.sigmoid(o) * torch.tanh(cc), cc
-
-    # ~10 float32 operations per element (3 sigmoid, 2 tanh, 3 mul, 1 add)
-    b_ms, b_by = bound_ms(10.0 * B * H * W * C, nbytes(gates, c_prev, h, c),
-                          PEAK_F32_FLOPS)
-    results["fused_lstm_gates"] = dict(
-        route="cuda",
-        source="evolutionary_illusion_generator_tpu_torch/csrc/lstm_gates.cu",
-        replaces="evolutionary_illusion_generator_tpu/ops/convlstm_pallas.py:57",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: cg.fused_lstm_gates(gates, c_prev), 200),
-        plain_ms=cuda_ms(lambda: cg.lstm_gates_plain(gates, c_prev), 200),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(eager_gates, 200),
-    )
-
+    results = {"fused_lstm_gates": check_gates(gen)}
     stream = torch.cuda.current_stream().cuda_stream
 
     def check_out(label, out, ref):
@@ -531,7 +632,8 @@ def profile_generation(params):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     log(f"  profiled generation: wall {wall * 1e3:.1f} ms (profiler on), device "
-        f"kernels {busy_us / 1e3:.1f} ms, busy share {busy_us / 1e6 / wall:.3f}")
+        f"kernels {busy_us / 1e3:.1f} ms, busy share {busy_us / 1e6 / wall:.3f}, "
+        f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
@@ -567,17 +669,18 @@ def bisect():
     csrc = "evolutionary_illusion_generator_tpu_torch/csrc/"
     results = {}
 
-    def row(key, err, ms, plain_ms, library_ms, flops, peak, moved):
+    def row(key, err, ms, plain_ms, library_ms, flops, peak, moved, **extra):
         name, line = BISECT_RUNGS[key]
         b_ms, b_by = bound_ms(flops, moved, peak)
         source = csrc + ("bisect_wgmma.cu" if key in WGMMA_RUNGS else "convlstm_bisect.cu")
         results[name] = dict(route="cuda", source=source,
                              replaces=f"scripts/pallas_bisect.py:{line}", max_abs_err=err,
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=library_ms)
+                             library_ms=library_ms, **extra)
         rate = f" ({flops / ms / 1e9:.1f} TFLOP/s)" if peak == PEAK_BF16_FLOPS else ""
         log(f"  {name} ({key}): err {err:.2e} kernel {ms:.4f} ms{rate} plain {plain_ms:.4f} ms "
-            f"library {library_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+            f"library {library_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})"
+            + "".join(f" {k} {v:.4f} ms" for k, v in extra.items()))
 
     # A: float32(c_prev) * 2; the yardstick is one torch.mul into a float32 out
     a_out, _ = cb.variant_A(x, w, b, c_prev)
@@ -586,11 +689,30 @@ def bisect():
     if err != 0.0:
         raise AssertionError(f"variant_A: max abs err {err} (must be exact)")
     out32 = torch.empty_like(a_out)
-    row("A", err, cuda_ms(lambda: cb.variant_A(x, w, b, c_prev), 20),
-        cuda_ms(lambda: cb.plain("A", x, w, b, c_prev), 20),
-        cuda_ms(lambda: torch.mul(c_prev, 2.0, out=out32), 20),
-        float(c_prev.numel()), PEAK_F32_FLOPS, nbytes(c_prev, a_out))
+    # A writes 368 MB, far past the L2: torch.profiler's kernel duration
+    # ends while its last dirty lines are still being written back, and
+    # falls below the bound.  Back to back (the host enqueues faster than
+    # the card runs them), CUDA events take the write-back in: that is ms.
+    mul = lambda: torch.mul(c_prev, 2.0, out=out32)  # noqa: E731
+    a_call = lambda: cb.variant_A(x, w, b, c_prev)  # noqa: E731
+    a_kernel, mul_kernel = device_ms(a_call, 20)[0], device_ms(mul, 20)[0]
+    row("A", err, cuda_ms(a_call, 20), cuda_ms(lambda: cb.plain("A", x, w, b, c_prev), 20),
+        cuda_ms(mul, 20), float(c_prev.numel()), PEAK_F32_FLOPS, nbytes(c_prev, a_out),
+        kernel_ms=a_kernel, library_kernel_ms=mul_kernel)
+    r = results["variant_A"]
+    log(f"  variant_A {r['ms']:.4f} ms against torch.mul {r['library_ms']:.4f} ms back to back: "
+        f"{r['bound_ms'] / r['ms']:.1%} and {r['bound_ms'] / r['library_ms']:.1%} of the "
+        f"bound; kernel durations (profiler) {a_kernel:.4f} and {mul_kernel:.4f} ms")
     del a_out, out32
+    # A's scalar head and tail: counts that are not a multiple of the vector,
+    # views 0-7 elements past an allocation, both state types
+    for dt, n, off in itertools.product((torch.float32, torch.bfloat16), (3822, 100003),
+                                        range(8)):
+        buf = torch.randn(n + off, device="cuda", generator=gen).mul_(4).to(dt)
+        small = buf[off:].view(1, 1, n, 1)
+        if not torch.equal(cb.launch_a(small, stream), small.float() * 2):
+            raise AssertionError(f"variant_A: {dt} n={n} offset {off} not exact")
+    log("  variant_A exact at n 3822 and 100003, views 0-7 elements off, both state types")
 
     # the conv rungs; plain versions and yardstick on the same inputs
     gates_p = cf.gate_conv_plain([x], [wk], b)

@@ -22,7 +22,7 @@ template <>
 __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+  return __float2bfloat16_rn(v);  // round to nearest even, as torch's .to(bfloat16)
 }
 
 // ---- the tensor-core building blocks of the conv kernels (sm_80 and up)

@@ -24,9 +24,12 @@ The ConvLSTM update of a layer takes one of two routes:
   and weights, float32 accumulation and gates, ``h`` in the state dtype,
   ``c`` float32 then cast to the state dtype;
 * narrow layers (layer 0, C = 3 or 1): split ``F.conv2d`` gate convs in the
-  compute dtype, then :func:`..ops.convlstm_gates.fused_lstm_gates` on the
-  float32 gates — the JAX ``use_pallas=True`` math.  A layer with peepholes
-  keeps the plain gate math (:func:`_lstm_gates`).
+  compute dtype, then :func:`..ops.convlstm_gates.fused_lstm_gates` on their
+  sum as it is, writing h and c in the state dtype — the JAX
+  ``use_pallas=True`` math (float32 gate math on the gates widened to
+  float32, h and c then cast to the state dtype), with the widening and the
+  casts inside the kernel.  A layer with peepholes keeps the plain gate math
+  (:func:`_lstm_gates`).
 
 On CUDA tensors both wrappers launch their kernels; on CPU tensors they run
 their plain versions.  The JAX package's TPU layout options (``s2d_l0``,
@@ -161,7 +164,7 @@ def prednet_step(params, state, frame, *, compute_dtype=torch.float32):
             if r_above is not None:
                 gates = gates + _conv(_upsample2(r_above), p["lstm_w_up"], None, cd)
             if peephole is None:
-                h, c = fused_lstm_gates(gates.float().contiguous(), s["c"])
+                h, c = fused_lstm_gates(gates.contiguous(), s["c"], out_dtype=dtype)
             else:
                 h, c = _lstm_gates(gates, s["c"], peephole)
         new_state[l]["r"] = h.to(dtype)

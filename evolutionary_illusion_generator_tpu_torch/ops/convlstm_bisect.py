@@ -22,8 +22,9 @@ J      ``variant_E2``  E over ``xp`` padded to the aligned width ``Wp``
 The kernels are ``csrc/bisect_wgmma.cu`` for C, D, H and I (warpgroup
 products, ``wgmma``, fed by the TMA; one kernel body that reads ``xp`` as
 one window of H rows and ``xh`` as H / rows windows) and
-``csrc/convlstm_bisect.cu`` for A, E and J (``mma.sync``); their notes say
-what bounds them on the H100 and how a block replaces a TPU grid step.  The
+``csrc/convlstm_bisect.cu`` for A (a streaming pass over 16-byte vectors)
+and E and J (``mma.sync``); their notes say what bounds them on the H100
+and how a block replaces a TPU grid step.  The
 host glue
 the reference does in XLA stays in PyTorch here: the zero padding to ``xp``
 (:func:`pad_input`, to ``Wp = ceil16(W + 2)`` for I and J) and the
@@ -57,6 +58,7 @@ __all__ = [
     "plain",
     "prepare",
     "launch",
+    "launch_a",
     "variant_A",
     "variant_C",
     "variant_D",
@@ -230,15 +232,26 @@ def variant_A(x, w, b, c_prev):
     _check(x, w, b, c_prev, None)
     if c_prev.device.type == "cpu":
         return plain("A", x, w, b, c_prev)
-    _check_state(c_prev)
-    out = torch.empty(c_prev.shape, dtype=torch.float32, device=c_prev.device)
-    rc = _build.library().eigen_bisect_a(
-        c_prev.data_ptr(), int(c_prev.dtype == torch.bfloat16), out.data_ptr(),
-        c_prev.numel(), _stream(c_prev))
-    if rc != 0:
-        raise RuntimeError(f"eigen_bisect_a kernel launch failed: CUDA error {rc}")
+    out = launch_a(c_prev, _stream(c_prev))
     variant_A.launches += 1
     return out, out
+
+
+def launch_a(c_prev: torch.Tensor, stream) -> torch.Tensor:
+    """Run rung A's kernel: ``float32(c_prev) * 2``.  The output is placed
+    as many elements (mod 4) past a 16-byte boundary as ``c_prev`` is, so
+    that a view at any element offset streams in 16-byte vectors after the
+    kernel's scalar head.  Counts nothing: the wrapper does."""
+    _check_state(c_prev)
+    off = c_prev.data_ptr() % 16 // c_prev.element_size() % 4
+    out = torch.empty(c_prev.numel() + off, dtype=torch.float32,
+                      device=c_prev.device)[off:].view(c_prev.shape)
+    rc = _build.library().eigen_bisect_a(
+        c_prev.data_ptr(), int(c_prev.dtype == torch.bfloat16), out.data_ptr(),
+        c_prev.numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"eigen_bisect_a kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def variant_C(x, w, b, c_prev):

@@ -8,8 +8,13 @@ Gate order [i, f, o, g]:
 
 The kernel is ``csrc/lstm_gates.cu``.  It is bound by bytes on the H100:
 one thread per (pixel, channel) reads each operand once and writes h and c
-once (see the note in the source).  On the main path it is the epilogue of
-the narrow pixel layer (C = 3 or 1), after the split gate convolutions.
+once (see the note in the source).  Its public contract is the JAX
+function's: float32 gates in, float32 (h, c) out.  It also reads bfloat16
+gates and writes h and c in bfloat16 (``out_dtype``), rounded to nearest even
+from the same float32 values.  On the main path it is the epilogue of the
+narrow pixel layer (C = 3 or 1), after the split gate convolutions: it takes
+their bfloat16 sum as it is and writes the bfloat16 state, so no float32
+copy of the gates and no state cast runs around it.
 """
 
 from __future__ import annotations
@@ -21,22 +26,27 @@ from .. import _build
 __all__ = ["fused_lstm_gates", "lstm_gates_plain"]
 
 
-def lstm_gates_plain(gates: torch.Tensor, c_prev: torch.Tensor):
+def lstm_gates_plain(gates: torch.Tensor, c_prev: torch.Tensor, *,
+                     out_dtype: torch.dtype = torch.float32):
     """Plain PyTorch version: the same math in float32.
 
     Args:
-      gates: (B, H, W, 4C) pre-activations.
+      gates: (B, H, W, 4C) pre-activations, any float dtype.
       c_prev: (B, H, W, C) previous cell state, any float dtype.
+      out_dtype: dtype of h and c, cast from the float32 results.
     Returns:
-      (h, c), both (B, H, W, C) float32.
+      (h, c), both (B, H, W, C) in ``out_dtype``.
     """
     i, f, o, g = gates.float().split(c_prev.shape[-1], dim=-1)
     c = torch.sigmoid(f) * c_prev.float() + torch.sigmoid(i) * torch.tanh(g)
     h = torch.sigmoid(o) * torch.tanh(c)
-    return h, c
+    return h.to(out_dtype), c.to(out_dtype)
 
 
-def _check(gates: torch.Tensor, c_prev: torch.Tensor) -> None:
+_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(gates: torch.Tensor, c_prev: torch.Tensor, out_dtype: torch.dtype) -> None:
     if gates.dim() != 4 or c_prev.dim() != 4:
         raise ValueError(f"need NHWC tensors, got {tuple(gates.shape)} and {tuple(c_prev.shape)}")
     if gates.shape[:3] != c_prev.shape[:3] or gates.shape[3] != 4 * c_prev.shape[3]:
@@ -45,44 +55,50 @@ def _check(gates: torch.Tensor, c_prev: torch.Tensor) -> None:
         )
     if gates.device != c_prev.device:
         raise ValueError(f"gates on {gates.device}, c_prev on {c_prev.device}")
+    if out_dtype not in _TYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
 
 
-def _launch(gates: torch.Tensor, c_prev: torch.Tensor, stream: int):
+def _launch(gates: torch.Tensor, c_prev: torch.Tensor, stream: int,
+            out_dtype: torch.dtype = torch.float32):
     """Run ``csrc/lstm_gates.cu`` on device tensors; returns (h, c)."""
-    if gates.dtype != torch.float32:
-        raise TypeError(f"gates must be float32, got {gates.dtype}")
-    if c_prev.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"c_prev must be float32 or bfloat16, got {c_prev.dtype}")
+    for name, t in (("gates", gates), ("c_prev", c_prev)):
+        if t.dtype not in _TYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
     if not (gates.is_contiguous() and c_prev.is_contiguous()):
         raise ValueError("gates and c_prev must be contiguous")
-    h = torch.empty(c_prev.shape, dtype=torch.float32, device=c_prev.device)
+    h = torch.empty(c_prev.shape, dtype=out_dtype, device=c_prev.device)
     c = torch.empty_like(h)
     B, H, W, C = c_prev.shape
+    bf16 = torch.bfloat16
     rc = _build.library().eigen_lstm_gates(
-        gates.data_ptr(), c_prev.data_ptr(), int(c_prev.dtype == torch.bfloat16),
-        h.data_ptr(), c.data_ptr(), B * H * W, C, stream,
+        gates.data_ptr(), int(gates.dtype == bf16), c_prev.data_ptr(), int(c_prev.dtype == bf16),
+        h.data_ptr(), c.data_ptr(), int(out_dtype == bf16), B * H * W, C, stream,
     )
     if rc != 0:
         raise RuntimeError(f"lstm_gates kernel launch failed: CUDA error {rc}")
     return h, c
 
 
-def fused_lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor):
+def fused_lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor, *,
+                     out_dtype: torch.dtype = torch.float32):
     """ConvLSTM cell update; the kernel on a CUDA tensor, the plain version
     on a CPU tensor.
 
     Args:
-      gates: (B, H, W, 4C) float32 pre-activations (conv output).
+      gates: (B, H, W, 4C) pre-activations (conv output), float32 or
+        bfloat16.
       c_prev: (B, H, W, C) previous cell state, float32 or bfloat16.
+      out_dtype: float32 (the JAX function's contract) or bfloat16.
     Returns:
-      (h, c), both (B, H, W, C) float32.
+      (h, c), both (B, H, W, C) in ``out_dtype``.
     """
-    _check(gates, c_prev)
+    _check(gates, c_prev, out_dtype)
     if gates.device.type == "cpu":
-        return lstm_gates_plain(gates, c_prev)
+        return lstm_gates_plain(gates, c_prev, out_dtype=out_dtype)
     if gates.device.type != "cuda":
         raise ValueError(f"unsupported device {gates.device}")
-    out = _launch(gates, c_prev, torch.cuda.current_stream(gates.device).cuda_stream)
+    out = _launch(gates, c_prev, torch.cuda.current_stream(gates.device).cuda_stream, out_dtype)
     fused_lstm_gates.launches += 1
     return out
 

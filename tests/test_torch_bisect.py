@@ -27,6 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 from evolutionary_illusion_generator_tpu_torch.ops import convlstm_bisect as cb
 from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused
 from evolutionary_illusion_generator_tpu_torch.scripts import kernel_bisect as kb
+from evolutionary_illusion_generator_tpu_torch.scripts import rung_a_breakdown as ab
 from evolutionary_illusion_generator_tpu_torch.scripts import wgmma_breakdown as wb
 
 # the suite runs in several worker processes: one torch thread each keeps
@@ -88,6 +89,24 @@ def test_rung_matches_pallas(key, shape):
     else:
         _close(h, h_j, F32_ATOL if key == "C" else H_ATOL)
         _close(c, c_j, F32_ATOL)
+
+
+@pytest.mark.parametrize("state", ["float32", "bfloat16"])
+def test_rung_a_exact_at_a_ragged_count(state):
+    """A on 105 elements (not a multiple of the kernel's 8- or 4-element
+    vectors), both state types, exactly as the Pallas rung."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(0, 1, (1, 3, 5, 4)).astype(np.float32)
+    w = rng.normal(0, 0.1, (3, 3, 4, 28)).astype(np.float32)
+    b = rng.normal(0, 0.1, 28).astype(np.float32)
+    c_prev = torch.from_numpy(rng.normal(0, 4, (1, 3, 5, 7)).astype(np.float32)).to(
+        getattr(torch, state))
+    c_j = jnp.asarray(c_prev.float().numpy(), getattr(jnp, state))
+    with pltpu.force_tpu_interpret_mode():
+        out_j, _ = JAX_RUNGS["A"](*_jax([x, w, b]), c_j)
+    out, same = cb.variant_A(*_torch([x, w, b]), c_prev)
+    assert out is same and out.dtype == torch.float32 and out.numel() % 8
+    assert np.array_equal(out.numpy(), np.asarray(out_j))
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
@@ -229,6 +248,17 @@ def test_wgmma_breakdown_variants_apply(name):
     assert (variant == source) == (name == "kernel")
 
 
+@pytest.mark.parametrize("name", list(ab.VARIANTS))
+def test_rung_a_breakdown_variants_apply(name):
+    """Each timing variant of rung A still finds its text in
+    csrc/convlstm_bisect.cu once (the script raises otherwise), all but the
+    kernel itself change it, and each is a source of its own with the C
+    entry."""
+    variant = ab.variant_source(name)
+    assert (variant == ab.variant_source("kernel")) == (name == "kernel")
+    assert 'extern "C" int eigen_bisect_a(' in variant and "eigen_bisect_e" not in variant
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -254,3 +284,24 @@ def test_cuda_rung_kernel_matches_plain(key, shape):
     else:
         torch.testing.assert_close(h.float(), h_p.float(), atol=H_ATOL, rtol=0)
         torch.testing.assert_close(c, c_p, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("state", ["float32", "bfloat16"])
+def test_cuda_rung_a_exact_at_ragged_counts_and_offsets(state, offset):
+    """A's kernel at a count that is not a multiple of its vector (3,822
+    elements) and on views `offset` elements past an allocation: the scalar
+    head and tail around the 16-byte vectors."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(offset)
+    x = torch.randn(2, 13, 21, 4, device="cuda", generator=g).bfloat16()
+    w = torch.zeros(3, 3, 4, 28, device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros(28, device="cuda", dtype=torch.bfloat16)
+    buf = torch.randn(2 * 13 * 21 * 7 + offset, device="cuda", generator=g).to(getattr(torch, state))
+    c_prev = buf[offset:].view(2, 13, 21, 7)
+    n = cb.variant_A.launches
+    out, _ = cb.variant_A(x, w, b, c_prev)
+    torch.cuda.synchronize()
+    assert cb.variant_A.launches == n + 1
+    assert torch.equal(out, c_prev.float() * 2)

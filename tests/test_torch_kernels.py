@@ -38,6 +38,9 @@ torch.set_num_threads(1)
 CONV_ATOL = 1e-5
 # float32 elementwise gate math on both sides: last-ulp differences only.
 GATES_ATOL = 1e-6
+# h and c rounded to bfloat16: a last-ulp float32 difference can flip the
+# rounding by one bfloat16 ulp, at most 2**-7 of the value.
+BF16_RTOL = 2.0**-7
 
 
 def _layer_inputs(seed, B, H, W, cins, C):
@@ -58,6 +61,25 @@ def test_gates_match_pallas():
     assert h.dtype == c.dtype == torch.float32
     np.testing.assert_allclose(h.numpy(), np.asarray(h_j), atol=GATES_ATOL, rtol=0)
     np.testing.assert_allclose(c.numpy(), np.asarray(c_j), atol=GATES_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("state", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_gates_bf16_contract_matches_pallas(C, state):
+    """bfloat16 gates in, bfloat16 (h, c) out (the main path's contract)
+    against the JAX kernel on the gates widened to float32, its float32
+    (h, c) then cast to bfloat16."""
+    rng = np.random.default_rng(2 + C)
+    gates = torch.as_tensor(rng.normal(0, 2, (2, 5, 7, 4 * C)).astype(np.float32)).bfloat16()
+    c_prev = torch.as_tensor(rng.normal(0, 1, (2, 5, 7, C)).astype(np.float32)).to(
+        getattr(torch, state))
+    c_prev_j = jnp.asarray(c_prev.float().numpy(), getattr(jnp, state))
+    h_j, c_j = jax_fused_gates(jnp.asarray(gates.float().numpy()), c_prev_j, interpret=True)
+    h, c = fused_lstm_gates(gates, c_prev, out_dtype=torch.bfloat16)
+    assert h.dtype == c.dtype == torch.bfloat16
+    for got, want in ((h, h_j), (c, c_j)):
+        want = torch.as_tensor(np.array(want.astype(jnp.bfloat16).astype(jnp.float32)))
+        torch.testing.assert_close(got.float(), want, atol=GATES_ATOL, rtol=BF16_RTOL)
 
 
 @pytest.mark.parametrize("state", ["float32", "bfloat16"])
@@ -163,6 +185,11 @@ def test_gates_reject_mismatched_shapes():
         fused_lstm_gates(torch.zeros(1, 4, 4, 12), torch.zeros(1, 4, 4, 4))
 
 
+def test_gates_reject_an_unsupported_out_dtype():
+    with pytest.raises(TypeError):
+        fused_lstm_gates(torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 2), out_dtype=torch.float16)
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -182,6 +209,37 @@ def test_cuda_gates_kernel_matches_plain():
     h_p, c_p = convlstm_gates.lstm_gates_plain(gates, c_prev)
     torch.testing.assert_close(h, h_p, atol=GATES_ATOL, rtol=0)
     torch.testing.assert_close(c, c_p, atol=GATES_ATOL, rtol=0)
+
+
+def _at_odd_offset(t):
+    """``t`` copied into a contiguous view that starts one element past an
+    allocation, so off every vector boundary."""
+    v = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return v.copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gate_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [1, 3, 8, 48])
+def test_cuda_gates_kernel_types_match_plain(C, gate_dtype, out_dtype):
+    """Every gate and output type, both state types, at an odd pixel count
+    (1 x 7 x 9) and at views off the allocations' alignment."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(C)
+    od = getattr(torch, out_dtype)
+    for state in (torch.float32, torch.bfloat16):
+        gates = torch.randn(1, 7, 9, 4 * C, device="cuda", generator=g).mul_(2).to(
+            getattr(torch, gate_dtype))
+        c_prev = torch.randn(1, 7, 9, C, device="cuda", generator=g).to(state)
+        h_p, c_p = convlstm_gates.lstm_gates_plain(gates, c_prev, out_dtype=od)
+        for args in ((gates, c_prev), (_at_odd_offset(gates), _at_odd_offset(c_prev))):
+            h, c = fused_lstm_gates(*args, out_dtype=od)
+            torch.cuda.synchronize()
+            assert h.dtype == c.dtype == od
+            rtol = BF16_RTOL if od == torch.bfloat16 else 0
+            torch.testing.assert_close(h.float(), h_p.float(), atol=GATES_ATOL, rtol=rtol)
+            torch.testing.assert_close(c.float(), c_p.float(), atol=GATES_ATOL, rtol=rtol)
 
 
 # (B, H, W, source channels, C): the main path's three layers at a chunk of

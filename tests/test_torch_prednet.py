@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from evolutionary_illusion_generator_tpu.models.prednet import loader as jax_loader
 from evolutionary_illusion_generator_tpu.models.prednet import model as jm
 from evolutionary_illusion_generator_tpu_torch.models.prednet import loader, model
+from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates
 from evolutionary_illusion_generator_tpu_torch.ops.convlstm_fused import pack_gate_weight
 
 # the suite runs in several worker processes: one torch thread each keeps
@@ -179,6 +180,36 @@ def test_peephole_layer_keeps_plain_gate_math():
         js, jpred = jax_step(jp, js, jnp.asarray(img))
         ts, tpred = model.prednet_step(tp, ts, torch.as_tensor(img))
     np.testing.assert_allclose(tpred.numpy(), np.asarray(jpred), atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_narrow_layers_step_equals_the_float32_gate_route(dtype, monkeypatch):
+    """The narrow layers hand the gates to ``fused_lstm_gates`` in the
+    compute dtype and take h and c in the state dtype.  One step is bit-equal
+    to the same step on the route before: float32 gates, float32 h and c,
+    then cast to the state dtype."""
+    channels = (3, 8, 16)  # every layer narrow
+    td = getattr(torch, dtype)
+    tp = loader.params_from_numpy(_numpy_params(channels), dtype=td, device="cpu")
+    img = torch.as_tensor(_images(3, seed=5))
+    state = model.init_state(B, H, W, channels, dtype=td)
+    for _ in range(2):  # nonzero c and e
+        state, _ = model.prednet_step(tp, state, img, compute_dtype=td)
+    new, pred = model.prednet_step(tp, state, img, compute_dtype=td)
+    calls = []
+
+    def float32_route(gates, c_prev, out_dtype):
+        calls.append(out_dtype)
+        return convlstm_gates.lstm_gates_plain(gates.float(), c_prev)
+
+    monkeypatch.setattr(model, "fused_lstm_gates", float32_route)
+    old, pred_old = model.prednet_step(tp, state, img, compute_dtype=td)
+    assert calls == [td] * len(channels)
+    assert torch.equal(pred, pred_old)
+    for l in range(len(channels)):
+        for k in "rce":
+            assert new[l][k].dtype == old[l][k].dtype == td
+            assert torch.equal(new[l][k], old[l][k]), (l, k)
 
 
 def test_load_or_init_without_bundled_weights_is_seeded():
