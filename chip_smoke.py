@@ -31,9 +31,10 @@ Phases, each printing its wall time and raising on failure:
    and offsets, exactly; its time and kernel duration beside
    ``torch.mul``'s) and times the kernel (with its TFLOP/s), its host glue
    (padding, window stack), the plain version and a library yardstick (and
-   cuDNN's conv alone); holds the wgmma rungs C, D, H and I against float64
-   sums on two images, and against their plain versions at the tests'
-   ragged, wide and odd-rows shapes.
+   cuDNN's conv alone); holds the six conv rungs (C, D, H, E, I and J, one
+   wgmma kernel) against float64 sums on two images, and against their
+   plain versions at the tests' ragged, wide, odd-rows and cp.async-windows
+   shapes; logs E's and J's times beside D's.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -107,17 +108,18 @@ BISECT_RUNGS = {  # ladder key -> (kernel name, line of the Pallas function)
     "H": ("variant_H", 192), "E": ("variant_E", 245), "J": ("variant_E2", 300),
     "I": ("variant_H2", 365),
 }
-WGMMA_RUNGS = "CDHI"  # in csrc/bisect_wgmma.cu; the others in csrc/convlstm_bisect.cu
-# ((B, H, W, Cin, C), rows) of tests/test_torch_bisect.py's ragged, wide and
-# odd-rows shapes, and a Cin that is not a multiple of 8 with a C that is not
-# a multiple of 4: rungs C, D, H and I against their plain versions on the
-# card at every channel-group width (N 64, 192 and 128), both main loops
-# (TMA, cp.async), both ways of each epilogue (C's 16-byte or 4-byte stores,
-# the c_prev tile staged or read in place), and for H and I windows of odd
-# `rows` (a row pair whose second row is past its window) through the
-# rank-5 map (rows 3, 7 windows) and the cp.async loop (rows 5, one window)
+WGMMA_RUNGS = "CDHEIJ"  # in csrc/bisect_wgmma.cu; A in csrc/convlstm_bisect.cu
+# ((B, H, W, Cin, C), rows) of tests/test_torch_bisect.py's ragged, wide,
+# odd-rows and cp.async-windows shapes, and a Cin that is not a multiple of
+# 8 with a C that is not a multiple of 4: the six conv rungs against their
+# plain versions on the card at every channel-group width (N 64, 192 and
+# 128), both main loops (TMA, cp.async), both ways of each epilogue (C's
+# 16-byte or 4-byte stores, the c_prev tile staged or read in place), and
+# for the row-block rungs windows of odd `rows` (a row pair whose second row
+# is past its window) through the TMA (rows 3, 7 windows) and the cp.async
+# loop (rows 5, one window and three)
 BISECT_SHAPES = (((2, 16, 20, 24, 8), 8), ((2, 24, 70, 40, 72), 8), ((2, 5, 66, 12, 18), 5),
-                 ((2, 21, 70, 40, 18), 3))
+                 ((2, 21, 70, 40, 18), 3), ((2, 15, 66, 12, 18), 5))
 
 
 def log(msg):
@@ -763,6 +765,10 @@ def bisect():
             flops, PEAK_BF16_FLOPS,
             nbytes(xin, wk, b, *outs, *(() if key == "C" else (c_prev,))))
         del xin, out, outs
+    d_ms = results["variant_D"]["ms"]
+    log(f"  the row-block rungs against D's {d_ms:.4f} ms: " + ", ".join(
+        f"{key} {ms:.4f} ms ({ms / d_ms - 1:+.1%})"
+        for key in "HEIJ" for ms in [results[BISECT_RUNGS[key][0]]["ms"]]))
     check_wgmma_rungs(x, wk, b, c_prev, stream)
     # ladder key F's kernel alone (the fused kernel on the unpadded input,
     # weights packed once), against rung E's kernel above
@@ -776,11 +782,11 @@ def bisect():
 
 
 def check_wgmma_rungs(x, wk, b, c_prev, stream):
-    """Rungs C, D, H and I (wgmma, two levels of float32 sums): on two
+    """The six conv rungs (wgmma, two levels of float32 sums): on two
     images of the --big inputs, the kernel's mean |gates - float64 gates|
-    (C) and mean |c - float64 c| (D, H and I at rows 48) may be no larger
-    than the plain version's; and each against its plain version at
-    BISECT_SHAPES, both state types."""
+    (C) and mean |c - float64 c| (D, and H, E, I and J at rows 48) may be
+    no larger than the plain version's; and each against its plain version
+    at BISECT_SHAPES, both state types."""
     import torch
     import torch.nn.functional as F
 
@@ -824,7 +830,7 @@ def check_wgmma_rungs(x, wk, b, c_prev, stream):
             if not eg <= BISECT_GATES_TOL:
                 raise AssertionError(f"rung C at {(B, H, W, Cin, C)}: max abs err gates {eg}")
             errs.append(eg)
-            for key in "DHI":
+            for key in "DHEIJ":
                 r = None if key == "D" else rows
                 h, c = cb.launch(key, cb.prepare(key, x, r), wk, b, c_prev, r, stream)
                 torch.cuda.synchronize()
@@ -834,7 +840,7 @@ def check_wgmma_rungs(x, wk, b, c_prev, stream):
                     raise AssertionError(f"rung {key} at {(B, H, W, Cin, C)} rows {r} {state}: "
                                          f"max abs err h {eh} c {ec}")
                 errs.append(max(eh, ec))
-        log(f"  rungs C, D, H and I at {(B, H, W, Cin, C)} rows {rows}: max abs err "
+        log(f"  rungs C, D, H, E, I and J at {(B, H, W, Cin, C)} rows {rows}: max abs err "
             f"{max(errs):.2e} (float32 and bfloat16 state)")
 
 

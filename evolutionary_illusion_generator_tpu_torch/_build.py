@@ -42,8 +42,8 @@ _SIGNATURES = {
         _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
         _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
     ),
-    # the bisection ladder's rungs: C, D, H and I in csrc/bisect_wgmma.cu,
-    # A, E and J in csrc/convlstm_bisect.cu
+    # the bisection ladder's rungs: A in csrc/convlstm_bisect.cu, the six
+    # conv rungs C, D, H, E, I and J in csrc/bisect_wgmma.cu
     "eigen_bisect_a": (_P, _I, _P, _LL, _P),
     "eigen_bisect_c": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "eigen_bisect_d": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -1,6 +1,6 @@
-// Rungs C, D, H and I of the kernel-bisection ladder on Hopper's warpgroup
-// tensor cores (wgmma): one kernel behind the C entries eigen_bisect_c,
-// eigen_bisect_d, eigen_bisect_h and eigen_bisect_i.
+// The six conv rungs of the kernel-bisection ladder (C, D, H, E, I and J) on
+// Hopper's warpgroup tensor cores (wgmma): one kernel behind the C entries
+// eigen_bisect_c, _d, _h, _e, _i and _j.
 //
 // Replaces scripts/pallas_bisect.py::variant_C (:104; the 3x3 SAME conv of
 // the padded input xp + bias -> float32 gates (B, H, W, 4C), gate order
@@ -8,24 +8,31 @@
 // nonlinearities and the cell update -> h in the state's type, c float32),
 // ::variant_H (:192; D's function over row blocks of `rows` rows, read from
 // the window stack xh (B, H / rows, rows + 2, W + 2, Cin): the overlapped
-// row windows of xp, materialised) and ::variant_H2 (:365, ladder key I; H
-// with windows of the aligned width Wp = ceil16(W + 2), whose columns past
-// W + 1 are zeros).  The other rungs are in convlstm_bisect.cu; the
-// wrappers, plain versions and host glue in ops/convlstm_bisect.py.
+// row windows of xp, materialised), ::variant_E (:245; D's function over
+// the same row blocks, each DMA'd from xp), ::variant_E2 (:300, ladder key
+// J; E over xp of the aligned width Wp = ceil16(W + 2), whose columns past
+// W + 1 are zeros) and ::variant_H2 (:365, ladder key I; H at Wp).  Rung A
+// is in convlstm_bisect.cu; the wrappers, plain versions and host glue in
+// ops/convlstm_bisect.py.
 //
-// The kernel addresses its input as windows: `windows` stacked windows of
-// rows + 2 padded rows of `pitch` pixels, each giving `rows` output rows.
-// xp is one window of H rows (C and D); xh is H / rows windows (H and I).
+// The kernel addresses its input as windows: `windows` windows of rows + 2
+// padded rows of `pitch` pixels, each giving `rows` output rows, window
+// `win` starting `step` padded rows after window win - 1, in an image of
+// img_rows padded rows.  Three layouts, one addressing:
+//   - xp as one window of H rows (C, D);
+//   - xp as H / rows windows that overlap by two rows, step = rows (E, J);
+//   - the stack xh, H / rows windows back to back, step = rows + 2 (H, I).
 // A block's two output rows are a row pair of one window, and a window of
 // odd `rows` ends on a pair whose second row it does not own: that row's
-// warpgroup computes on zeros and writes nothing.
+// warpgroup computes on what lies past the window (the next window's rows,
+// or zeros past the image or in the cp.async loop) and writes nothing.
 //
 // Bound on the H100: operations.  At the ladder's --big shape (B 25, 240 x
 // 320, Cin 240, C 48) a call is 1.59 TFLOP of bfloat16 products, 1.61 ms at
 // the 989 TFLOP/s peak, against 0.72 ms to read xp and write the gates once
-// at 3.35 TB/s (xh at rows 48 is 3% more bytes than xp, 8% at I's width).  The warpgroup product
-// (wgmma) is the only instruction that reaches that peak, so the products
-// run on it.
+// at 3.35 TB/s (xh at rows 48 is 3% more bytes than xp, 8% at I's width;
+// J's xp is 4% more).  The warpgroup product (wgmma) is the only instruction
+// that reaches that peak, so the products run on it.
 //
 // Design.  An implicit GEMM: M = output pixels, N = gate outputs, K = 9 taps
 // x Cin, walked in chunks of 16 input channels, one k16 step per tap.
@@ -48,18 +55,18 @@
 //     12.4 GB of weight slices from L2 a call (55 KB a chunk).  So one thread
 //     of each block asks the TMA for each chunk, into a ring of three chunks,
 //     completing an mbarrier: the halo slab (4 rows x 66 pixels x 16
-//     channels of the block's window: a rank-4 map over one window, a
-//     rank-5 one over several) and the weights (9 x N x 16), where two
-//     blocks of neighbouring tiles form a cluster and each loads every
-//     other tap's weights for both (multicast), so each block asks for
-//     half.  The TMA
-//     fills zeros past the window, past Cin and past 4C.  Both operands are
-//     in wgmma's K-major 32-byte-swizzle layout: a pixel's (or an output's)
-//     16 channels are one 32-byte row, so the TMA moves 32-byte rows (16-byte
-//     rows, the no-swizzle layout, took 1.5 ms more), and a tap's shift (ky,
-//     kx) moves the A descriptor's start by (ky * 66 + kx) rows: no copy per
-//     tap.  A slot is refilled once both blocks of the cluster are done with
-//     it (the cluster barrier, split so that its wait overlaps the products).
+//     channels: a rank-4 map {Cin, pitch, img_rows, B} at row
+//     win * step + yw) and the weights (9 x N x 16), where two blocks of
+//     neighbouring tiles form a cluster and each loads every other tap's
+//     weights for both (multicast), so each block asks for half.  The TMA
+//     fills zeros past the input's edges, past Cin and past 4C.  Both
+//     operands are in wgmma's K-major 32-byte-swizzle layout: a pixel's (or
+//     an output's) 16 channels are one 32-byte row, so the TMA moves 32-byte
+//     rows (16-byte rows, the no-swizzle layout, took 1.5 ms more), and a
+//     tap's shift (ky, kx) moves the A descriptor's start by (ky * 66 + kx)
+//     rows: no copy per tap.  A slot is refilled once both blocks of the
+//     cluster are done with it (the cluster barrier, split so that its wait
+//     overlaps the products).
 //     A Cin that is not a multiple of 8 has rows the TMA cannot address
 //     (16-byte strides); that shape takes a second main loop, chosen on the
 //     host by shape, that stages the same layout with cp.async / st.shared
@@ -68,9 +75,12 @@
 //     the totals go through shared memory as [pixel][gate][channel], padded
 //     so that the fragments' stores and the epilogue's reads are free of bank
 //     conflicts, and the writes coalesce as streaming stores: C writes bias +
-//     gates, 16 bytes a store; D, H and I compute the gates and the cell
+//     gates, 16 bytes a store; the others compute the gates and the cell
 //     update, one thread a (pixel, channel), from a c_prev tile that cp.async
 //     brought into shared memory while the products ran.
+// At even `rows` the row-block rungs (H, E, I, J) compute exactly D's tiles,
+// in D's order and with D's sums: their outputs equal D's bit for bit, only
+// the addresses of their slabs differ.
 
 #include <cuda.h>
 
@@ -113,9 +123,11 @@ struct Tile {
 
 struct Geometry {
   int B, H, W, cin, C;
-  int pitch;    // pixels per input row: W + 2, or Wp (rung I)
-  int rows;     // output rows per input window: H for xp, the row-block height for xh
-  int windows;  // input windows per image (rows + 2 padded rows each): 1 for xp, H / rows for xh
+  int pitch;    // pixels per input row: W + 2, or Wp (rungs I and J)
+  int rows;     // output rows per input window: H for C and D, else the row-block height
+  int windows;  // input windows per image (rows + 2 padded rows each): H / rows
+  int step;     // padded rows from a window's start to the next one's: rows (xp), rows + 2 (xh)
+  int img_rows;  // padded input rows per image: H + 2 (xp), windows * (rows + 2) (xh)
   int tiles_x, row_pairs;  // 64-pixel tiles of a row; ceil(rows / 2) per window
   int tiles;  // B * windows * row_pairs * tiles_x: blocks past it (cluster padding) write nothing
   int cprev_vec;           // D: c_prev's pixel rows are 16-byte aligned, staged with cp.async
@@ -165,10 +177,7 @@ __global__ void __launch_bounds__(NT, 1)
     const unsigned st = base + s * T::STAGE, bar = bars + 8 * s;
     const int k0 = kc * KC;
     eigen::mbar_arrive_expect_tx(bar, T::STAGE);
-    if (g.windows > 1)
-      eigen::tma_load_5d(st + T::W_BYTES, &map_x, bar, k0, x0, yw, win, b);
-    else
-      eigen::tma_load_4d(st + T::W_BYTES, &map_x, bar, k0, x0, yw, b);
+    eigen::tma_load_4d(st + T::W_BYTES, &map_x, bar, k0, x0, win * g.step + yw, b);
     for (int tap = (int)eigen::cluster_rank(); tap < 9; tap += CLUSTER)
       eigen::tma_load_3d_multicast(st + tap * T::W_TAP, &map_w, bar, (1 << CLUSTER) - 1, k0,
                                    4 * c0, tap);
@@ -177,7 +186,7 @@ __global__ void __launch_bounds__(NT, 1)
   // cp.async path (Cin % 8 != 0 takes its st.shared branch): every thread
   // stages its share of chunk kc in slot s
   const __nv_bfloat16* slab_src =
-      xin + (((long long)b * g.windows + win) * (g.rows + 2) + yw) * g.pitch * g.cin;
+      xin + ((long long)b * g.img_rows + win * g.step + yw) * g.pitch * g.cin;
   const bool vec = g.cin % 8 == 0;
   auto stage = [&](int s, int kc) {
     unsigned char* st = smem + s * T::STAGE;
@@ -414,19 +423,17 @@ int launch_n(const void* xin, const void* wt, const void* bias, Cell<ST> cell, v
   const bool tma = g.cin % 8 == 0;  // 16-byte row strides: the TMA can address the input and wt
   CUtensorMap map_x{}, map_w{};
   if (tma) {
-    // xh: {cin, pitch, rows + 2, windows, B}, innermost first; one window
-    // (xp, or xh at rows = H) is the same without the windows, rank 4
-    const cuuint64_t pix = (cuuint64_t)g.cin * 2, window = pix * g.pitch * (g.rows + 2);
-    const int rank = g.windows > 1 ? 5 : 4;
-    cuuint64_t dx[5] = {(cuuint64_t)g.cin, (cuuint64_t)g.pitch, (cuuint64_t)g.rows + 2,
-                        (cuuint64_t)g.windows, (cuuint64_t)g.B};
-    if (rank == 4) dx[3] = (cuuint64_t)g.B;
-    const cuuint64_t sx[4] = {pix, pix * g.pitch, window, window * g.windows};
-    const cuuint32_t bx[5] = {KC, SLAB_W, SLAB_H, 1, 1};
+    // {cin, pitch, img_rows, B}, innermost first: xp or xh, whose windows'
+    // rows the kernel addresses
+    const cuuint64_t pix = (cuuint64_t)g.cin * 2, row = pix * g.pitch;
+    const cuuint64_t dx[4] = {(cuuint64_t)g.cin, (cuuint64_t)g.pitch, (cuuint64_t)g.img_rows,
+                              (cuuint64_t)g.B};
+    const cuuint64_t sx[3] = {pix, row, row * g.img_rows};
+    const cuuint32_t bx[4] = {KC, SLAB_W, SLAB_H, 1};
     const cuuint64_t dw[3] = {(cuuint64_t)g.cin, 4 * (cuuint64_t)g.C, 9};
     const cuuint64_t sw[2] = {pix, pix * 4 * g.C};
     const cuuint32_t bw[3] = {KC, (cuuint32_t)N, 1};
-    if (!tensor_map(&map_x, xin, rank, dx, sx, bx, CU_TENSOR_MAP_SWIZZLE_32B) ||
+    if (!tensor_map(&map_x, xin, 4, dx, sx, bx, CU_TENSOR_MAP_SWIZZLE_32B) ||
         !tensor_map(&map_w, wt, 3, dw, sw, bw, CU_TENSOR_MAP_SWIZZLE_32B))
       return (int)cudaErrorInvalidValue;
   }
@@ -463,14 +470,17 @@ int channel_group(int C) {
 }
 
 // The input is H / rows windows of rows + 2 padded rows of `pitch` pixels:
-// xp is one window of H rows, the window stack xh H / rows.
+// the stack xh (`stack`), or xp (B, H + 2, pitch, cin), whose windows
+// overlap by two rows (one window of H rows for C and D).
 template <bool FUSE, typename ST>
 int launch(const void* xin, const void* wt, const void* bias, Cell<ST> cell, void* out, int B,
-           int H, int W, int cin, int C, int pitch, int rows, void* stream) {
+           int H, int W, int cin, int C, int pitch, int rows, bool stack, void* stream) {
   if (B < 0 || H < 0 || W < 0 || cin < 1 || C < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || W == 0 || C == 0) return (int)cudaSuccess;
   if (rows < 1 || H % rows != 0 || pitch < W + 2) return (int)cudaErrorInvalidValue;
-  Geometry g{B, H, W, cin, C, pitch, rows, H / rows, (W + TM - 1) / TM, (rows + 1) / 2, 0, 0};
+  const int windows = H / rows;
+  Geometry g{B, H, W, cin, C, pitch, rows, windows, stack ? rows + 2 : rows,
+             stack ? windows * (rows + 2) : H + 2, (W + TM - 1) / TM, (rows + 1) / 2, 0, 0};
   g.tiles = B * g.windows * g.row_pairs * g.tiles_x;
   g.cprev_vec = C * (int)sizeof(ST) % 16 == 0 &&
                 reinterpret_cast<std::uintptr_t>(cell.c_prev) % 16 == 0;
@@ -481,50 +491,67 @@ int launch(const void* xin, const void* wt, const void* bias, Cell<ST> cell, voi
   }
 }
 
-// D, H and I: the conv, the gates and the cell update, in the state's type
+// D, H, E, I and J: the conv, the gates and the cell update, in the state's type
 int fused(const void* xin, const void* wt, const void* bias, const void* c_prev, int state_bf16,
           void* h_out, void* c_out, int B, int H, int W, int cin, int C, int pitch, int rows,
-          void* stream) {
+          bool stack, void* stream) {
   if (state_bf16)
     return launch<true, __nv_bfloat16>(
         xin, wt, bias,
         Cell<__nv_bfloat16>{(const __nv_bfloat16*)c_prev, (__nv_bfloat16*)h_out}, c_out, B, H, W,
-        cin, C, pitch, rows, stream);
+        cin, C, pitch, rows, stack, stream);
   return launch<true, float>(xin, wt, bias, Cell<float>{(const float*)c_prev, (float*)h_out},
-                             c_out, B, H, W, cin, C, pitch, rows, stream);
+                             c_out, B, H, W, cin, C, pitch, rows, stack, stream);
 }
 
 }  // namespace
 
-// xp: (B, H + 2, W + 2, cin) bfloat16, the zero-padded input; xh: (B, H /
-// rows, rows + 2, pitch, cin) bfloat16, the window stack (pitch = W + 2 for
-// H, wp for I; H % rows == 0); wt: (9, C, 4, cin) bfloat16,
-// [tap][channel][gate][input channel]; bias: (4C,) float32; gates (C): (B,
-// H, W, 4C) float32; c_prev and h_out (D, H, I): (B, H, W, C) float32 or
-// bfloat16 (state_bf16 != 0); c_out: (B, H, W, C) float32.  All contiguous,
-// the input and wt 16-byte aligned.  Each launches on `stream` and returns
-// the CUDA error of the launch.
+// xp: (B, H + 2, pitch, cin) bfloat16, the zero-padded input (pitch = W + 2,
+// or wp for J); xh: (B, H / rows, rows + 2, pitch, cin) bfloat16, the window
+// stack (pitch = W + 2 for H, wp for I); H % rows == 0 for the row-block
+// rungs; wt: (9, C, 4, cin) bfloat16, [tap][channel][gate][input channel];
+// bias: (4C,) float32; gates (C): (B, H, W, 4C) float32; c_prev and h_out
+// (D, H, E, I, J): (B, H, W, C) float32 or bfloat16 (state_bf16 != 0);
+// c_out: (B, H, W, C) float32.  All contiguous, the input and wt 16-byte
+// aligned.  Each launches on `stream` and returns the CUDA error of the
+// launch.
 extern "C" int eigen_bisect_c(const void* xp, const void* wt, const void* bias, void* gates,
                               int B, int H, int W, int cin, int C, void* stream) {
   return launch<false, float>(xp, wt, bias, Cell<float>{nullptr, nullptr}, gates, B, H, W, cin, C,
-                              W + 2, H, stream);
+                              W + 2, H, false, stream);
 }
 
 extern "C" int eigen_bisect_d(const void* xp, const void* wt, const void* bias, const void* c_prev,
                               int state_bf16, void* h_out, void* c_out, int B, int H, int W,
                               int cin, int C, void* stream) {
-  return fused(xp, wt, bias, c_prev, state_bf16, h_out, c_out, B, H, W, cin, C, W + 2, H, stream);
+  return fused(xp, wt, bias, c_prev, state_bf16, h_out, c_out, B, H, W, cin, C, W + 2, H, false,
+               stream);
 }
 
 extern "C" int eigen_bisect_h(const void* xh, const void* wt, const void* bias, const void* c_prev,
                               int state_bf16, void* h_out, void* c_out, int B, int H, int W,
                               int cin, int C, int rows, void* stream) {
-  return fused(xh, wt, bias, c_prev, state_bf16, h_out, c_out, B, H, W, cin, C, W + 2, rows,
+  return fused(xh, wt, bias, c_prev, state_bf16, h_out, c_out, B, H, W, cin, C, W + 2, rows, true,
+               stream);
+}
+
+extern "C" int eigen_bisect_e(const void* xp, const void* wt, const void* bias, const void* c_prev,
+                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
+                              int cin, int C, int rows, void* stream) {
+  return fused(xp, wt, bias, c_prev, state_bf16, h_out, c_out, B, H, W, cin, C, W + 2, rows, false,
                stream);
 }
 
 extern "C" int eigen_bisect_i(const void* xh, const void* wt, const void* bias, const void* c_prev,
                               int state_bf16, void* h_out, void* c_out, int B, int H, int W,
                               int cin, int C, int rows, int wp, void* stream) {
-  return fused(xh, wt, bias, c_prev, state_bf16, h_out, c_out, B, H, W, cin, C, wp, rows, stream);
+  return fused(xh, wt, bias, c_prev, state_bf16, h_out, c_out, B, H, W, cin, C, wp, rows, true,
+               stream);
+}
+
+extern "C" int eigen_bisect_j(const void* xp, const void* wt, const void* bias, const void* c_prev,
+                              int state_bf16, void* h_out, void* c_out, int B, int H, int W,
+                              int cin, int C, int rows, int wp, void* stream) {
+  return fused(xp, wt, bias, c_prev, state_bf16, h_out, c_out, B, H, W, cin, C, wp, rows, false,
+               stream);
 }

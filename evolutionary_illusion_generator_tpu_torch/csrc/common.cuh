@@ -60,11 +60,6 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned* r, unsigned addr) {
                : "memory");
 }
 
-__device__ __forceinline__ unsigned ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-
 // ---- the warpgroup tensor-core building blocks (sm_90a)
 
 // Shared memory written by threads (st.shared or cp.async) is read by wgmma
@@ -119,14 +114,6 @@ __device__ __forceinline__ void tma_load_4d(unsigned dst, const void* map, unsig
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_5d(unsigned dst, const void* map, unsigned bar, int c0,
-                                            int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
-      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 

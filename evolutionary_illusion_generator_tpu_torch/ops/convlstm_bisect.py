@@ -14,19 +14,19 @@ C      ``variant_C``   3x3 SAME conv + bias -> float32 gates (the gate math
                        after it is plain PyTorch, as it is XLA in the reference)
 D      ``variant_D``   conv + gates + cell update over ``xp``
 H      ``variant_H``   D over row blocks of the window stack ``xh``
-E      ``variant_E``   D over row blocks, staging the input with ``cp.async``
+E      ``variant_E``   D over row blocks of ``xp``, each read in place
 I      ``variant_H2``  H with windows of the aligned width ``Wp``
 J      ``variant_E2``  E over ``xp`` padded to the aligned width ``Wp``
 =====  ==============  ==========================================================
 
-The kernels are ``csrc/bisect_wgmma.cu`` for C, D, H and I (warpgroup
-products, ``wgmma``, fed by the TMA; one kernel body that reads ``xp`` as
-one window of H rows and ``xh`` as H / rows windows) and
-``csrc/convlstm_bisect.cu`` for A (a streaming pass over 16-byte vectors)
-and E and J (``mma.sync``); their notes say what bounds them on the H100
-and how a block replaces a TPU grid step.  The
-host glue
-the reference does in XLA stays in PyTorch here: the zero padding to ``xp``
+The kernels are ``csrc/bisect_wgmma.cu`` for the six conv rungs C, D, H,
+E, I and J (warpgroup products, ``wgmma``, fed by the TMA; one kernel body
+that reads ``xp`` as one window of H rows (C, D) or as H / rows windows
+overlapping by two rows (E, J), and ``xh`` as H / rows windows (H, I)) and
+``csrc/convlstm_bisect.cu`` for A (a streaming pass over 16-byte vectors);
+their notes say what bounds them on the H100 and how a block replaces a
+TPU grid step.  The host glue the reference does in XLA stays in PyTorch
+here: the zero padding to ``xp``
 (:func:`pad_input`, to ``Wp = ceil16(W + 2)`` for I and J) and the
 materialised overlapped windows ``xh`` (:func:`window_stack`, H and I);
 the weights go to the kernels' layout ``(9, C, 4, Cin)`` by
@@ -101,7 +101,7 @@ def reference(x, w, b, c_prev):
 
 
 class _Rung(NamedTuple):
-    entry: str        # C entry in csrc/bisect_wgmma.cu (C, D, H, I) or csrc/convlstm_bisect.cu
+    entry: str        # C entry in csrc/bisect_wgmma.cu, the kernel of all six conv rungs
     windows: bool     # reads the window stack xh, else the padded input xp
     aligned: bool     # padded width Wp = aligned_width(W), else W + 2
     row_blocks: bool  # the grid walks row blocks of `rows`
@@ -272,7 +272,8 @@ def variant_H(x, w, b, c_prev, rows=32):
 
 
 def variant_E(x, w, b, c_prev, rows=32):
-    """D over row blocks of ``xp``, the input staged with ``cp.async``."""
+    """D over row blocks of ``xp``, each block's rows read from ``xp`` in
+    place."""
     return _conv_rung("E", variant_E, x, w, b, c_prev, rows)
 
 

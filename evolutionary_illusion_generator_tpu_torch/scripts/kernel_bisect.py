@@ -12,9 +12,9 @@ each run once against the plain reference and then timed::
   C  conv kernel to gates, then plain gate math       (the 9 shifted dots; wgmma)
   D  C + fused gate math in the same kernel (wgmma)
   H  D over row blocks of a materialised window stack (wgmma)
-  E  D over row blocks, input staged with cp.async
+  E  D over row blocks of the padded input, read in place (wgmma)
   I  H with windows of the aligned width ceil16(W + 2) (wgmma)
-  J  E with the padded width ceil16(W + 2)
+  J  E with the padded width ceil16(W + 2) (wgmma)
   F  the main path's fused kernel (ops/convlstm_fused)
   X  the plain PyTorch reference
 

@@ -1,9 +1,10 @@
-"""Where the time of ladder rungs C, D, H and I goes on the card.
+"""Where the time of the ladder's six conv rungs goes on the card.
 
 Builds variants of ``csrc/bisect_wgmma.cu``, each the kernel with one part
-taken out or changed by a text substitution, and times rungs C, D, H and I
-of each at the ladder's ``--big`` shape (H and I at ``rows`` 48, the card
-runs' row blocks) with CUDA events::
+taken out or changed by a text substitution, and times rungs C, D, H, E, I
+and J of each at the ladder's ``--big`` shape (the row-block rungs H, E, I
+and J at ``rows`` 48, the card runs' row blocks) with CUDA events, twice,
+the second time in the reverse order::
 
     python3 -m evolutionary_illusion_generator_tpu_torch.scripts.wgmma_breakdown
 
@@ -14,7 +15,7 @@ kernel             nothing
 cluster 1          every block loads all 9 taps' weights (no sharing)
 no epilogue        returns after the totals reach shared memory
 no loads           as "no epilogue", and the TMA copies nothing
-fast gate math     the gates of D, H and I with ``__expf`` and ``__frcp_rn``
+fast gate math     the fused rungs' gates with ``__expf`` and ``__frcp_rn``
 =================  ==========================================================
 
 Only "kernel", "cluster 1" and "fast gate math" compute the right result;
@@ -40,8 +41,8 @@ from .kernel_bisect import BIG_SHAPE
 
 __all__ = ["VARIANTS", "variant_source", "main"]
 
-ROWS = 48  # H's and I's row blocks, as the ladder's card runs take them
-RUNGS = "CDHI"
+ROWS = 48  # the row blocks of H, E, I and J, as the ladder's card runs take them
+RUNGS = "CDHEIJ"
 
 _SOURCE = Path(_build.__file__).resolve().parent / "csrc" / "bisect_wgmma.cu"
 _NO_EPILOGUE = (
@@ -56,10 +57,7 @@ VARIANTS = {
     "no loads": [
         _NO_EPILOGUE,
         ("    eigen::mbar_arrive_expect_tx(bar, T::STAGE);\n"
-         "    if (g.windows > 1)\n"
-         "      eigen::tma_load_5d(st + T::W_BYTES, &map_x, bar, k0, x0, yw, win, b);\n"
-         "    else\n"
-         "      eigen::tma_load_4d(st + T::W_BYTES, &map_x, bar, k0, x0, yw, b);\n"
+         "    eigen::tma_load_4d(st + T::W_BYTES, &map_x, bar, k0, x0, win * g.step + yw, b);\n"
          "    for (int tap = (int)eigen::cluster_rank(); tap < 9; tap += CLUSTER)\n",
          "    eigen::mbar_arrive_expect_tx(bar, 0);\n"
          "    for (int tap = 9; tap < 9; tap += CLUSTER)\n"),
@@ -101,7 +99,7 @@ def _build_all(tmp: Path) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name!r}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for entry in ("eigen_bisect_c", "eigen_bisect_d", "eigen_bisect_h", "eigen_bisect_i"):
+        for entry in (f"eigen_bisect_{key.lower()}" for key in RUNGS):
             getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
             getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
@@ -122,8 +120,10 @@ def _ms(fn, iters=10):
 
 
 def main() -> dict:
-    """Times C, D, H and I of every variant twice, in turns; returns
-    {variant: (C ms, D ms, H ms, I ms)} of the second round."""
+    """Times C, D, H, E, I and J of every variant twice, in turns, the
+    second time in the reverse order, so that no rung's time hinges on the
+    rung timed before it; returns
+    {variant: (C ms, D ms, H ms, E ms, I ms, J ms)} of the second round."""
     if not torch.cuda.is_available():
         raise RuntimeError("wgmma_breakdown needs a CUDA card")
     B, H, W, Cin, C = BIG_SHAPE
@@ -133,7 +133,7 @@ def main() -> dict:
     bias = torch.randn(4 * C, device="cuda", generator=gen).mul_(0.1)
     c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).bfloat16()
     xp, wk = cb.pad_input(x), pack_gate_weight(w)
-    xh, xi = cb.prepare("H", x, ROWS), cb.prepare("I", x, ROWS)
+    xh, xi, xj = (cb.prepare(key, x, ROWS) for key in "HIJ")
     wp = xi.shape[-2]
     gates = torch.empty(B, H, W, 4 * C, device="cuda")
     h, c = torch.empty_like(c_prev), torch.empty(c_prev.shape, device="cuda")
@@ -160,19 +160,30 @@ def main() -> dict:
                                       c_prev.data_ptr(), 1, h.data_ptr(), c.data_ptr(),
                                       B, H, W, Cin, C, ROWS, stream)
 
+        def rung_e(lib):
+            return lib.eigen_bisect_e(xp.data_ptr(), wk.data_ptr(), bias.data_ptr(),
+                                      c_prev.data_ptr(), 1, h.data_ptr(), c.data_ptr(),
+                                      B, H, W, Cin, C, ROWS, stream)
+
         def rung_i(lib):
             return lib.eigen_bisect_i(xi.data_ptr(), wk.data_ptr(), bias.data_ptr(),
                                       c_prev.data_ptr(), 1, h.data_ptr(), c.data_ptr(),
                                       B, H, W, Cin, C, ROWS, wp, stream)
 
-        rungs = (rung_c, rung_d, rung_h, rung_i)
+        def rung_j(lib):
+            return lib.eigen_bisect_j(xj.data_ptr(), wk.data_ptr(), bias.data_ptr(),
+                                      c_prev.data_ptr(), 1, h.data_ptr(), c.data_ptr(),
+                                      B, H, W, Cin, C, ROWS, wp, stream)
+
+        rungs = (rung_c, rung_d, rung_h, rung_e, rung_i, rung_j)
         times = {}
-        for _ in range(2):
+        for order in (rungs, rungs[::-1]):
             for name, lib in libs.items():
                 for rung in rungs:
                     if rung(lib) != 0:
                         raise RuntimeError(f"variant {name!r}: launch failed")
-                times[name] = tuple(_ms(lambda: rung(lib)) for rung in rungs)
+                ms = {rung: _ms(lambda: rung(lib)) for rung in order}
+                times[name] = tuple(ms[rung] for rung in rungs)
                 print(f"  {name:15s} " + "  ".join(
                     f"{key} {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s)"
                     for key, t in zip(RUNGS, times[name])), flush=True)

@@ -8,10 +8,14 @@ values, made from a seed) at the ladder's default shape, at a ragged one
 (W not a multiple of the 16-pixel tile, Cin not a multiple of 16), at a
 wide one (W not a multiple of the 64-pixel row tile of rungs C, D, H and I,
 Cin not a multiple of 16, 4C = 288 above the 192 gate outputs of one of
-their blocks) and at one of odd row blocks (rows 3, 7 windows: the
-wgmma body's row pairs straddle the windows).  The ``cuda`` tests hold
-each CUDA kernel against its plain version on a card, at every shape, and
-skip without one.
+their blocks), at one of odd row blocks (rows 3, 7 windows: the wgmma
+body's row pairs straddle the windows) and at one of odd row blocks with
+a Cin that is not a multiple of 8 (rows 5, 3 windows, Cin 12: the wgmma
+body's cp.async main loop crosses windows, which overlap inside ``xp`` for
+E and J).  The ``cuda`` tests hold each CUDA kernel against its plain
+version on a card, at every shape, and skip without one.  One test reads
+``csrc/``: the six conv rungs are one wgmma kernel, and no ``mma.sync``
+conv body is left in the ladder.
 """
 
 import importlib.util
@@ -45,6 +49,7 @@ SHAPES = {
     "ragged": ((2, 16, 20, 24, 8), 8),
     "wide": ((2, 24, 70, 40, 72), 8),
     "odd_rows": ((2, 21, 70, 40, 18), 3),
+    "cpasync_windows": ((2, 15, 66, 12, 18), 5),
 }
 JAX_RUNGS = {"A": pb.variant_A, "C": pb.variant_C, "D": pb.variant_D, "H": pb.variant_H,
              "E": pb.variant_E, "I": pb.variant_H2, "J": pb.variant_E2}
@@ -238,9 +243,24 @@ def test_ladder_needs_a_card_or_the_cpu(monkeypatch):
         kb.main([])
 
 
+def test_conv_rungs_are_one_wgmma_kernel():
+    """Each conv rung's C entry is defined in csrc/bisect_wgmma.cu and in no
+    other source, and rung A's file holds no mma.sync conv body."""
+    csrc = Path(cb.__file__).resolve().parents[1] / "csrc"
+    sources = {p.name: p.read_text() for p in csrc.glob("*.cu*")}
+    for key in "CDHEIJ":
+        entry = f'extern "C" int eigen_bisect_{key.lower()}('
+        assert [n for n, text in sources.items() if entry in text] == ["bisect_wgmma.cu"], key
+        assert cb._CONV_RUNGS[key].entry == f"eigen_bisect_{key.lower()}"
+    rung_a = sources["convlstm_bisect.cu"]
+    assert 'extern "C" int eigen_bisect_a(' in rung_a
+    assert "mma16816" not in rung_a and "bisect_conv_kernel" not in rung_a
+    assert rung_a.count('extern "C"') == 1
+
+
 @pytest.mark.parametrize("name", list(wb.VARIANTS))
 def test_wgmma_breakdown_variants_apply(name):
-    """Each timing variant of rungs C, D, H and I still finds its text in
+    """Each timing variant of the six conv rungs still finds its text in
     csrc/bisect_wgmma.cu once (the script raises otherwise), and all but
     the kernel itself change it."""
     source = wb._SOURCE.read_text()
