@@ -7,7 +7,10 @@ Phases, each printing its wall time and raising on failure:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
 2. build: compiles the port's CUDA kernels from ``csrc/`` with nvcc;
-3. kernels: each kernel against its plain PyTorch version at the main
+3. cuda_tests: ``tests/test_torch_cuda.py`` (every ``cuda``-marked test of
+   the repo, jax-free) under pytest from the repo root, with the kernels
+   just built; fails on a non-zero exit, on any skip or on no test;
+4. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, in the main path's types, with times of the kernel, the
    plain version and a library yardstick, and its bound; the gate kernel in
    both its contracts (the main path's bfloat16 one and the JAX function's
@@ -15,16 +18,22 @@ Phases, each printing its wall time and raising on failure:
    rate (``call_ms``), and at every type and an odd pixel count on views off
    alignment; the fused kernel per layer with its TFLOP/s (CUDA events),
    at every tile mapping the wrapper chooses from, and at ragged shapes;
-4. reference: the port's rollout on the card against the same rollout on
+5. reference: the port's rollout on the card against the same rollout on
    the CPU (plain versions) on a small input with the bundled weights;
-5. main path: ``neat_illusion`` for two generations at the full width of the
+6. main path: ``neat_illusion`` for two generations at the full width of the
    bundled color predictor (3,48,96,192), 160x120, the ``circles`` preset;
    asserts the kernel launch counts, finite fitness, two generations;
-6. load: two generations at the ``default_color`` run preset's shape
+7. load: two generations at the ``default_color`` run preset's shape
    (CirclesFree, 320x240, pop 40, repeat 5);
-7. profile: device time by kernel and the number of kernel launches over
+8. cli: the port's CLI (``cli.main``) for two generations at the main
+   path's shape with its artifacts and a ``profile_dir`` trace; asserts the
+   launch counts, finite fitness, the four PNGs (decoded by the port's
+   reader), ``best.png`` against the winner's rendered row, the overlay
+   colour at the winner's vectors, and the trace's kernel events; logs
+   the seconds ``save_best_artifacts`` takes a generation;
+9. profile: device time by kernel and the number of kernel launches over
    one warm main-path generation;
-8. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
+10. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
    its north-star layer-1 shape (``--big --rows 48``, all ten rungs);
    asserts each rung's launch count, then holds each of the seven rung
    kernels against its plain version on the card (A also at ragged counts
@@ -36,7 +45,8 @@ Phases, each printing its wall time and raising on failure:
    plain versions at the tests' ragged, wide, odd-rows and cp.async-windows
    shapes; logs E's and J's times beside D's.
 
-Then one JSON line with every kernel's numbers, and as the last line
+Then one JSON line with every kernel's numbers (its launches summed over
+the main path, cli and bisect phases), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a card or without the port beside it.
 """
@@ -97,6 +107,17 @@ STEP_DIFF_SHARE = 0.01
 # far the CPU drifts from itself when only the order of the fused layers'
 # float32 sums changes.
 ROLLOUT_MEAN_TOL = 2e-2
+
+# the cuda-marked tests, run by pytest on the card
+CUDA_TESTS = "tests/test_torch_cuda.py"
+CUDA_TESTS_TIMEOUT_S = 300
+# the cli phase's run: the main path's shape, artifacts and a profiled
+# generation 1 (one chunk of 8, so 22 gate and 66 fused launches)
+CLI_ARGS = ["-s", "1", "--generations", "2"]
+CLI_SHAPE = (120, 160, 3)
+OVERLAY_RED = (255, 0, 0)
+TRACE_KERNELS = {"fused_lstm_gates": ("lstm_gates_kernel", STEPS),
+                 "fused_convlstm_layer_multi": ("convlstm_fused_kernel", STEPS * 3)}
 
 # the bisection ladder at its --big shape; every rung runs 1 + 10 * (1 + 5)
 # times (check, warm loop, timed loops)
@@ -221,6 +242,26 @@ def build():
             kernel = entry.group(1) + entry.group(2)
         elif "registers" in line or "spill" in line:
             log(f"  ptxas {kernel}: " + line.split(":", 1)[-1].strip())
+
+
+@phase("cuda_tests")
+def cuda_tests():
+    """The repo's ``cuda``-marked tests on the card.  A missing pytest is a
+    failure, as is a skip: here every test has its card."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+         "-rs", CUDA_TESTS],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=CUDA_TESTS_TIMEOUT_S,
+    )
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    counts = {k: int(n) for n, k in re.findall(r"(\d+) ([a-z]+)", summary)}
+    if proc.returncode != 0 or set(counts) != {"passed"} or not counts["passed"]:
+        raise AssertionError(f"cuda_tests: pytest exit {proc.returncode}, {summary!r}\n"
+                             f"{proc.stdout[-6000:]}\n{proc.stderr[-3000:]}")
+    log(f"  {CUDA_TESTS}: {counts['passed']} passed ({summary})")
+    return counts["passed"]
 
 
 def _layer_inputs(gen, params, layer, H, W, cins):
@@ -552,25 +593,18 @@ def _counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def run_generations(label, generations, steps, **kwargs):
-    """``neat_illusion`` on the card; checks the launch counts (one chunk
-    per generation), finite fitness and the generation count."""
-    from evolutionary_illusion_generator_tpu_torch.evolution import neat_illusion
-
-    with tempfile.TemporaryDirectory() as out:
-        _reset_counts()
-        pop = neat_illusion(out, None, generations=generations, seed=0,
-                            save_artifacts=False, quiet=True, device="cuda", **kwargs)
-        counts = _counts()
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
+def _check_generations(label, generations, steps, counts, out):
+    """The launch counts (one chunk per generation), the generation count
+    and finite fitness of a run that wrote ``out``/metrics.jsonl."""
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
     want = dict.fromkeys(counts, 0)
     want.update({"fused_lstm_gates": generations * steps,
                  "fused_convlstm_layer_multi": generations * steps * 3})
     if counts != want:
         raise AssertionError(f"{label}: kernel launches {counts}, expected {want}")
-    if pop.generation != generations or len(recs) != generations:
-        raise AssertionError(f"{label}: ran {pop.generation} generations")
+    if len(recs) != generations:
+        raise AssertionError(f"{label}: ran {len(recs)} generations")
     for r in recs:
         if not all(map(math.isfinite, (r["fitness_mean"], r["fitness_max"],
                                        r["fitness_std"]))):
@@ -579,6 +613,22 @@ def run_generations(label, generations, steps, **kwargs):
             f"{r['eval_seconds']:.3f} s fitness max {r['fitness_max']:.5f} "
             f"mean {r['fitness_mean']:.5f}")
     log(f"  {label} launches {counts}")
+    return recs
+
+
+def run_generations(label, generations, steps, **kwargs):
+    """``neat_illusion`` on the card, without artifacts; checks the launch
+    counts, finite fitness and the generation count."""
+    from evolutionary_illusion_generator_tpu_torch.evolution import neat_illusion
+
+    with tempfile.TemporaryDirectory() as out:
+        _reset_counts()
+        pop = neat_illusion(out, None, generations=generations, seed=0,
+                            save_artifacts=False, quiet=True, device="cuda", **kwargs)
+        counts = _counts()
+        recs = _check_generations(label, generations, steps, counts, out)
+    if pop.generation != generations:
+        raise AssertionError(f"{label}: ran {pop.generation} generations")
     return counts, recs
 
 
@@ -603,6 +653,82 @@ def default_color():
         structure=StructureType.CirclesFree, w=320, h=240, channels=(3, 48, 96, 192),
         c_dim=3, repeat=5)
     log(f"  default_color s/generation (generation 1): {recs[1]['eval_seconds']:.4f}")
+
+
+@phase("cli")
+def cli_run():
+    """``python -m evolutionary_illusion_generator_tpu_torch.cli -s 1
+    --generations 2 --profile_dir ...`` in process: the color predictor at
+    full width, 160x120, the circles preset, with its artifacts.  The
+    driver's evaluator is wrapped to keep the last generation's results and
+    its ``save_best_artifacts`` to time it and take its peak device memory
+    (the 800x800 poster is 640,000 CPPN points)."""
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch import cli
+    from evolutionary_illusion_generator_tpu_torch.evolution import driver
+    from evolutionary_illusion_generator_tpu_torch.utils.png import read_png
+    from evolutionary_illusion_generator_tpu_torch.utils.profiling import TRACE_FILE
+
+    evaluators, artifact_s = [], []
+    evaluator, save = driver.GenerationEvaluator, driver.save_best_artifacts
+
+    class Recording(evaluator):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            evaluators.append(self)
+
+    def timed_save(*a, **kw):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        save(*a, **kw)
+        artifact_s.append((time.time() - t0, torch.cuda.max_memory_allocated() - base))
+
+    with tempfile.TemporaryDirectory() as out:
+        prof = os.path.join(out, "prof")
+        driver.GenerationEvaluator, driver.save_best_artifacts = Recording, timed_save
+        try:
+            _reset_counts()
+            cli.main(["-o", out, *CLI_ARGS, "--profile_dir", prof])
+            counts = _counts()
+        finally:
+            driver.GenerationEvaluator, driver.save_best_artifacts = evaluator, save
+        recs = _check_generations("cli", 2, STEPS, counts, out)
+        pngs = {}
+        for name, shape in (("best.png", CLI_SHAPE), ("best_flow.png", CLI_SHAPE),
+                            ("best_black_bg.png", CLI_SHAPE), ("enhanced.png", (800, 800, 3))):
+            img, mode = read_png(os.path.join(out, name))
+            if img.shape != shape or img.dtype.name != "uint8":
+                raise AssertionError(f"cli: {name} decodes to {img.shape} {img.dtype} ({mode}), "
+                                     f"expected {shape} uint8")
+            pngs[name] = img
+        res = evaluators[-1].last_results
+        row = res["best_row"]
+        winner = res["outputs"].fetch("images_u8", row)
+        if not (winner.shape == CLI_SHAPE and (pngs["best.png"] == winner).all()):
+            raise AssertionError("cli: best.png is not the winner's rendered row")
+        vectors = res["vectors"][row][res["mask"][row]]
+        starts = {(int(y), int(x)) for x, y in vectors[:, :2]
+                  if 0 <= x < CLI_SHAPE[1] and 0 <= y < CLI_SHAPE[0]}
+        if not starts:
+            raise AssertionError("cli: the winner has no flow vector in the image")
+        off = [p for p in starts if tuple(pngs["best_flow.png"][p]) != OVERLAY_RED]
+        if off:
+            raise AssertionError(f"cli: best_flow.png lacks the overlay colour at {off[:5]}")
+        with open(os.path.join(prof, TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        found = {name: sum(key in k for k in kernels) for name, (key, _) in TRACE_KERNELS.items()}
+        want = {name: n for name, (_, n) in TRACE_KERNELS.items()}
+        if found != want:
+            raise AssertionError(f"cli: the trace holds {found} kernel events, expected {want}")
+    log(f"  cli: {len(vectors)} winner vectors; trace of generation 1: {len(kernels)} kernel "
+        f"events, {found}")
+    log("  cli save_best_artifacts s/generation (device memory above its start): "
+        + ", ".join(f"{t:.4f} ({peak / 2**20:.1f} MiB)" for t, peak in artifact_s))
+    log(f"  cli s/generation (generation 1): {recs[1]['eval_seconds']:.4f}")
+    return counts
 
 
 @phase("profile")
@@ -857,17 +983,19 @@ def main():
     from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import load_or_init
 
     build()
+    cuda_tests()
     params = load_or_init(None, (3, 48, 96, 192), device="cuda")
     kernels = check_kernels(params)
     check_reference(params)
     counts = main_path()
     default_color()
+    cli_counts = cli_run()
     profile_generation(params)
     bisect_kernels, bisect_counts = bisect()
     kernels.update(bisect_kernels)
     log(f"[total] {time.time() - t0:.1f} s")
-    # launches over the driven paths: main_path, then the bisection ladder
-    rows = [dict(name=name, launches=counts[name] + bisect_counts[name], **r)
+    # launches over the driven paths: main_path, cli, then the bisection ladder
+    rows = [dict(name=name, launches=counts[name] + cli_counts[name] + bisect_counts[name], **r)
             for name, r in kernels.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

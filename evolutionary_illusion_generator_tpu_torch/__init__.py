@@ -13,9 +13,15 @@ Subpackages
 - ``models``     CPPN level evaluator and the PredNet predictive coder
 - ``ops``        coordinate grids, rendering, optical flow, fitness metrics,
                  the CUDA kernel wrappers
-- ``evolution``  the generation evaluator and the ``neat_illusion`` driver
+- ``evolution``  the generation evaluator, the ``neat_illusion`` driver and
+                 the per-generation artifacts
+- ``utils``      PNG I/O without Pillow, image IO and flow overlays,
+                 mirroring, misc image helpers, timing and profiling
 - ``scripts``    command-line tools: ``kernel_bisect``, the kernel-bisection
                  ladder on the card
+- ``cli``        the command line (``python -m
+                 evolutionary_illusion_generator_tpu_torch.cli``), with the
+                 run presets of ``configs``
 """
 
 __version__ = "0.1.0"

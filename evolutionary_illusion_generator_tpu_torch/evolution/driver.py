@@ -3,12 +3,10 @@
 The signature of the JAX package's ``neat_illusion`` (the reference's
 ``neat_illusion(output_dir, model_name, config_path, structure, w, h,
 channels, c_dim, checkpoint, gradient)`` plus the run knobs), with
-``device``.  Not ported yet, and so not accepted here: PNG artifacts
-(``save_artifacts=True`` raises until the PIL-free image I/O lands),
-``profile_dir``, device scoring (``score_on_device``), multi-device
-(``n_devices``), the Pallas toggle ``use_pallas`` (the port's route is
-fixed: its kernels on the card), ``debug_nans`` and the Chainer importer's
-``chainer_half_order``.
+``device``.  Each generation writes the winner's artifacts
+(``evolution/artifacts.py``); ``profile_dir`` takes a ``torch.profiler``
+trace of generation 1.  The JAX driver's arguments that the port does not
+implement yet keep their names and defaults and raise on any other value.
 """
 
 from __future__ import annotations
@@ -33,6 +31,8 @@ from ..neat import (
 )
 from ..ops.flow.api import FlowConfig
 from ..structure import StructureType
+from ..utils.profiling import trace
+from .artifacts import save_best_artifacts
 from .evaluator import EvalConfig, GenerationEvaluator
 
 __all__ = ["neat_illusion", "resolve_neat_config"]
@@ -76,6 +76,8 @@ def neat_illusion(
     generations: int = 100,
     seed: int = 0,
     checkpoint_every: int = 1,
+    score_on_device: bool = False,
+    use_pallas: Union[bool, str] = False,
     microbatch: int = 0,
     repeat: int = 20,
     extension: int = 2,
@@ -85,7 +87,10 @@ def neat_illusion(
     tensorboard: bool = False,
     save_artifacts: bool = True,
     quiet: bool = False,
+    n_devices: Optional[int] = None,
     profile_dir: Optional[str] = None,
+    chainer_half_order: str = "ahat-a",
+    debug_nans: bool = False,
     device=None,
 ) -> Population:
     """Evolve illusions for up to ``generations`` generations on ``device``
@@ -95,17 +100,24 @@ def neat_illusion(
     best-ever genome).  ``model_name`` is a native NPZ weight file; without
     one the bundled stand-in weights for ``channels`` are used, else seeded
     random weights.
+
+    ``use_pallas`` is accepted and has no effect: the port's route is fixed,
+    its CUDA kernels, which compute the JAX ``use_pallas="fused"`` math.
+    ``score_on_device=True``, ``n_devices > 1``, a ``chainer_half_order``
+    other than ``"ahat-a"`` and ``debug_nans=True`` are not ported yet and
+    raise ``NotImplementedError`` naming their ROADMAP.md item.
     """
-    if save_artifacts:
-        raise NotImplementedError(
-            "PNG artifacts need the port's PIL-free image I/O (ROADMAP.md, "
-            "'PIL-free image I/O with artifacts'); pass save_artifacts=False"
-        )
-    if profile_dir is not None:
-        raise NotImplementedError(
-            "profile_dir is not ported yet (ROADMAP.md, 'PIL-free image I/O "
-            "with artifacts, probe, CLI')"
-        )
+    refused = (
+        (score_on_device, "score_on_device=True", "Device scoring"),
+        (n_devices is not None and n_devices > 1, f"n_devices={n_devices}", "Parallel"),
+        (chainer_half_order != "ahat-a", f"chainer_half_order={chainer_half_order!r}",
+         "The single-image probe and the compat shims"),
+        (debug_nans, "debug_nans=True", "The sanitizer mode debug_nans"),
+    )
+    for asked, what, item in refused:
+        if asked:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP.md Queue 1, {item!r})")
     device = resolve_device(device)
     if device.type == "cuda":
         # float32 convolutions and matmuls in full float32 (cuDNN would
@@ -145,5 +157,30 @@ def neat_illusion(
     ckpt.attach(pop)
     pop.add_reporter(ckpt)
 
-    pop.run(evaluator, generations)
+    def eval_genomes(genome_items, cfg):
+        # profile a warm generation: generation 1 (generation 0 builds)
+        with trace(profile_dir if pop.generation == 1 else None):
+            evaluator(genome_items, cfg)
+        if save_artifacts:
+            res = evaluator.last_results
+            best_genome = genome_items[res["best_idx"]][1]
+            # device rows are per render (pertype_count per genome); the
+            # winner's best render drives the artifacts
+            row = res["best_row"]
+            vectors = res["vectors"][row][res["mask"][row]]
+            # only the winner's image and flow frame leave the device
+            save_best_artifacts(
+                best_genome,
+                res["outputs"].fetch("images_u8", row),
+                vectors,
+                res["outputs"].fetch("flow_frame0", row),
+                neat_cfg,
+                structure,
+                c_dim,
+                gradient,
+                output_dir,
+                device=evaluator.device,
+            )
+
+    pop.run(eval_genomes, generations)
     return pop

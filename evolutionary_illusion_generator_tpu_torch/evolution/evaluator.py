@@ -87,8 +87,8 @@ class GenerationOutputs:
     """Results of one generation's device pass.
 
     The small per-candidate data (flow vectors, masks) is copied to the host
-    on demand in one go; bulky tensors (rendered images) stay on the device
-    and are fetched row by row.
+    on demand in one go; bulky tensors (rendered images, the first flow
+    frame) stay on the device and are fetched row by row.
     """
 
     SMALL = ("vectors", "mask")
@@ -181,7 +181,13 @@ class GenerationEvaluator:
             compute_dtype=getattr(torch, cfg.prednet_dtype),
         )
         vectors, vmask = batched_flow(f0, f1, cfg.flow)
-        return {"images_u8": imgs_u8, "vectors": vectors, "mask": vmask}
+        return {
+            "images_u8": imgs_u8,
+            "vectors": vectors,
+            "mask": vmask,
+            # the base of the winner's overlay artifact, kept as uint8
+            "flow_frame0": (f0.clamp(0.0, 1.0) * 255.0).to(torch.uint8),
+        }
 
     def evaluate_images(self, genomes: List[Genome]) -> GenerationOutputs:
         """Run the device pass over host-level chunks of the population.

@@ -12,8 +12,8 @@ their blocks), at one of odd row blocks (rows 3, 7 windows: the wgmma
 body's row pairs straddle the windows) and at one of odd row blocks with
 a Cin that is not a multiple of 8 (rows 5, 3 windows, Cin 12: the wgmma
 body's cp.async main loop crosses windows, which overlap inside ``xp`` for
-E and J).  The ``cuda`` tests hold each CUDA kernel against its plain
-version on a card, at every shape, and skip without one.  One test reads
+E and J).  ``test_torch_cuda.py`` holds each CUDA kernel against its
+plain version on a card, at every shape.  One test reads
 ``csrc/``: the six conv rungs are one wgmma kernel, and no ``mma.sync``
 conv body is left in the ladder.
 """
@@ -33,6 +33,7 @@ from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused
 from evolutionary_illusion_generator_tpu_torch.scripts import kernel_bisect as kb
 from evolutionary_illusion_generator_tpu_torch.scripts import rung_a_breakdown as ab
 from evolutionary_illusion_generator_tpu_torch.scripts import wgmma_breakdown as wb
+from test_torch_cuda import SHAPES  # (B, H, W, Cin, C), rows
 
 # the suite runs in several worker processes: one torch thread each keeps
 # them from oversubscribing the cores
@@ -43,14 +44,6 @@ _spec = importlib.util.spec_from_file_location(
 pb = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(pb)
 
-# (B, H, W, Cin, C), rows
-SHAPES = {
-    "default": (kb.DEFAULT_SHAPE, 32),
-    "ragged": ((2, 16, 20, 24, 8), 8),
-    "wide": ((2, 24, 70, 40, 72), 8),
-    "odd_rows": ((2, 21, 70, 40, 18), 3),
-    "cpasync_windows": ((2, 15, 66, 12, 18), 5),
-}
 JAX_RUNGS = {"A": pb.variant_A, "C": pb.variant_C, "D": pb.variant_D, "H": pb.variant_H,
              "E": pb.variant_E, "I": pb.variant_H2, "J": pb.variant_E2}
 # Both sides sum bfloat16 products in float32; only the order differs.
@@ -277,51 +270,3 @@ def test_rung_a_breakdown_variants_apply(name):
     variant = ab.variant_source(name)
     assert (variant == ab.variant_source("kernel")) == (name == "kernel")
     assert 'extern "C" int eigen_bisect_a(' in variant and "eigen_bisect_e" not in variant
-
-
-def _cuda_or_skip():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False  # plain float32 convs in full float32
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", sorted(SHAPES))
-@pytest.mark.parametrize("key", sorted(JAX_RUNGS))
-def test_cuda_rung_kernel_matches_plain(key, shape):
-    _cuda_or_skip()
-    dims, rows = SHAPES[shape]
-    args = [t.cuda() for t in _torch(_inputs(dims))]
-    kw = {"rows": rows} if key in kb.ROW_BLOCK_KEYS else {}
-    n = cb.RUNGS[key].launches
-    h, c = cb.RUNGS[key](*args, **kw)
-    torch.cuda.synchronize()
-    assert cb.RUNGS[key].launches == n + 1
-    h_p, c_p = cb.plain(key, *args)
-    assert h.dtype == h_p.dtype
-    if key == "A":
-        assert torch.equal(h, h_p)
-    else:
-        torch.testing.assert_close(h.float(), h_p.float(), atol=H_ATOL, rtol=0)
-        torch.testing.assert_close(c, c_p, atol=1e-4, rtol=0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("offset", [0, 1, 3])
-@pytest.mark.parametrize("state", ["float32", "bfloat16"])
-def test_cuda_rung_a_exact_at_ragged_counts_and_offsets(state, offset):
-    """A's kernel at a count that is not a multiple of its vector (3,822
-    elements) and on views `offset` elements past an allocation: the scalar
-    head and tail around the 16-byte vectors."""
-    _cuda_or_skip()
-    g = torch.Generator(device="cuda").manual_seed(offset)
-    x = torch.randn(2, 13, 21, 4, device="cuda", generator=g).bfloat16()
-    w = torch.zeros(3, 3, 4, 28, device="cuda", dtype=torch.bfloat16)
-    b = torch.zeros(28, device="cuda", dtype=torch.bfloat16)
-    buf = torch.randn(2 * 13 * 21 * 7 + offset, device="cuda", generator=g).to(getattr(torch, state))
-    c_prev = buf[offset:].view(2, 13, 21, 7)
-    n = cb.variant_A.launches
-    out, _ = cb.variant_A(x, w, b, c_prev)
-    torch.cuda.synchronize()
-    assert cb.variant_A.launches == n + 1
-    assert torch.equal(out, c_prev.float() * 2)

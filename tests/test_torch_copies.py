@@ -1,17 +1,18 @@
 """The port's own copies of the JAX package's framework-free modules
-(``ops/fitness/{metrics_np,calculate}``, ``ops/grids``, ``neat``) give
-bit-equal results to the originals on the same inputs."""
+(``ops/fitness/{metrics_np,calculate}``, ``ops/grids``, ``neat``,
+``configs``) give bit-equal results to the originals on the same inputs."""
 
 import math
 
 import numpy as np
 import pytest
 
+from evolutionary_illusion_generator_tpu import configs as jax_configs
 from evolutionary_illusion_generator_tpu import neat as jax_neat
 from evolutionary_illusion_generator_tpu.ops import grids as jax_grids
 from evolutionary_illusion_generator_tpu.ops.fitness import calculate as jax_calculate
 from evolutionary_illusion_generator_tpu.ops.fitness import metrics_np as jax_metrics
-from evolutionary_illusion_generator_tpu_torch import neat
+from evolutionary_illusion_generator_tpu_torch import configs, neat
 from evolutionary_illusion_generator_tpu_torch.ops import grids
 from evolutionary_illusion_generator_tpu_torch.ops.fitness import calculate, metrics_np
 from evolutionary_illusion_generator_tpu_torch.structure import StructureType
@@ -96,3 +97,15 @@ def test_neat_runs_identically():
             assert all(g.connections[k].weight == r.connections[k].weight for k in g.connections)
             assert {k: (n.bias, n.activation) for k, n in g.nodes.items()} == {
                 k: (n.bias, n.activation) for k, n in r.nodes.items()}
+
+
+@pytest.mark.parametrize("name", jax_configs.RUN_PRESET_NAMES)
+def test_run_presets_equal(name):
+    """Each run preset's ``driver_kwargs()`` (its NEAT config field by
+    field), name and device count."""
+    assert configs.RUN_PRESET_NAMES == jax_configs.RUN_PRESET_NAMES
+    ours, ref = configs.run_preset(name), jax_configs.run_preset(name)
+    kw, ref_kw = ours.driver_kwargs(), ref.driver_kwargs()
+    assert vars(kw.pop("config")) == vars(ref_kw.pop("config"))
+    assert kw == ref_kw
+    assert (ours.name, ours.n_devices) == (ref.name, ref.n_devices)

@@ -73,6 +73,10 @@ def test_generation_matches_jax(structure, c_dim, channels):
     # uint8 truncation boundaries, as in test_torch_cppn_render.py
     assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
     np.testing.assert_array_equal(out["mask"], ref_out["mask"])
+    # the overlay's base frame: the same float32 frame, truncated to uint8
+    diff = np.abs(out["flow_frame0"].astype(np.int16) - ref_out["flow_frame0"].astype(np.int16))
+    assert out["flow_frame0"].dtype == np.uint8 and out["flow_frame0"].shape == ref_out["flow_frame0"].shape
+    assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
     best = ours_eval.last_results["best_row"]
     np.testing.assert_array_equal(ours_eval.last_results["outputs"].fetch("images_u8", best),
                                   out["images_u8"][best])
@@ -101,9 +105,16 @@ def test_driver_runs_generations_on_cpu(tmp_path):
     assert resumed.generation == 3
 
 
-def test_driver_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="image I/O"):
-        neat_illusion(str(tmp_path), None, None, StructureType.Circles, device="cpu")
-    with pytest.raises(NotImplementedError):
-        neat_illusion(str(tmp_path), None, None, StructureType.Circles, device="cpu",
-                      save_artifacts=False, profile_dir=str(tmp_path / "p"))
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(score_on_device=True), "Device scoring"),
+    (dict(n_devices=2), "Parallel"),
+    (dict(chainer_half_order="auto"), "compat shims"),
+    (dict(debug_nans=True), "debug_nans"),
+])
+def test_driver_refuses_what_is_not_ported(kwargs, match, tmp_path):
+    """The JAX driver's arguments the port does not implement yet raise,
+    naming their ROADMAP.md item, before anything runs."""
+    with pytest.raises(NotImplementedError, match=match):
+        neat_illusion(str(tmp_path / "run"), None, None, StructureType.Circles, device="cpu",
+                      **kwargs)
+    assert not (tmp_path / "run").exists()

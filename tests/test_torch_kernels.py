@@ -4,8 +4,8 @@ On the CPU each wrapper of ``evolutionary_illusion_generator_tpu_torch.ops``
 runs its plain PyTorch version; the JAX side runs its Pallas kernels in
 interpret mode, as ``tests/test_prednet.py`` and
 ``tests/test_fused_convlstm.py`` do.  Inputs come from numpy, made from a
-seed, and both frameworks get the same arrays.  The ``cuda`` tests hold the
-CUDA kernels against the plain versions on a card and skip without one.
+seed, and both frameworks get the same arrays.  The CUDA kernels are held
+against the plain versions on a card by ``test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -188,93 +188,3 @@ def test_gates_reject_mismatched_shapes():
 def test_gates_reject_an_unsupported_out_dtype():
     with pytest.raises(TypeError):
         fused_lstm_gates(torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 2), out_dtype=torch.float16)
-
-
-def _cuda_or_skip():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False  # plain float32 convs in full float32
-
-
-@pytest.mark.cuda
-def test_cuda_gates_kernel_matches_plain():
-    _cuda_or_skip()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    gates = torch.randn(2, 30, 40, 12, device="cuda", generator=g)
-    c_prev = torch.randn(2, 30, 40, 3, device="cuda", generator=g).bfloat16()
-    n = fused_lstm_gates.launches
-    h, c = fused_lstm_gates(gates, c_prev)
-    torch.cuda.synchronize()
-    assert fused_lstm_gates.launches == n + 1
-    h_p, c_p = convlstm_gates.lstm_gates_plain(gates, c_prev)
-    torch.testing.assert_close(h, h_p, atol=GATES_ATOL, rtol=0)
-    torch.testing.assert_close(c, c_p, atol=GATES_ATOL, rtol=0)
-
-
-def _at_odd_offset(t):
-    """``t`` copied into a contiguous view that starts one element past an
-    allocation, so off every vector boundary."""
-    v = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
-    return v.copy_(t)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("gate_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C", [1, 3, 8, 48])
-def test_cuda_gates_kernel_types_match_plain(C, gate_dtype, out_dtype):
-    """Every gate and output type, both state types, at an odd pixel count
-    (1 x 7 x 9) and at views off the allocations' alignment."""
-    _cuda_or_skip()
-    g = torch.Generator(device="cuda").manual_seed(C)
-    od = getattr(torch, out_dtype)
-    for state in (torch.float32, torch.bfloat16):
-        gates = torch.randn(1, 7, 9, 4 * C, device="cuda", generator=g).mul_(2).to(
-            getattr(torch, gate_dtype))
-        c_prev = torch.randn(1, 7, 9, C, device="cuda", generator=g).to(state)
-        h_p, c_p = convlstm_gates.lstm_gates_plain(gates, c_prev, out_dtype=od)
-        for args in ((gates, c_prev), (_at_odd_offset(gates), _at_odd_offset(c_prev))):
-            h, c = fused_lstm_gates(*args, out_dtype=od)
-            torch.cuda.synchronize()
-            assert h.dtype == c.dtype == od
-            rtol = BF16_RTOL if od == torch.bfloat16 else 0
-            torch.testing.assert_close(h.float(), h_p.float(), atol=GATES_ATOL, rtol=rtol)
-            torch.testing.assert_close(c.float(), c_p.float(), atol=GATES_ATOL, rtol=rtol)
-
-
-# (B, H, W, source channels, C): the main path's three layers at a chunk of
-# 2, then ragged shapes — image edges inside a tile, channel counts not a
-# multiple of 16 (40) or of 8 (12), C not a multiple of 16
-FUSED_CASES = {
-    "layer1": (2, 60, 80, (96, 48, 96), 48),
-    "layer2": (2, 30, 40, (192, 96, 192), 96),
-    "layer3": (2, 15, 20, (384, 192), 192),
-    "single": (2, 60, 80, (240,), 48),
-    "ragged1": (2, 13, 21, (40,), 24),
-    "ragged2": (2, 13, 21, (40, 12), 24),
-    "ragged3": (2, 13, 21, (12, 40, 24), 24),
-}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("state", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", sorted(FUSED_CASES))
-def test_cuda_fused_kernel_matches_plain(case, state):
-    _cuda_or_skip()
-    B, H, W, cins, C = FUSED_CASES[case]
-    srcs, ws, b, c_prev = _layer_inputs(7, B, H, W, cins, C)
-    srcs = [torch.as_tensor(s).cuda().bfloat16() for s in srcs]
-    wks = [pack_gate_weight(torch.as_tensor(w)).cuda() for w in ws]
-    b = torch.as_tensor(b).cuda()
-    c_prev = torch.as_tensor(c_prev).cuda().to(getattr(torch, state))
-    wrapper = fused_convlstm_layer_multi if len(cins) > 1 else fused_convlstm_layer
-    n = wrapper.launches
-    h, c = (wrapper(srcs, wks, b, c_prev) if len(cins) > 1
-            else wrapper(srcs[0], wks[0], b, c_prev))
-    torch.cuda.synchronize()
-    assert wrapper.launches == n + 1
-    h_p, c_p = convlstm_fused.convlstm_layer_plain(srcs, wks, b, c_prev)
-    assert h.dtype == h_p.dtype
-    # h in bfloat16 state: one rounding flip is 2**-8 at |h| < 1
-    torch.testing.assert_close(h.float(), h_p.float(), atol=1e-2, rtol=0)
-    torch.testing.assert_close(c, c_p, atol=1e-4, rtol=0)

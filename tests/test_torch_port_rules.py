@@ -1,5 +1,6 @@
-"""Rules of the PyTorch port: it imports no JAX and nothing of the JAX
-package, and its entry points never fall back to the CPU on their own."""
+"""Rules of the PyTorch port: it imports no JAX, nothing of the JAX
+package, no Pillow and no OpenCV, and its entry points never fall back to
+the CPU on their own."""
 
 import subprocess
 import sys
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from evolutionary_illusion_generator_tpu_torch import cli
 from evolutionary_illusion_generator_tpu_torch.evolution import (
     EvalConfig,
     GenerationEvaluator,
@@ -27,7 +29,10 @@ PORT = REPO / "evolutionary_illusion_generator_tpu_torch"
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
-sys.modules["jax"] = None  # any `import jax` now raises ImportError
+# any `import jax`, `import PIL` or `import cv2` now raises ImportError: the
+# card's machine has none of them
+for blocked in ("jax", "PIL", "cv2"):
+    sys.modules[blocked] = None
 sys.path.insert(0, {repo!r})
 import evolutionary_illusion_generator_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
@@ -38,12 +43,13 @@ leaked = sorted(m for m in sys.modules
                 if m == "evolutionary_illusion_generator_tpu"
                 or m.startswith("evolutionary_illusion_generator_tpu."))
 assert not leaked, leaked
-assert sys.modules["jax"] is None
+assert all(sys.modules[m] is None for m in ("jax", "PIL", "cv2"))
 print(len(names))
 """
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """... and no Pillow or OpenCV either."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(repo=str(REPO))],
         capture_output=True, text=True, timeout=120, cwd=str(REPO),
@@ -64,6 +70,8 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         neat_illusion(str(tmp_path), None, cfg, StructureType.Circles, channels=(3, 4),
                       generations=1, save_artifacts=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["-o", str(tmp_path / "cli"), "-s", "1", "-ch", "3,4", "--generations", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         loader.load_or_init(None, (1, 4, 8))
     params = loader.load_or_init(None, (1, 4, 8), device="cpu")
