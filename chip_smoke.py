@@ -30,10 +30,23 @@ Phases, each printing its wall time and raising on failure:
    launch counts, finite fitness, the four PNGs (decoded by the port's
    reader), ``best.png`` against the winner's rendered row, the overlay
    colour at the winner's vectors, and the trace's kernel events; logs
-   the seconds ``save_best_artifacts`` takes a generation;
-9. profile: device time by kernel and the number of kernel launches over
+   the seconds ``save_best_artifacts`` takes a generation; keeps the
+   ``best.png`` it wrote for the probe;
+9. probe: the single-image probe (``evolution/probe.py``) on that
+   ``best.png`` at the color predictor's full width, 160x120:
+   ``get_vectors`` and ``score_image`` with their seconds, then the
+   reference's file bus on the same image and model (``compat.test_prednet``
+   writing the frames as PNGs, ``compat.lucas_kanade`` reading them), whose
+   vectors must equal the probe's; asserts the launch counts;
+10. scorers: one generation at the ``default_color`` shape (pop 40) with
+   each scoring back end (``score_backend="numpy"``, ``"native"``,
+   ``score_on_device=True``): asserts the C++ scorer was built here, holds
+   the native scores to numpy's and the device scores to float64 host
+   scores of the same vectors (with the same ranking), and logs each one's
+   ``last_timings``;
+11. profile: device time by kernel and the number of kernel launches over
    one warm main-path generation;
-10. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
+12. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
    its north-star layer-1 shape (``--big --rows 48``, all ten rungs);
    asserts each rung's launch count, then holds each of the seven rung
    kernels against its plain version on the card (A also at ragged counts
@@ -46,7 +59,7 @@ Phases, each printing its wall time and raising on failure:
    shapes; logs E's and J's times beside D's.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main path, cli and bisect phases), and as the last line
+the main path, cli, probe, scorers and bisect phases), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a card or without the port beside it.
 """
@@ -56,6 +69,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -118,6 +132,22 @@ CLI_SHAPE = (120, 160, 3)
 OVERLAY_RED = (255, 0, 0)
 TRACE_KERNELS = {"fused_lstm_gates": ("lstm_gates_kernel", STEPS),
                  "fused_convlstm_layer_multi": ("convlstm_fused_kernel", STEPS * 3)}
+# the probe phase: the color predictor at full width on the cli phase's
+# best.png, two probe rollouts and one file-bus rollout
+PROBE_CHANNELS = (3, 48, 96, 192)
+PROBE_ROLLOUTS = 3
+# the scorers phase: the default_color shape, one generation per back end
+SCORER_BACKENDS = (("numpy", dict(score_backend="numpy")),
+                   ("native", dict(score_backend="native")),
+                   ("device", dict(score_on_device=True)))
+SCORER_STEPS = 5 + 2
+# The C++ scorer against numpy: the same float64 math in another summation
+# order, contracted into FMAs under -march=native, so the last bits differ
+# (9e-15 measured on the CPU); the JAX package's own test holds it so.
+NATIVE_ATOL = 1e-12
+# float32 device scores against float64 host scores, with the same ranking
+# (the JAX package's tests/test_device_scoring.py)
+DEVICE_RTOL, DEVICE_ATOL = 1e-3, 1e-5
 
 # the bisection ladder at its --big shape; every rung runs 1 + 10 * (1 + 5)
 # times (check, warm loop, timed loops)
@@ -221,13 +251,15 @@ def check_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()}")
     # float32 convs and matmuls in full float32 wherever the plain versions
     # are compared (cuDNN would otherwise use TF32 for float32 convs)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    return card
 
 
 @phase("build")
@@ -656,13 +688,14 @@ def default_color():
 
 
 @phase("cli")
-def cli_run():
+def cli_run(keep_dir):
     """``python -m evolutionary_illusion_generator_tpu_torch.cli -s 1
     --generations 2 --profile_dir ...`` in process: the color predictor at
     full width, 160x120, the circles preset, with its artifacts.  The
     driver's evaluator is wrapped to keep the last generation's results and
     its ``save_best_artifacts`` to time it and take its peak device memory
-    (the 800x800 poster is 640,000 CPPN points)."""
+    (the 800x800 poster is 640,000 CPPN points).  Copies ``best.png`` into
+    ``keep_dir`` and returns the launch counts and that copy's path."""
     import torch
 
     from evolutionary_illusion_generator_tpu_torch import cli
@@ -723,11 +756,127 @@ def cli_run():
         want = {name: n for name, (_, n) in TRACE_KERNELS.items()}
         if found != want:
             raise AssertionError(f"cli: the trace holds {found} kernel events, expected {want}")
+        best = shutil.copy(os.path.join(out, "best.png"), keep_dir)
     log(f"  cli: {len(vectors)} winner vectors; trace of generation 1: {len(kernels)} kernel "
         f"events, {found}")
     log("  cli save_best_artifacts s/generation (device memory above its start): "
         + ", ".join(f"{t:.4f} ({peak / 2**20:.1f} MiB)" for t, peak in artifact_s))
     log(f"  cli s/generation (generation 1): {recs[1]['eval_seconds']:.4f}")
+    return counts, best
+
+
+@phase("probe")
+def probe_run(png, card):
+    """The single-image probe on the cli phase's ``best.png`` with the
+    bundled color predictor at full width, 160x120, on the card; then the
+    reference's file bus on the same image and model, whose vectors must
+    equal the probe's: the same kernels at the same shapes, and the probe's
+    PNG quantisation in place of the files' 8 bits."""
+    import numpy as np
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch import compat
+    from evolutionary_illusion_generator_tpu_torch.evolution import probe
+    from evolutionary_illusion_generator_tpu_torch.ops.fitness.metrics_np import swarm_score
+    from evolutionary_illusion_generator_tpu_torch.structure import StructureType
+
+    _reset_counts()
+    t0 = time.time()
+    vectors = probe.get_vectors(png, None, PROBE_CHANNELS)
+    t1 = time.time()
+    score = probe.score_image(png, StructureType.Circles, None, PROBE_CHANNELS)
+    t2 = time.time()
+    with tempfile.TemporaryDirectory() as out:
+        compat.test_prednet("", [[png] * 20], [160, 120], PROBE_CHANNELS, output_dir=out,
+                            extension_start=20, extension_duration=2)
+        t3 = time.time()
+        bus = compat.lucas_kanade(png, os.path.join(out, f"{21:010d}_extended.png"))
+        t4 = time.time()
+    counts = _counts()
+    torch.cuda.synchronize()
+    want = dict.fromkeys(counts, 0)
+    want.update({"fused_lstm_gates": PROBE_ROLLOUTS * STEPS,
+                 "fused_convlstm_layer_multi": PROBE_ROLLOUTS * STEPS * 3})
+    if counts != want:
+        raise AssertionError(f"probe: kernel launches {counts}, expected {want}")
+    if not (vectors.ndim == 2 and vectors.shape[1] == 4 and np.isfinite(vectors).all()
+            and len(vectors) and math.isfinite(score)):
+        raise AssertionError(f"probe: vectors {vectors.shape}, score {score}")
+    bus = np.asarray(bus["vectors"], np.float32).reshape(-1, 4)
+    if bus.shape != vectors.shape or not np.array_equal(bus, vectors):
+        far = (f"max |difference| {np.abs(bus - vectors).max():.3e}"
+               if bus.shape == vectors.shape else "shapes differ")
+        raise AssertionError(f"probe: the file bus's {bus.shape} vectors differ from the "
+                             f"probe's {vectors.shape} ({far})")
+    log(f"  probe: {len(vectors)} vectors, score {swarm_score(vectors):.6f}, fitness (circles) "
+        f"{score:.6f}; equal to the file bus's {len(bus)} vectors")
+    log(f"  probe seconds: get_vectors {t1 - t0:.4f}, score_image {t2 - t1:.4f}; file bus: "
+        f"test_prednet {t3 - t2:.4f}, lucas_kanade {t4 - t3:.4f} ({card})")
+    log(f"  probe launches {counts}")
+    return counts
+
+
+@phase("scorers")
+def scorers(params, card):
+    """One generation of the ``default_color`` shape (CirclesFree, 320x240,
+    pop 40, repeat 5) with each scoring back end on the same population:
+    the C++ scorer must have been built here (``score_backend="native"``
+    raises otherwise); each run's scores are held against float64 numpy
+    scores of that run's own vectors."""
+    import copy
+
+    import numpy as np
+
+    from evolutionary_illusion_generator_tpu_torch.evolution import (
+        EvalConfig,
+        GenerationEvaluator,
+    )
+    from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
+    from evolutionary_illusion_generator_tpu_torch.ops.fitness import native
+    from evolutionary_illusion_generator_tpu_torch.ops.fitness.calculate import score_vectors
+    from evolutionary_illusion_generator_tpu_torch.structure import StructureType
+
+    cfg = preset("circles").replace(pop_size=40)
+    items = list(Population(cfg, seed=0).population.items())
+    if not native.is_available():
+        raise AssertionError("scorers: the C++ scorer did not build on this machine")
+    log(f"  native scorer built: {native.library_path()}")
+    _reset_counts()
+    runs = {}
+    for name, kw in SCORER_BACKENDS:
+        ev = GenerationEvaluator(EvalConfig(structure=StructureType.CirclesFree, w=320, h=240,
+                                            repeat=5, **kw), params, cfg, device="cuda")
+        scores = ev(copy.deepcopy(items))
+        res = ev.last_results
+        host = np.array([score_vectors(StructureType.CirclesFree, v[m], 320, 240)
+                         for v, m in zip(res["vectors"], res["mask"])])
+        host = np.where(np.isfinite(host), host, 0.0)  # the evaluator's nan_to_zero
+        runs[name] = (scores, host, res["vectors"], dict(ev.last_timings))
+    counts = _counts()
+    want = dict.fromkeys(counts, 0)
+    want.update({"fused_lstm_gates": len(SCORER_BACKENDS) * SCORER_STEPS,
+                 "fused_convlstm_layer_multi": len(SCORER_BACKENDS) * SCORER_STEPS * 3})
+    if counts != want:
+        raise AssertionError(f"scorers: kernel launches {counts}, expected {want}")
+    scores, host, _, _ = runs["numpy"]
+    if not np.array_equal(scores, host):
+        raise AssertionError("scorers: numpy backend differs from the numpy scores")
+    scores, host, _, _ = runs["native"]
+    nd = np.abs(scores - host)
+    if not nd.max() <= NATIVE_ATOL:
+        raise AssertionError(f"scorers: native scores differ from numpy by {nd.max():.3e}")
+    scores, host, _, _ = runs["device"]
+    np.testing.assert_allclose(scores, host, rtol=DEVICE_RTOL, atol=DEVICE_ATOL)
+    if list(np.argsort(scores, kind="stable")) != list(np.argsort(host, kind="stable")):
+        raise AssertionError("scorers: device scores rank the population differently")
+    dd = np.abs(scores - host)
+    same = all(np.array_equal(runs[n][2], runs["numpy"][2]) for n in runs)
+    log(f"  native vs numpy: {int((nd > 0).sum())} of {len(nd)} scores differ, max "
+        f"{nd.max():.3e}; device vs float64 host: max {dd.max():.3e}, same ranking; the three "
+        f"runs' vectors {'identical' if same else 'differ'}")
+    for name, (_, _, _, timings) in runs.items():
+        log(f"  scorer {name}: last_timings score {timings['score']:.6f} s, device "
+            f"{timings['device']:.4f} s (pop 40, 320x240; {card})")
     return counts
 
 
@@ -976,7 +1125,7 @@ def main():
     watchdog.daemon = True
     watchdog.start()
     t0 = time.time()
-    check_device()
+    card = check_device()
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -989,13 +1138,18 @@ def main():
     check_reference(params)
     counts = main_path()
     default_color()
-    cli_counts = cli_run()
+    with tempfile.TemporaryDirectory() as keep:
+        cli_counts, best_png = cli_run(keep)
+        probe_counts = probe_run(best_png, card)
+    scorer_counts = scorers(params, card)
     profile_generation(params)
     bisect_kernels, bisect_counts = bisect()
     kernels.update(bisect_kernels)
     log(f"[total] {time.time() - t0:.1f} s")
-    # launches over the driven paths: main_path, cli, then the bisection ladder
-    rows = [dict(name=name, launches=counts[name] + cli_counts[name] + bisect_counts[name], **r)
+    # launches over the driven paths: main_path, cli, probe, scorers, then
+    # the bisection ladder
+    paths = (counts, cli_counts, probe_counts, scorer_counts, bisect_counts)
+    rows = [dict(name=name, launches=sum(c[name] for c in paths), **r)
             for name, r in kernels.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,7 @@ __all__ = ["library", "build_log"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
-_BUILD_ROOT = _HERE / ".build"
+BUILD_ROOT = _HERE / ".build"
 _LIB_NAME = "libeigen_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -111,7 +111,7 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         sources = sorted(_CSRC.glob("*.cu"))
         headers = sorted(_CSRC.glob("*.cuh"))
-        out = _BUILD_ROOT / _source_hash(sources + headers) / _LIB_NAME
+        out = BUILD_ROOT / _source_hash(sources + headers) / _LIB_NAME
         if not out.exists():
             _build(out, sources)
         lib = ctypes.CDLL(str(out))

@@ -30,7 +30,7 @@ def string_to_intarray(string_input: str) -> List[int]:
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="generate illusions (PyTorch/CUDA)")
-    parser.add_argument("--model", "-m", default="", help=".npz predictor weights (empty = bundled stand-in)")
+    parser.add_argument("--model", "-m", default="", help=".model / .npz predictor weights (empty = bundled stand-in)")
     parser.add_argument("--output_dir", "-o", default=".", help="path of output directory")
     parser.add_argument(
         "--structure", "-s", default=0, type=int,
@@ -46,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--generations", default=100, type=int, help="max generations per run")
     parser.add_argument("--seed", default=0, type=int, help="run RNG seed")
     parser.add_argument("--checkpoint_every", default=1, type=int, help="checkpoint cadence (reference: 100)")
-    parser.add_argument("--score_on_device", action="store_true", help="score fitness on the device (not ported yet)")
+    parser.add_argument("--score_on_device", action="store_true", help="score fitness on device (f32) instead of host f64")
     parser.add_argument("--use_pallas", action="store_true", help="accepted, no effect: the port always runs its CUDA kernels")
     parser.add_argument("--microbatch", default=0, type=int, help="population microbatch size (memory bound)")
     parser.add_argument("--preset", default="", help="named run preset; overrides size/structure flags")
@@ -54,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--equilum", action="store_true", help="equiluminant (HSV) rendering")
     parser.add_argument("--pertype_count", default=1, type=int, help="renders per genome, fitness = mean over renders")
     parser.add_argument("--tensorboard", action="store_true", help="write TensorBoard scalars to <output_dir>/tensorboard beside metrics.jsonl")
-    parser.add_argument("--chainer_half_order", default="ahat-a", choices=("ahat-a", "a-ahat", "auto"), help="E-unit half convention of an imported Chainer .model snapshot (only ahat-a: the importer is not ported yet)")
+    parser.add_argument("--chainer_half_order", default="ahat-a", choices=("ahat-a", "a-ahat", "auto"), help="E-unit half convention of an imported Chainer .model snapshot (auto = detect empirically)")
     parser.add_argument("--debug_nans", action="store_true", help="sanitizer mode (not ported yet)")
     # the port's own
     parser.add_argument("--device", default="", help="torch device (empty = the CUDA card; 'cpu' must be asked for)")

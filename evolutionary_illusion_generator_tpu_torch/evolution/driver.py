@@ -97,21 +97,19 @@ def neat_illusion(
     (``None`` = the card; ``"cpu"`` must be asked for).
 
     Returns the final :class:`Population` (``population.best_genome`` is the
-    best-ever genome).  ``model_name`` is a native NPZ weight file; without
-    one the bundled stand-in weights for ``channels`` are used, else seeded
-    random weights.
+    best-ever genome).  ``model_name`` is a native NPZ weight file or a
+    Chainer ``.model`` snapshot (imported with ``chainer_half_order``);
+    without one the bundled stand-in weights for ``channels`` are used, else
+    seeded random weights.  ``score_on_device=True`` scores on the device
+    in float32 instead of on the host in float64.
 
     ``use_pallas`` is accepted and has no effect: the port's route is fixed,
     its CUDA kernels, which compute the JAX ``use_pallas="fused"`` math.
-    ``score_on_device=True``, ``n_devices > 1``, a ``chainer_half_order``
-    other than ``"ahat-a"`` and ``debug_nans=True`` are not ported yet and
-    raise ``NotImplementedError`` naming their ROADMAP.md item.
+    ``n_devices > 1`` and ``debug_nans=True`` are not ported yet and raise
+    ``NotImplementedError`` naming their ROADMAP.md item.
     """
     refused = (
-        (score_on_device, "score_on_device=True", "Device scoring"),
         (n_devices is not None and n_devices > 1, f"n_devices={n_devices}", "Parallel"),
-        (chainer_half_order != "ahat-a", f"chainer_half_order={chainer_half_order!r}",
-         "The single-image probe and the compat shims"),
         (debug_nans, "debug_nans=True", "The sanitizer mode debug_nans"),
     )
     for asked, what, item in refused:
@@ -128,7 +126,8 @@ def neat_illusion(
     structure = StructureType(structure)
     os.makedirs(output_dir, exist_ok=True)
     neat_cfg = resolve_neat_config(config, structure, c_dim, gradient)
-    params = load_or_init(model_name, list(channels), seed=seed, device=device)
+    params = load_or_init(model_name, list(channels), seed=seed,
+                          half_order=chainer_half_order, device=device)
     eval_cfg = EvalConfig(
         structure=structure,
         w=w,
@@ -140,6 +139,7 @@ def neat_illusion(
         flow=flow or FlowConfig(),
         equilum=equilum,
         pertype_count=pertype_count,
+        score_on_device=score_on_device,
         microbatch=microbatch,
     )
     evaluator = GenerationEvaluator(eval_cfg, params, neat_cfg, device=device)

@@ -6,7 +6,9 @@ The port of the JAX package's ``evolution/evaluator.py``:
                   ──corners+LK──> (pop, K, 4) vectors + masks
 
 Only the (small) vector sets come back to the host, where scoring runs in
-exact float64 numpy (bit-compatible rankings with the reference).  The
+float64 (``score_backend``: the C++ batch scorer, or numpy with the
+reference's exact math), or the scores are computed on the device with
+``score_on_device=True`` (:mod:`..ops.fitness.metrics_torch`, float32).  The
 population is chunked at the host level (``_bucket``, minimum 8) and the
 genomes are packed into grow-only (levels x width) CPPN buckets and a
 grow-only activation set, as in the JAX package.
@@ -34,7 +36,9 @@ from ..models.cppn import (
 from ..models.prednet.model import rollout_flow_frames
 from ..neat.config import NeatConfig
 from ..neat.genome import Genome
+from ..ops.fitness import native
 from ..ops.fitness.calculate import score_vectors
+from ..ops.fitness.metrics_torch import score_vectors_torch
 from ..ops.flow.api import FlowConfig, batched_flow
 from ..ops.grids import GRID_SCALING, create_grid
 from ..ops.render import render_equilum_images, render_images, to_unit_float
@@ -69,6 +73,12 @@ class EvalConfig:
     # renders per genome; a genome's fitness is the mean over its renders
     pertype_count: int = 1
     flow: FlowConfig = field(default_factory=FlowConfig)
+    # score on the device (float32) instead of pulling the vectors to the
+    # host for float64 scoring
+    score_on_device: bool = False
+    # host scoring backend: "auto" (C++ if buildable, else numpy),
+    # "native" (C++, raises if it cannot be built) or "numpy"
+    score_backend: str = "auto"
     # replace non-finite fitness scores with 0 (with a warning)
     nan_to_zero: bool = True
     # predictor compute dtype ("bfloat16" | "float32")
@@ -86,12 +96,12 @@ class EvalConfig:
 class GenerationOutputs:
     """Results of one generation's device pass.
 
-    The small per-candidate data (flow vectors, masks) is copied to the host
-    on demand in one go; bulky tensors (rendered images, the first flow
-    frame) stay on the device and are fetched row by row.
+    The small per-candidate data (flow vectors, masks, device scores) is
+    copied to the host on demand in one go; bulky tensors (rendered images,
+    the first flow frame) stay on the device and are fetched row by row.
     """
 
-    SMALL = ("vectors", "mask")
+    SMALL = ("vectors", "mask", "scores")
 
     def __init__(self, chunks, chunk_size: int, n: int) -> None:
         self._chunks = chunks  # list of dicts of device tensors
@@ -109,7 +119,7 @@ class GenerationOutputs:
 
     def small(self) -> Dict[str, np.ndarray]:
         """Host copies of the small outputs, truncated to the population."""
-        return self._host(self.SMALL)
+        return self._host([k for k in self.SMALL if k in self._chunks[0]])
 
     def fetch(self, key: str, i: int) -> np.ndarray:
         """Host copy of one candidate's row of a bulky output."""
@@ -181,13 +191,16 @@ class GenerationEvaluator:
             compute_dtype=getattr(torch, cfg.prednet_dtype),
         )
         vectors, vmask = batched_flow(f0, f1, cfg.flow)
-        return {
+        out = {
             "images_u8": imgs_u8,
             "vectors": vectors,
             "mask": vmask,
             # the base of the winner's overlay artifact, kept as uint8
             "flow_frame0": (f0.clamp(0.0, 1.0) * 255.0).to(torch.uint8),
         }
+        if cfg.score_on_device:
+            out["scores"] = score_vectors_torch(cfg.structure, vectors, vmask, cfg.w, cfg.h)
+        return out
 
     def evaluate_images(self, genomes: List[Genome]) -> GenerationOutputs:
         """Run the device pass over host-level chunks of the population.
@@ -233,7 +246,17 @@ class GenerationEvaluator:
         return GenerationOutputs(pieces, chunk, n)
 
     def _score_host(self, vectors: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        """Exact float64 host scoring (numpy)."""
+        """Float64 host scoring: the C++ batch scorer when ``score_backend``
+        allows it and it builds, else numpy."""
+        backend = self.cfg.score_backend
+        if backend not in ("auto", "native", "numpy"):
+            raise ValueError(f"unknown score_backend {backend!r}")
+        if backend in ("auto", "native"):
+            if native.is_available():
+                return native.score_population_native(
+                    int(self.cfg.structure), vectors, mask, self.cfg.w, self.cfg.h)
+            if backend == "native":
+                raise RuntimeError("native fitness scorer unavailable (no g++?)")
         scores = np.zeros(len(vectors))
         for i in range(len(vectors)):
             scores[i] = score_vectors(self.cfg.structure, vectors[i][mask[i]],
@@ -247,10 +270,13 @@ class GenerationEvaluator:
         genomes = [g for _, g in population for _ in range(pertype)]
         t0 = time.time()
         outputs = self.evaluate_images(genomes)
-        small = outputs.small()  # vectors + masks: ~KBs; waits for the device
+        small = outputs.small()  # vectors, masks (, scores): ~KBs; waits for the device
         t1 = time.time()
 
-        scores = self._score_host(small["vectors"], small["mask"])
+        if cfg.score_on_device:
+            scores = small["scores"].astype(np.float64)
+        else:
+            scores = self._score_host(small["vectors"], small["mask"])
         if cfg.nan_to_zero:
             bad = ~np.isfinite(scores)
             if bad.any():

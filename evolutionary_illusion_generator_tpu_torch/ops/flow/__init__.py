@@ -1,7 +1,8 @@
 """On-device sparse optical flow: Shi-Tomasi corners and pyramidal
-Lucas-Kanade as fixed-K masked tensors, batched over the population."""
+Lucas-Kanade as fixed-K masked tensors, batched over the population, and
+the reference's file interface ``lucas_kanade``."""
 
-from .api import FlowConfig, batched_flow, flow_vectors
+from .api import FlowConfig, batched_flow, flow_vectors, lucas_kanade
 from .corners import shi_tomasi_corners
 from .lk import pyramid_lk
 from .pyramid import build_pyramid, to_gray
@@ -10,6 +11,7 @@ __all__ = [
     "FlowConfig",
     "batched_flow",
     "flow_vectors",
+    "lucas_kanade",
     "shi_tomasi_corners",
     "pyramid_lk",
     "build_pyramid",

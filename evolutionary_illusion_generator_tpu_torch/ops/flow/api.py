@@ -1,20 +1,26 @@
-"""Flow API: the batched device extractor.
+"""Flow API: the batched device extractor and the reference's file
+interface.
 
-The port of the JAX package's ``ops/flow/api.py`` without the file
-interface ``lucas_kanade``, which reads PNGs and waits for the port's
-image I/O."""
+The port of the JAX package's ``ops/flow/api.py``.  ``batched_flow`` is the
+device path: (pop, H, W, C) frame pairs in, fixed-K masked vector tensors
+out.  ``lucas_kanade`` keeps the call shape of the reference's flow
+submodule: two PNG paths in, ``{"vectors": [[x, y, dx, dy], ...]}`` out,
+with an optional arrow overlay.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
+from ..._device import resolve_device
 from .corners import shi_tomasi_corners
 from .lk import pyramid_lk
 from .pyramid import to_gray
 
-__all__ = ["FlowConfig", "flow_vectors", "batched_flow"]
+__all__ = ["FlowConfig", "flow_vectors", "batched_flow", "lucas_kanade"]
 
 
 @dataclass(frozen=True)
@@ -70,3 +76,38 @@ def batched_flow(frames0, frames1, cfg: FlowConfig = FlowConfig()):
     Corner detection runs on ``frames0`` (the reference detects on the first
     frame of each pair)."""
     return flow_vectors(to_gray(frames0), to_gray(frames1), cfg)
+
+
+def lucas_kanade(
+    image0_path: str,
+    image1_path: str,
+    output_dir: str = ".",
+    save: bool = False,
+    verbose: int = 0,
+    save_name: Optional[str] = None,
+    cfg: FlowConfig = FlowConfig(),
+    *,
+    device=None,
+):
+    """The reference's file interface: corners on the first PNG, tracked
+    into the second, on ``device`` (``None`` = the card).
+
+    Returns ``{"vectors": [[x, y, dx, dy], ...]}``: an empty list when
+    nothing was trackable, which callers replace with the reference's
+    ``[[0, 0, -1000, 0]]`` sentinel.  ``save=True`` with a ``save_name``
+    writes the arrow overlay there; ``output_dir`` is accepted for
+    signature parity, as in the JAX function.
+    """
+    from ...utils.image_io import draw_flow_overlay, load_image
+
+    device = resolve_device(device)
+    img0 = load_image(image0_path, c_dim=3)
+    img1 = load_image(image1_path, c_dim=3)
+    gray0, gray1 = (to_gray(torch.from_numpy(im).to(device))[None] for im in (img0, img1))
+    vectors, mask = flow_vectors(gray0, gray1, cfg)
+    vectors = vectors[0][mask[0]].cpu().numpy()
+    if verbose:
+        print(f"lucas_kanade: {len(vectors)} vectors")
+    if save and save_name:
+        draw_flow_overlay(img0, vectors, save_name)
+    return {"vectors": vectors.tolist()}

@@ -4,7 +4,8 @@ The port of the JAX package's ``utils/image_io.py``: candidate and best
 PNGs and the arrow overlay the flow stage saves.  Files go through
 :mod:`.png`; the overlay's rasterizer draws what Pillow's
 ``ImageDraw.line(width=1)`` and ``ImageDraw.ellipse`` draw, pixel for
-pixel, for the JAX function's calls.
+pixel, for the JAX function's calls; ``load_image``'s resize is
+Pillow's LANCZOS, pixel for pixel (:mod:`.resample`).
 """
 
 from __future__ import annotations
@@ -15,19 +16,20 @@ from typing import Iterable, Optional
 import numpy as np
 
 from .png import convert, read_png, write_png
+from .resample import lanczos_resize
 
 __all__ = ["load_image", "save_image", "draw_flow_overlay"]
 
 
 def load_image(path: str, size: Optional[tuple] = None, c_dim: int = 3) -> np.ndarray:
-    """Load a PNG as (H, W, C) float32 in [0, 1]."""
-    if size is not None:
-        raise NotImplementedError(
-            "load_image(size=...) is a LANCZOS resize, not ported yet (ROADMAP.md "
-            "Queue 1, 'The single-image probe and the compat shims')"
-        )
+    """Load a PNG as (H, W, C) float32 in [0, 1], converted to RGB
+    (``c_dim=3``) or L, then LANCZOS-resized to ``size = (width, height)``
+    when given (:func:`.resample.lanczos_resize`, Pillow's arithmetic)."""
     img, mode = read_png(path)
-    arr = convert(img, mode, "RGB" if c_dim == 3 else "L").astype(np.float32) / 255.0
+    img = convert(img, mode, "RGB" if c_dim == 3 else "L")
+    if size is not None:
+        img = lanczos_resize(img, size)
+    arr = img.astype(np.float32) / 255.0
     if c_dim == 1:
         arr = arr[..., None]
     return arr

@@ -43,16 +43,28 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--score_on_device"], "Device scoring"),
     (["--debug_nans"], "debug_nans"),
-    (["--chainer_half_order", "a-ahat"], "compat shims"),
-    (["--chainer_half_order", "auto"], "compat shims"),
     (["--preset", "pop256_v5e8"], "Parallel"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["-o", str(tmp_path), "--device", "cpu", *argv])
     assert not os.listdir(tmp_path)  # refused before anything ran
+
+
+@pytest.mark.parametrize("argv,kwargs", [
+    (["--score_on_device"], dict(score_on_device=True)),
+    (["--chainer_half_order", "a-ahat"], dict(chainer_half_order="a-ahat")),
+    (["--chainer_half_order", "auto"], dict(chainer_half_order="auto")),
+])
+def test_cli_passes_the_ported_flags(argv, kwargs, monkeypatch):
+    """The flags the port now implements reach ``neat_illusion`` as the
+    JAX CLI passes them (each runs on the CPU in tests/test_torch_scoring.py
+    and tests/test_torch_chainer_loader.py)."""
+    seen = {}
+    monkeypatch.setattr(cli, "neat_illusion", lambda *a, **kw: seen.update(kw))
+    assert cli.main(["--device", "cpu", *argv]) == 0
+    assert {k: seen[k] for k in kwargs} == kwargs
 
 
 def test_string_to_intarray_matches_jax():

@@ -1,8 +1,10 @@
 """The port's own copies of the JAX package's framework-free modules
 (``ops/fitness/{metrics_np,calculate}``, ``ops/grids``, ``neat``,
-``configs``) give bit-equal results to the originals on the same inputs."""
+``configs``, the C++ scorer ``ops/fitness/native``) give bit-equal results
+to the originals on the same inputs."""
 
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -12,9 +14,10 @@ from evolutionary_illusion_generator_tpu import neat as jax_neat
 from evolutionary_illusion_generator_tpu.ops import grids as jax_grids
 from evolutionary_illusion_generator_tpu.ops.fitness import calculate as jax_calculate
 from evolutionary_illusion_generator_tpu.ops.fitness import metrics_np as jax_metrics
+from evolutionary_illusion_generator_tpu.ops.fitness import native as jax_native
 from evolutionary_illusion_generator_tpu_torch import configs, neat
 from evolutionary_illusion_generator_tpu_torch.ops import grids
-from evolutionary_illusion_generator_tpu_torch.ops.fitness import calculate, metrics_np
+from evolutionary_illusion_generator_tpu_torch.ops.fitness import calculate, metrics_np, native
 from evolutionary_illusion_generator_tpu_torch.structure import StructureType
 
 W, H = 160, 120
@@ -109,3 +112,38 @@ def test_run_presets_equal(name):
     assert vars(kw.pop("config")) == vars(ref_kw.pop("config"))
     assert kw == ref_kw
     assert (ours.name, ours.n_devices) == (ref.name, ref.n_devices)
+
+
+def test_native_source_is_a_byte_copy():
+    ours = Path(native.native.__file__).with_name("fitness_native.cpp")
+    ref = Path(jax_native.native.__file__).with_name("fitness_native.cpp")
+    assert ours.read_bytes() == ref.read_bytes()
+
+
+def _jax_native_available(tries=20):
+    """The JAX package builds its scorer in place, not atomically: another
+    test worker may be writing the library when this one first loads it,
+    and the loader then gives up for the process.  Wait and load again."""
+    import time
+
+    for _ in range(tries):
+        if jax_native.is_available():
+            return True
+        jax_native.native._tried = False
+        time.sleep(0.5)
+    return False
+
+
+@pytest.mark.parametrize("structure", list(StructureType))
+def test_native_scorer_bit_equal(structure):
+    """The port's build of the C++ scorer and the JAX package's, on
+    populations with empty, full and random masks."""
+    assert native.is_available() and _jax_native_available()
+    rng = np.random.default_rng(int(structure) + 20)
+    pop, K = 16, 96
+    vectors = np.stack([_vectors(int(s), K, max_flow=0.3) for s in rng.integers(0, 1000, pop)])
+    mask = rng.random((pop, K)) < rng.random((pop, 1))
+    mask[0], mask[1] = False, True
+    ours = native.score_population_native(int(structure), vectors, mask, W, H)
+    ref = jax_native.score_population_native(int(structure), vectors, mask, W, H)
+    assert _same(ours, ref)

@@ -184,3 +184,120 @@ def test_cuda_rung_a_exact_at_ragged_counts_and_offsets(state, offset):
     torch.cuda.synchronize()
     assert cb.variant_A.launches == n + 1
     assert torch.equal(out, c_prev.float() * 2)
+
+
+# ---------------------------------------------------------------------------
+# the probe and the scorers on the card (the port on the CPU is the
+# reference: tests/test_torch_probe.py and tests/test_torch_scoring.py hold
+# it against the JAX package)
+
+PROBE_CHANNELS = (3, 48, 96, 192)
+# one step from a nonzero state, bfloat16 state: float32 sums in another
+# order flip a bfloat16 rounding by one ulp (2**-8 relative) here and there
+# (chip_smoke.py's reference phase)
+STEP_ATOL, STEP_DIFF_SHARE = 1.6e-2, 0.01
+# 22 steps amplify those flips: held in the mean (ROADMAP Queue 3)
+ROLLOUT_MEAN_TOL = 2e-2
+# float32 device scores against float64 host scores, the same ranking
+DEVICE_RTOL, DEVICE_ATOL = 1e-3, 1e-5
+# the C++ scorer against numpy: summation order and FMAs (9e-15 measured)
+NATIVE_ATOL = 1e-12
+
+
+def _probe_image(seed=0, h=120, w=160):
+    """A smooth textured RGB image in [0, 1], quantised to 8 bits."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(0, 1, (h // 8 + 2, w // 8 + 2, 3))
+    ys = np.linspace(0, coarse.shape[0] - 1.001, h).astype(int)
+    xs = np.linspace(0, coarse.shape[1] - 1.001, w).astype(int)
+    return (np.floor(coarse[ys][:, xs] * 255) / 255).astype(np.float32)
+
+
+def _populations(seed, pop=40, K=128):
+    rng = np.random.default_rng(seed)
+    vectors = np.full((pop, K, 4), 1e9)
+    mask = np.zeros((pop, K), bool)
+    for p in range(pop):
+        n = int(rng.integers(0, K + 1)) if p > 1 else (0, K)[p]
+        vectors[p, :n, 0] = rng.uniform(0, 160, n)
+        vectors[p, :n, 1] = rng.uniform(0, 120, n)
+        vectors[p, :n, 2:] = rng.uniform(-0.3, 0.3, (n, 2))
+        mask[p, :n] = True
+    return vectors, mask
+
+
+@pytest.mark.cuda
+def test_cuda_probe_matches_the_cpu(tmp_path):
+    """The probe's rollout at the bundled color predictor's full width,
+    160x120: one step from the CPU's state after 3 steps held tightly,
+    the 22-step flow pair in the mean; then ``get_vectors`` on the card."""
+    _cuda_or_skip()
+    from evolutionary_illusion_generator_tpu_torch.evolution import probe
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import loader, model
+    from evolutionary_illusion_generator_tpu_torch.utils.image_io import save_image
+
+    img = torch.from_numpy(_probe_image())[None]
+    params = {d: loader.load_or_init(None, PROBE_CHANNELS, device=d) for d in ("cpu", "cuda")}
+    with torch.inference_mode():
+        state = model.init_state(1, 120, 160, PROBE_CHANNELS)
+        for _ in range(3):
+            state, _ = model.prednet_step(params["cpu"], state, img)
+        ref_state, ref_pred = model.prednet_step(params["cpu"], state, img)
+        out_state, out_pred = model.prednet_step(
+            params["cuda"], [{k: v.cuda() for k, v in s.items()} for s in state], img.cuda())
+        pairs = [(out_pred, ref_pred)] + [(o[k], r[k]) for o, r in zip(out_state, ref_state)
+                                          for k in "rce"]
+        for a, b in pairs:
+            d = (a.cpu().float() - b.float()).abs()
+            assert d.max().item() <= STEP_ATOL
+            assert (d > 0).float().mean().item() <= STEP_DIFF_SHARE
+        frames = {d: model.rollout_flow_frames(params[d], img.to(d), pair="probe")
+                  for d in ("cpu", "cuda")}
+    assert torch.equal(frames["cuda"][0].cpu(), frames["cpu"][0])
+    f1 = frames["cuda"][1].cpu()
+    assert torch.isfinite(f1).all()
+    assert (f1 - frames["cpu"][1]).abs().mean().item() <= ROLLOUT_MEAN_TOL
+
+    png = str(tmp_path / "in.png")
+    save_image(img[0].numpy(), png)
+    n = {w.__name__: w.launches for w in (fused_lstm_gates, fused_convlstm_layer_multi)}
+    vectors = probe.get_vectors(png, None, PROBE_CHANNELS)
+    torch.cuda.synchronize()
+    assert fused_lstm_gates.launches == n["fused_lstm_gates"] + 22
+    assert fused_convlstm_layer_multi.launches == n["fused_convlstm_layer_multi"] + 66
+    assert vectors.ndim == 2 and vectors.shape[1] == 4 and np.isfinite(vectors).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("structure", [0, 1, 2, 3])
+def test_cuda_device_scores_match_host(structure):
+    _cuda_or_skip()
+    from evolutionary_illusion_generator_tpu_torch.ops.fitness.calculate import score_vectors
+    from evolutionary_illusion_generator_tpu_torch.ops.fitness.metrics_torch import (
+        score_vectors_torch,
+    )
+
+    vectors, mask = _populations(structure)
+    dev = score_vectors_torch(structure, torch.from_numpy(vectors).float().cuda(),
+                              torch.from_numpy(mask).cuda(), 160, 120)
+    torch.cuda.synchronize()
+    dev = dev.cpu().numpy().astype(np.float64)
+    host = np.array([score_vectors(structure, v[m], 160, 120) for v, m in zip(vectors, mask)])
+    np.testing.assert_allclose(dev, host, rtol=DEVICE_RTOL, atol=DEVICE_ATOL)
+    assert list(np.argsort(dev, kind="stable")) == list(np.argsort(host, kind="stable"))
+
+
+@pytest.mark.cuda
+def test_cuda_machine_builds_the_native_scorer():
+    """The C++ scorer builds on the card's machine (``score_backend="auto"``
+    would fall back to numpy without a word otherwise)."""
+    _cuda_or_skip()
+    from evolutionary_illusion_generator_tpu_torch.ops.fitness import native
+    from evolutionary_illusion_generator_tpu_torch.ops.fitness.calculate import score_vectors
+
+    assert native.is_available() and native.library_path().exists()
+    for structure in range(4):
+        vectors, mask = _populations(structure + 10)
+        got = native.score_population_native(structure, vectors, mask, 160, 120)
+        host = np.array([score_vectors(structure, v[m], 160, 120) for v, m in zip(vectors, mask)])
+        np.testing.assert_allclose(got, host, atol=NATIVE_ATOL, rtol=0)

@@ -106,9 +106,7 @@ def test_driver_runs_generations_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(score_on_device=True), "Device scoring"),
     (dict(n_devices=2), "Parallel"),
-    (dict(chainer_half_order="auto"), "compat shims"),
     (dict(debug_nans=True), "debug_nans"),
 ])
 def test_driver_refuses_what_is_not_ported(kwargs, match, tmp_path):
@@ -118,3 +116,18 @@ def test_driver_refuses_what_is_not_ported(kwargs, match, tmp_path):
         neat_illusion(str(tmp_path / "run"), None, None, StructureType.Circles, device="cpu",
                       **kwargs)
     assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("kwargs", [dict(score_on_device=True),
+                                    dict(chainer_half_order="auto")])
+def test_driver_runs_the_ported_options(kwargs, tmp_path):
+    """``score_on_device=True`` and a ``chainer_half_order`` other than
+    ``"ahat-a"`` (no Chainer file given, so nothing is imported, as in the
+    JAX driver) run a generation."""
+    cfg = preset("circles_bw").replace(pop_size=4, num_hidden=4, min_species_size=4,
+                                       elitism=2)
+    pop = neat_illusion(str(tmp_path / "run"), None, cfg, StructureType.Circles, w=48, h=40,
+                        channels=(1, 4, 8), c_dim=1, gradient=0, generations=1,
+                        flow=FlowConfig(**TINY_FLOW), quiet=True, save_artifacts=False,
+                        device="cpu", **kwargs)
+    assert pop.generation == 1 and np.isfinite(pop.best_genome.fitness)

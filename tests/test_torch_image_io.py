@@ -137,8 +137,14 @@ def test_load_image_equals_jax(path, c_dim):
 
 
 def test_load_image_refuses_a_resize():
-    with pytest.raises(NotImplementedError, match="probe"):
-        image_io.load_image(str(REPO / GALLERY[0]), size=(80, 60))
+    """``size=`` no longer raises: it is the JAX function's LANCZOS resize,
+    value for value (tests/test_torch_probe.py covers it on every gallery
+    file)."""
+    for c_dim in (1, 3):
+        ours = image_io.load_image(str(REPO / GALLERY[0]), size=(80, 60), c_dim=c_dim)
+        ref = jax_io.load_image(str(REPO / GALLERY[0]), size=(80, 60), c_dim=c_dim)
+        assert ours.shape == ref.shape == (60, 80, c_dim)
+        np.testing.assert_array_equal(ours, ref)
 
 
 def _pillow_file(kind, path):

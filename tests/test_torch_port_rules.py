@@ -10,15 +10,21 @@ import numpy as np
 import pytest
 import torch
 
-from evolutionary_illusion_generator_tpu_torch import cli
+from evolutionary_illusion_generator_tpu_torch import cli, compat
 from evolutionary_illusion_generator_tpu_torch.evolution import (
     EvalConfig,
     GenerationEvaluator,
     neat_illusion,
+    probe,
 )
+from evolutionary_illusion_generator_tpu_torch.examples import quickstart
 from evolutionary_illusion_generator_tpu_torch.models.prednet import loader
 from evolutionary_illusion_generator_tpu_torch.neat import preset
 from evolutionary_illusion_generator_tpu_torch.structure import StructureType
+from evolutionary_illusion_generator_tpu_torch.utils.image_io import save_image
+
+# pytest must not collect the shim as a test
+compat.test_prednet.__test__ = False
 
 # the suite runs in several worker processes: one torch thread each keeps
 # them from oversubscribing the cores
@@ -74,6 +80,18 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         cli.main(["-o", str(tmp_path / "cli"), "-s", "1", "-ch", "3,4", "--generations", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         loader.load_or_init(None, (1, 4, 8))
+    png = str(tmp_path / "in.png")
+    save_image(np.zeros((8, 8, 3), np.uint8), png)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe.main(["-i", png, "-s", "1", "-ch", "3,4"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compat.test_prednet("", [[png] * 2], [8, 8], (3, 4), output_dir=str(tmp_path / "p"),
+                            extension_start=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compat.lucas_kanade(png, png)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.main([str(tmp_path / "qs")])
+    assert not (tmp_path / "p").exists() and not (tmp_path / "qs").exists()
     params = loader.load_or_init(None, (1, 4, 8), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GenerationEvaluator(EvalConfig(c_dim=1), params, cfg)
