@@ -44,9 +44,18 @@ Phases, each printing its wall time and raising on failure:
    the native scores to numpy's and the device scores to float64 host
    scores of the same vectors (with the same ranking), and logs each one's
    ``last_timings``;
-11. profile: device time by kernel and the number of kernel launches over
+11. train: the PredNet trainer (``models/prednet/pretrain.py``) at full
+   width (3,48,96,192, 160x120, batch 8, 10 open + 4 closed frames) with
+   the colour stack's shipped recipe, warm-started from the bundled
+   weights: ``pretrain.main`` for a few steps with a checkpoint, the same
+   recipe killed after its checkpoint and resumed (weights equal bit for
+   bit), every parameter moved, ``main`` turns TF32 off, the first step's
+   loss and params against the port's CPU run (the second step's, and TF32
+   on, logged only), one ``data="v2"`` step; logs s/step, data ms per batch
+   and the peak device memory; asserts that no kernel was launched;
+12. profile: device time by kernel and the number of kernel launches over
    one warm main-path generation;
-12. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
+13. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
    its north-star layer-1 shape (``--big --rows 48``, all ten rungs);
    asserts each rung's launch count, then holds each of the seven rung
    kernels against its plain version on the card (A also at ragged counts
@@ -59,7 +68,7 @@ Phases, each printing its wall time and raising on failure:
    shapes; logs E's and J's times beside D's.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main path, cli, probe, scorers and bisect phases), and as the last line
+the main path, cli, probe, scorers, train and bisect phases), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a card or without the port beside it.
 """
@@ -148,6 +157,35 @@ NATIVE_ATOL = 1e-12
 # float32 device scores against float64 host scores, with the same ranking
 # (the JAX package's tests/test_device_scoring.py)
 DEVICE_RTOL, DEVICE_ATOL = 1e-3, 1e-5
+# the train phase: the colour stack's shipped recipe (weights/README.md: the
+# v6ab tail of scripts/campaign_r5o.sh plus the color v9L stage's hinge and
+# ring scale) at full width, warm-started from the bundled weights; a few
+# steps with a checkpoint and one resume
+TRAIN_RECIPE = ["--channels", "3,48,96,192", "--batch", "8", "--frames", "10",
+                "--height", "120", "--width", "160",
+                "--regime_probs", "0,0.25,0.2,0.15,0.2,0.2,0", "--ring_speed", "1.2,2.0",
+                "--onset_range", "9,11", "--closed_frames", "4", "--closed_weight", "5",
+                "--ring_dir_cue", "--ring_onset_range", "10,10", "--ring_mask_prefix",
+                "--cue_speed", "0.10,0.14", "--cue_period", "6,40",
+                "--ring_closed_scale", "0.75", "--cue_motion_weight", "0.0625"]
+TRAIN_STEPS = 4
+TRAIN_SAVE_EVERY = 2
+# The card against the port's CPU run of the same seed and shape, both in
+# full float32 (pretrain turns TF32 off on the card): the frames are made
+# on each device (float32 rounding apart) and cuDNN sums in another order
+# than the CPU, over 14 recurrent steps.  The first step's loss (the
+# forward pass) within TRAIN_LOSS_RTOL: TF32 alone moves it by about 5e-5,
+# a dropped or wrong term by far more.  The bfloat16 params after that
+# step (the backward): Adam's first update is lr times the gradient's sign
+# wherever |g| >> eps, so they hold the sign of every gradient entry.  An
+# entry may differ where a sign flips under reordering (|g| near zero) or
+# a sum lands on a rounding boundary: on at most TRAIN_FLIP_SHARE of a
+# tensor's entries (or one entry), by at most one bfloat16 ulp plus 2 lr.
+# The second step's loss and params are logged only: there the reordered
+# sums of the first update move the loss by about as much as TF32 does.
+TRAIN_CHECK_STEPS = 2
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_FLIP_SHARE = 1e-2
 
 # the bisection ladder at its --big shape; every rung runs 1 + 10 * (1 + 5)
 # times (check, warm loop, timed loops)
@@ -880,6 +918,197 @@ def scorers(params, card):
     return counts
 
 
+def _npz(path):
+    import numpy as np
+
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
+@phase("train")
+def train_phase(card):
+    """The PredNet trainer on the card (``models/prednet/pretrain.py``):
+    ``pretrain.main`` with the colour stack's shipped recipe at full width,
+    warm-started from the bundled weights, for TRAIN_STEPS steps with a
+    checkpoint every TRAIN_SAVE_EVERY, from torch's default TF32 setting
+    (which ``main`` must turn off); then the same recipe killed after its
+    first checkpoint and resumed by ``main``, whose weights must equal the
+    uninterrupted run's bit for bit; every parameter must have moved from
+    the warm start; the first step's loss and params against the port's
+    CPU run of the same seed and shape (the second step's, and the card
+    with TF32 turned on around each step, logged only); one
+    ``data="v2"`` step, the three-argument step.  The trainer runs the
+    plain route (``use_pallas=False``), so no kernel is launched: asserts
+    the counts are zero.  Logs s/step, data ms per batch and the peak
+    device memory."""
+    import numpy as np
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import pretrain as pre
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import (
+        bundled_weights_path,
+        params_to_numpy,
+    )
+
+    warm = bundled_weights_path((3, 48, 96, 192))
+    timings = {"step": [], "data": [], "loss": []}
+    make, data = pre.make_train_step, pre.synthetic_cue_batch
+
+    def timed(fn, name):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timings[name].append(time.perf_counter() - t0)
+            if name == "step":
+                timings["loss"].append(float(out[2]))
+            return out
+        return run
+
+    _reset_counts()
+    # torch's default (TF32 convs), which check_device turned off
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as tmp:
+        base = TRAIN_RECIPE + ["--init_weights", warm, "--save_every", str(TRAIN_SAVE_EVERY)]
+        argv_a = base + ["--steps", str(TRAIN_STEPS), "--out", os.path.join(tmp, "a.npz")]
+        argv_b = base + ["--steps", str(TRAIN_STEPS), "--out", os.path.join(tmp, "b.npz")]
+        pre.make_train_step = lambda *a, **kw: timed(make(*a, **kw), "step")
+        pre.synthetic_cue_batch = timed(data, "data")
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            pre.main(argv_a)
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            pre.make_train_step, pre.synthetic_cue_batch = make, data
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("train: main left TF32 on")
+        losses, steps_s, data_s = timings["loss"], timings["step"], timings["data"]
+        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train: losses {losses}")
+        a = _npz(os.path.join(tmp, "a.npz"))
+        # killed after the first checkpoint, then resumed by main
+        args_b = pre._parser().parse_args(argv_b)
+        part = pre.part_path(args_b)
+        pre.pretrain(checkpoint=part, verbose=False,
+                     **dict(pre.pretrain_kwargs(args_b), steps=TRAIN_SAVE_EVERY + 1))
+        with np.load(part) as ck:
+            at = int(ck["step"])
+        if at != TRAIN_SAVE_EVERY:
+            raise AssertionError(f"train: checkpoint at step {at}")
+        pre.main(argv_b)
+        b = _npz(os.path.join(tmp, "b.npz"))
+        if os.path.exists(part):
+            raise AssertionError("train: main left its part checkpoint")
+    if set(a) != set(b) or not all(np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError("train: the resumed run's weights differ from the uninterrupted run's")
+    init = {k: torch.from_numpy(v.astype(np.float32)).bfloat16().float().numpy()
+            for k, v in _npz(warm).items()}
+    moved = {k: float((a[k] != init[k]).mean()) for k in init}
+    if set(moved) != set(a) or min(moved.values()) == 0.0:
+        raise AssertionError(f"train: parameters that did not move: "
+                             f"{[k for k, v in moved.items() if v == 0.0]}")
+
+    # the card against the CPU, and the card with TF32 on around each step
+    kw = dict(pre.pretrain_kwargs(pre._parser().parse_args(
+        TRAIN_RECIPE + ["--init_weights", warm])), steps=TRAIN_CHECK_STEPS, verbose=False)
+
+    def run(device, tf32=False):
+        """Each step's loss and params (JAX layout) from pretrain."""
+        steps = []
+
+        def recording(*a, **k):
+            step = make(*a, **k)
+
+            def run_step(*sa, **sk):
+                flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+                if tf32:
+                    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    out = step(*sa, **sk)
+                finally:
+                    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+                steps.append((float(out[2]), params_to_numpy(out[0])))
+                return out
+            return run_step
+
+        pre.make_train_step = recording
+        try:
+            pre.pretrain(**dict(kw, device=device))
+        finally:
+            pre.make_train_step = make
+        return steps
+
+    on_card, on_card_tf32 = run("cuda"), run("cuda", tf32=True)
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.time()
+    cpu = run("cpu")
+    cpu_s = time.time() - t0
+
+    def gaps(steps):
+        """Per step: the relative loss gap to the CPU's, the largest share
+        of a tensor's entries that differ (tensors of 100 entries or more),
+        the share over all entries, and the largest excess over one ulp
+        plus 2 lr a step (inf where a tensor has more differing entries
+        than its allowance)."""
+        out = []
+        for n, ((loss, params), (loss_cpu, params_cpu)) in enumerate(zip(steps, cpu), 1):
+            share, n_diff, n_all, excess = 0.0, 0, 0, -math.inf
+            for o, c in zip(params, params_cpu):
+                for k in c:
+                    gap = np.abs(o[k] - c[k])
+                    diff = int((gap > 0).sum())
+                    n_diff, n_all = n_diff + diff, n_all + gap.size
+                    if gap.size >= 100:
+                        share = max(share, diff / gap.size)
+                    over = diff > max(1.0, TRAIN_FLIP_SHARE * gap.size)
+                    excess = max(excess, math.inf if over else float(
+                        (gap - 2.0**-7 * np.abs(c[k])).max()) - 2 * kw["lr"] * n)
+            out.append((abs(loss - loss_cpu) / abs(loss_cpu), share, n_diff / n_all, excess))
+        return out
+
+    card_gaps, tf32_gaps = gaps(on_card), gaps(on_card_tf32)
+    loss_gap, _, _, excess = card_gaps[0]
+    if on_card[0][0] != losses[0] or not loss_gap <= TRAIN_LOSS_RTOL or excess > 0:
+        raise AssertionError(
+            f"train: card losses {[s[0] for s in on_card]} (main's first {losses[0]!r}) vs "
+            f"CPU {[s[0] for s in cpu]}: per step (loss gap, largest share of entries "
+            f"differing, share over all, excess over the flip rule) {card_gaps}")
+
+    # the three-argument step: v2 data, no masks
+    _, loss_v2 = pre.pretrain((3, 48, 96, 192), data="v2", steps=1, init_weights=warm,
+                              verbose=False, device="cuda")
+    if not math.isfinite(loss_v2):
+        raise AssertionError(f"train: v2 step loss {loss_v2}")
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"train: the trainer launched kernels {counts}")
+
+    step_ms = [t * 1e3 for t in steps_s]
+    data_ms = [t * 1e3 for t in data_s]
+    log(f"  recipe: {' '.join(TRAIN_RECIPE)} (warm start {os.path.basename(warm)})")
+    log(f"  losses {[round(x, 6) for x in losses]}; resumed at step {at}, weights equal bit "
+        f"for bit; share of each tensor's entries moved: min {min(moved.values()):.4f}")
+    log(f"  against the CPU ({cpu_s:.1f} s for {TRAIN_CHECK_STEPS} steps): losses card "
+        f"{[s[0] for s in on_card]} (TF32 off), TF32 on {[s[0] for s in on_card_tf32]}, "
+        f"CPU {[s[0] for s in cpu]}")
+    for label, per_step in (("card", card_gaps), ("control, TF32 on", tf32_gaps)):
+        for i, (g, share, total, over) in enumerate(per_step):
+            log(f"    {label}, step {i + 1}: relative loss gap {g:.3e}; params differ on at "
+                f"most {share:.3e} of a tensor's entries, {total:.3e} of all; excess over "
+                f"the flip rule {over:.3e}")
+    log(f"  s/step {wall / TRAIN_STEPS:.4f} (main's wall over {TRAIN_STEPS} steps, set-up "
+        f"included); step ms {', '.join(f'{t:.1f}' for t in step_ms)}; data ms per batch "
+        f"{', '.join(f'{t:.1f}' for t in data_ms)} ({args_b.batch} x "
+        f"{args_b.frames + args_b.closed_frames} x {args_b.height} x {args_b.width} x 3)")
+    log(f"  peak device memory {peak / 2**30:.3f} GiB; v2 step loss {loss_v2:.6f}; "
+        f"kernel launches {counts} ({card})")
+    torch.cuda.empty_cache()  # the later phases start without the trainer's blocks
+    return counts
+
+
 @phase("profile")
 def profile_generation(params):
     """Device time by kernel over one warm main-path generation (the first
@@ -1142,13 +1371,14 @@ def main():
         cli_counts, best_png = cli_run(keep)
         probe_counts = probe_run(best_png, card)
     scorer_counts = scorers(params, card)
+    train_counts = train_phase(card)
     profile_generation(params)
     bisect_kernels, bisect_counts = bisect()
     kernels.update(bisect_kernels)
     log(f"[total] {time.time() - t0:.1f} s")
-    # launches over the driven paths: main_path, cli, probe, scorers, then
-    # the bisection ladder
-    paths = (counts, cli_counts, probe_counts, scorer_counts, bisect_counts)
+    # launches over the driven paths: main_path, cli, probe, scorers, train
+    # (none: the trainer runs the plain route), then the bisection ladder
+    paths = (counts, cli_counts, probe_counts, scorer_counts, train_counts, bisect_counts)
     rows = [dict(name=name, launches=sum(c[name] for c in paths), **r)
             for name, r in kernels.items()]
     print(json.dumps({"kernels": rows}))

@@ -10,13 +10,15 @@ version instead, which is what the tests use.
 Subpackages
 -----------
 - ``neat``       host-side NEAT engine (a copy of the reference's)
-- ``models``     CPPN level evaluator and the PredNet predictive coder
+- ``models``     CPPN level evaluator, the PredNet predictive coder and its
+                 trainer (synthetic data, losses, ``pretrain``)
 - ``ops``        coordinate grids, rendering, optical flow, fitness metrics,
                  the CUDA kernel wrappers
 - ``evolution``  the generation evaluator, the ``neat_illusion`` driver and
                  the per-generation artifacts
 - ``utils``      PNG I/O without Pillow, image IO and flow overlays,
-                 mirroring, misc image helpers, timing and profiling
+                 mirroring, misc image helpers, timing and profiling, the
+                 ``jax.random``-equal threefry generator
 - ``scripts``    command-line tools: ``kernel_bisect``, the kernel-bisection
                  ladder on the card
 - ``cli``        the command line (``python -m

@@ -7,7 +7,7 @@ from .loader import (
     load_params,
     params_from_numpy,
 )
-from .model import init_state, prednet_step, rollout, rollout_flow_frames
+from .model import init_params, init_state, prednet_step, rollout, rollout_flow_frames
 
 __all__ = [
     "bundled_weights_path",
@@ -15,6 +15,7 @@ __all__ = [
     "load_or_init",
     "load_params",
     "params_from_numpy",
+    "init_params",
     "init_state",
     "prednet_step",
     "rollout",

@@ -1,8 +1,8 @@
 """PredNet: the predictive-coding ConvLSTM stack, in PyTorch (dense path).
 
-The port of the JAX package's ``models/prednet/model.py`` (``init_state``,
-``prednet_step``, ``rollout``, ``rollout_flow_frames``).  Architecture per
-layer ``l`` (channels ``[c, 48, 96, 192]`` color):
+The port of the JAX package's ``models/prednet/model.py`` (``init_params``,
+``init_state``, ``prednet_step``, ``rollout``, ``rollout_flow_frames``).
+Architecture per layer ``l`` (channels ``[c, 48, 96, 192]`` color):
 
   top-down, l = L-1..0:
     R_l, c_l <- ConvLSTM_l(E_l(t-1), R_l(t-1), upsample2(R_{l+1}(t)))
@@ -16,38 +16,58 @@ Tensors are NHWC at every public function, as in the JAX package; the
 ``F.conv2d`` calls take ``permute(0, 3, 1, 2)`` views, whose channels-last
 strides cuDNN takes as they are.
 
-The ConvLSTM update of a layer takes one of two routes:
+:func:`prednet_step`'s ``use_pallas`` names the JAX route whose math the
+ConvLSTM update computes (:func:`rollout` and the evaluator always take
+``"fused"``):
 
-* layers with ``C >= 32`` and no peephole (layers 1-3 at ``3,48,96,192``):
-  :func:`..ops.convlstm_fused.fused_convlstm_layer_multi` over E, R and the
-  upsampled R_above — the JAX ``use_pallas="fused"`` math: bfloat16 sources
-  and weights, float32 accumulation and gates, ``h`` in the state dtype,
-  ``c`` float32 then cast to the state dtype;
-* narrow layers (layer 0, C = 3 or 1): split ``F.conv2d`` gate convs in the
-  compute dtype, then :func:`..ops.convlstm_gates.fused_lstm_gates` on their
-  sum as it is, writing h and c in the state dtype — the JAX
-  ``use_pallas=True`` math (float32 gate math on the gates widened to
-  float32, h and c then cast to the state dtype), with the widening and the
-  casts inside the kernel.  A layer with peepholes keeps the plain gate math
-  (:func:`_lstm_gates`).
+* ``"fused"`` (the port's default, the route of the evaluator, the probe
+  and the compat shims), on the CUDA kernels:
 
-On CUDA tensors both wrappers launch their kernels; on CPU tensors they run
-their plain versions.  The JAX package's TPU layout options (``s2d_l0``,
+  - layers with ``C >= 32`` and no peephole (layers 1-3 at
+    ``3,48,96,192``): :func:`..ops.convlstm_fused.fused_convlstm_layer_multi`
+    over E, R and the upsampled R_above — the JAX ``use_pallas="fused"``
+    math: bfloat16 sources and weights, float32 accumulation and gates,
+    ``h`` in the state dtype, ``c`` float32 then cast to the state dtype;
+  - narrow layers (layer 0, C = 3 or 1): split ``F.conv2d`` gate convs in
+    the compute dtype, then :func:`..ops.convlstm_gates.fused_lstm_gates`
+    on their sum as it is, writing h and c in the state dtype — the JAX
+    ``use_pallas=True`` math (float32 gate math on the gates widened to
+    float32, h and c then cast to the state dtype), with the widening and
+    the casts inside the kernel;
+
+* ``True``: the narrow layers' route on every layer;
+* ``False`` (the JAX default, which the trainer differentiates): split
+  per-source ``F.conv2d`` gate convs in the compute dtype and the plain
+  gate math (:func:`_lstm_gates`) in the gates' dtype, on every layer.
+  It launches no kernel.
+
+A layer with peepholes takes the plain gate math on every route.  On CUDA
+tensors the two wrappers launch their kernels; on CPU tensors they run
+their plain versions.  Neither kernel has a backward (the JAX kernels have
+no VJP either), so the wrappers refuse, on every device, inputs that
+require a gradient while grad mode is on: a loss differentiated through
+``"fused"`` or ``True`` raises instead of silently leaving the weights of
+those layers without a gradient.  Train on ``use_pallas=False``
+(:mod:`.train`).  The JAX package's TPU layout options (``s2d_l0``,
 ``subpixel_up``, int8) are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ...ops.convlstm_fused import fused_convlstm_layer_multi
 from ...ops.convlstm_gates import fused_lstm_gates
+from ...utils import prng
+from .loader import params_from_numpy
 
 __all__ = [
     "FUSED_MIN_CHANNELS",
+    "init_params",
     "init_state",
     "prednet_step",
     "rollout",
@@ -57,6 +77,48 @@ __all__ = [
 #: Layers at least this wide take the fused ConvLSTM kernel (the JAX
 #: ``use_pallas="fused"`` gate, model.py ``C >= 32``).
 FUSED_MIN_CHANNELS = 32
+
+
+def _conv_init(key, shape) -> np.ndarray:
+    """normal / sqrt(fan_in) in float32, the JAX ``_conv_init``."""
+    fan_in = shape[0] * shape[1] * shape[2]
+    return prng.normal(key, shape) * np.float32(1.0 / np.sqrt(fan_in))
+
+
+def init_params(key, channels: Sequence[int] = (3, 48, 96, 192), kernel: int = 3,
+                dtype=torch.bfloat16, peephole: bool = False, device=None) -> List[dict]:
+    """Random PredNet parameters drawn as the JAX ``init_params`` draws
+    them from the same key (:mod:`...utils.prng`; a :func:`..utils.prng.PRNGKey`),
+    as port params on ``device`` (``None``: the card) through
+    :func:`.loader.params_from_numpy`.  ``peephole=True`` adds zero
+    per-channel peephole weights (w_ci, w_cf, w_co).  The port's convs are
+    3x3 (``kernel=3``), as the CUDA kernels are."""
+    if kernel != 3:
+        raise ValueError(f"the port's PredNet convs are 3x3, got kernel={kernel}")
+    L = len(channels)
+    keys = prng.split(key, L * 3)
+    layers = []
+    for l in range(L):
+        C = channels[l]
+        in_ch = 3 * C + (channels[l + 1] if l + 1 < L else 0)
+        layer = {
+            "lstm_w": _conv_init(keys[3 * l], (kernel, kernel, in_ch, 4 * C)),
+            "lstm_b": np.zeros(4 * C, np.float32),
+            "ahat_w": _conv_init(keys[3 * l + 1], (kernel, kernel, C, C)),
+            "ahat_b": np.zeros(C, np.float32),
+        }
+        if peephole:
+            for k in ("w_ci", "w_cf", "w_co"):
+                layer[k] = np.zeros(C, np.float32)
+        if l + 1 < L:
+            layer["a_w"] = _conv_init(keys[3 * l + 2], (kernel, kernel, 2 * C, channels[l + 1]))
+            layer["a_b"] = np.zeros(channels[l + 1], np.float32)
+        layers.append(layer)
+    return params_from_numpy(layers, dtype, device)
+
+
+# CPU scalars, which binary ops take beside tensors on any device
+_ZERO, _ONE = torch.zeros(()), torch.ones(())
 
 
 def init_state(batch: int, h: int, w: int,
@@ -127,18 +189,24 @@ def _lstm_gates(gates, c_prev, peephole=None):
     return o * torch.tanh(c), c
 
 
-def prednet_step(params, state, frame, *, compute_dtype=torch.float32):
+def prednet_step(params, state, frame, *, use_pallas: Union[bool, str] = "fused",
+                 compute_dtype=torch.float32):
     """One PredNet timestep.
 
     Args:
-      params: from :mod:`.loader`.
+      params: from :mod:`.loader` or :func:`init_params`.
       state: per-layer dicts (r, c, e) from :func:`init_state`.
       frame: (B, H, W, C0) input in [0, 1].
-      compute_dtype: dtype of the narrow layers' conv outputs and gate sums,
-        the A / Ahat convs and the error units.
+      use_pallas: the route of the ConvLSTM update (module docstring):
+        ``"fused"`` (the kernels), ``True`` (the gate kernel on every
+        layer) or ``False`` (plain and differentiable).
+      compute_dtype: dtype of the split gate convs' outputs and the gate
+        sums, the A / Ahat convs and the error units.
     Returns:
       (new_state, prediction) with prediction (B, H, W, C0) float32.
     """
+    if not (isinstance(use_pallas, bool) or use_pallas == "fused"):
+        raise ValueError(f"use_pallas must be False, True or 'fused', got {use_pallas!r}")
     L = len(params)
     dtype = state[0]["r"].dtype
     cd = compute_dtype
@@ -151,7 +219,7 @@ def prednet_step(params, state, frame, *, compute_dtype=torch.float32):
         peephole = None
         if "w_ci" in p:
             peephole = {k: p[k] for k in ("w_ci", "w_cf", "w_co")}
-        if C >= FUSED_MIN_CHANNELS and peephole is None:
+        if use_pallas == "fused" and C >= FUSED_MIN_CHANNELS and peephole is None:
             srcs = [s["e"].to(torch.bfloat16), s["r"].to(torch.bfloat16)]
             wks = [p["lstm_k_e"], p["lstm_k_r"]]
             if r_above is not None:
@@ -163,7 +231,7 @@ def prednet_step(params, state, frame, *, compute_dtype=torch.float32):
             gates = gates + _conv(s["r"], p["lstm_w_r"], None, cd)
             if r_above is not None:
                 gates = gates + _conv(_upsample2(r_above), p["lstm_w_up"], None, cd)
-            if peephole is None:
+            if use_pallas is not False and peephole is None:
                 h, c = fused_lstm_gates(gates.contiguous(), s["c"], out_dtype=dtype)
             else:
                 h, c = _lstm_gates(gates, s["c"], peephole)
@@ -176,8 +244,13 @@ def prednet_step(params, state, frame, *, compute_dtype=torch.float32):
     for l in range(L):
         p = params[l]
         ahat = _conv(new_state[l]["r"], p["ahat_w"], p["ahat_b"], cd)
-        if l == 0:
-            ahat = ahat.clamp(0.0, 1.0)  # SatLU at the pixel layer
+        if l == 0:  # SatLU at the pixel layer
+            if use_pallas is False:
+                # as jnp.clip: min(max(x, 0), 1), whose gradient splits in
+                # half at either bound (clamp's would not)
+                ahat = torch.minimum(torch.maximum(ahat, _ZERO), _ONE)
+            else:
+                ahat = ahat.clamp(0.0, 1.0)
             prediction = ahat.float()
         else:
             ahat = torch.relu(ahat)

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .convlstm_gates import lstm_gates_plain
+from .convlstm_gates import lstm_gates_plain, refuse_grad
 
 __all__ = [
     "pack_gate_weight",
@@ -168,8 +168,10 @@ def launch(srcs, wks, b, c_prev, stream: int, tw: Optional[int] = None):
 
 def _run(srcs, wks, b, c_prev, wrapper):
     """The kernel on CUDA tensors (counted on ``wrapper``), the plain
-    version on CPU tensors."""
+    version on CPU tensors; either refuses inputs that require a gradient
+    in grad mode (:func:`.convlstm_gates.refuse_grad`)."""
     _check(srcs, wks, b, c_prev)
+    refuse_grad(wrapper.__name__, *srcs, *wks, b, c_prev)
     if c_prev.device.type == "cpu":
         return convlstm_layer_plain(srcs, wks, b, c_prev)
     if c_prev.device.type != "cuda":

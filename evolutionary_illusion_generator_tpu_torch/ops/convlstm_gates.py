@@ -23,7 +23,21 @@ import torch
 
 from .. import _build
 
-__all__ = ["fused_lstm_gates", "lstm_gates_plain"]
+__all__ = ["fused_lstm_gates", "lstm_gates_plain", "refuse_grad"]
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel wrapper would be differentiated: grad mode is on
+    and an input requires a gradient.  The kernels have no backward (nor do
+    the JAX package's Pallas kernels), and their outputs carry no
+    ``grad_fn``, so a loss through them would leave the weights before them
+    without a gradient and say nothing.  Checked on every device, the CPU's
+    plain versions included, so the CPU tests see what the card does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an input requires a gradient.  Differentiate "
+            "prednet_step(..., use_pallas=False), or call the kernel under torch.no_grad()"
+        )
 
 
 def lstm_gates_plain(gates: torch.Tensor, c_prev: torch.Tensor, *,
@@ -92,8 +106,12 @@ def fused_lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor, *,
       out_dtype: float32 (the JAX function's contract) or bfloat16.
     Returns:
       (h, c), both (B, H, W, C) in ``out_dtype``.
+    Raises:
+      RuntimeError: an input requires a gradient in grad mode
+        (:func:`refuse_grad`).
     """
     _check(gates, c_prev, out_dtype)
+    refuse_grad("fused_lstm_gates", gates, c_prev)
     if gates.device.type == "cpu":
         return lstm_gates_plain(gates, c_prev, out_dtype=out_dtype)
     if gates.device.type != "cuda":

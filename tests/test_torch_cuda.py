@@ -301,3 +301,73 @@ def test_cuda_machine_builds_the_native_scorer():
         got = native.score_population_native(structure, vectors, mask, 160, 120)
         host = np.array([score_vectors(structure, v[m], 160, 120) for v, m in zip(vectors, mask)])
         np.testing.assert_allclose(got, host, atol=NATIVE_ATOL, rtol=0)
+
+
+# one tiny pretrain step on the card against the CPU port: float32 master
+# weights in both, TF32 off; the frames are made on each device from the
+# same key (float32 rounding apart); the summation order differs, so a
+# bfloat16 param may round the other way (TRAIN_FLIP_SHARE of them, one
+# bfloat16 ulp plus an Adam step of 2 lr)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_FLIP_SHARE = 5e-3
+TRAIN_RECIPES = {
+    "colour": dict(regime_probs=(0, 0.25, 0.2, 0.15, 0.2, 0.2, 0), ring_speed_range=(1.2, 2.0),
+                   onset_range=(3, 5), closed_frames=2, closed_weight=5.0, ring_dir_cue=True,
+                   ring_onset_range=(2, 2), ring_mask_prefix=True,
+                   cue_speed_range=(0.1, 0.14), cue_period_range=(6.0, 40.0),
+                   ring_closed_scale=0.75, cue_motion_weight=0.0625),
+    "v2": dict(data="v2"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", sorted(TRAIN_RECIPES))
+def test_cuda_train_step_matches_the_cpu(recipe):
+    _cuda_or_skip()
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import params_to_numpy
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.pretrain import pretrain
+
+    kw = dict(batch=2, T=4, h=16, w=24, steps=1, seed=3, verbose=False,
+              **TRAIN_RECIPES[recipe])
+    n = fused_lstm_gates.launches, fused_convlstm_layer_multi.launches
+    card, loss_card = pretrain((3, 32, 32), device="cuda", **kw)
+    torch.cuda.synchronize()
+    cpu, loss_cpu = pretrain((3, 32, 32), device="cpu", **kw)
+    start, _ = pretrain((3, 32, 32), device="cpu", **dict(kw, steps=0))
+    assert (fused_lstm_gates.launches, fused_convlstm_layer_multi.launches) == n
+    assert np.isfinite(loss_card)
+    np.testing.assert_allclose(loss_card, loss_cpu, rtol=TRAIN_LOSS_RTOL)
+    assert all(v.device.type == "cuda" for layer in card for v in layer.values())
+    for o, c, s in zip(params_to_numpy(card), params_to_numpy(cpu), params_to_numpy(start)):
+        for k in c:
+            gap = np.abs(o[k] - c[k])
+            assert (gap > 0).mean() <= TRAIN_FLIP_SHARE, (k, (gap > 0).mean())
+            assert (gap <= 2.0**-7 * np.abs(c[k]) + 4e-3).all(), (k, gap.max())
+            assert not np.array_equal(o[k], s[k]), k  # every param moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["gates", "multi", "single"])
+def test_cuda_wrappers_refuse_gradients(wrapper):
+    """On CUDA tensors, too, an input that requires a gradient raises
+    before any launch; under no_grad the kernel runs."""
+    _cuda_or_skip()
+    srcs, ws, b, c_prev = _layer_inputs(5, 1, 6, 10, (16,), 8)
+    x = torch.as_tensor(srcs[0]).cuda().bfloat16()
+    wk = pack_gate_weight(torch.as_tensor(ws[0])).cuda()
+    bt = torch.as_tensor(b).cuda().requires_grad_(True)
+    c = torch.as_tensor(c_prev).cuda()
+    gates = torch.randn(1, 6, 10, 32, device="cuda", requires_grad=True)
+    fn = {"gates": lambda: fused_lstm_gates(gates, c),
+          "multi": lambda: fused_convlstm_layer_multi([x], [wk], bt, c),
+          "single": lambda: fused_convlstm_layer(x, wk, bt, c)}[wrapper]
+    count = {"gates": fused_lstm_gates, "multi": fused_convlstm_layer_multi,
+             "single": fused_convlstm_layer}[wrapper]
+    n = count.launches
+    with pytest.raises(RuntimeError, match="has no backward"):
+        fn()
+    assert count.launches == n
+    with torch.no_grad():
+        h, _ = fn()
+    torch.cuda.synchronize()
+    assert count.launches == n + 1 and h.grad_fn is None and torch.isfinite(h.float()).all()

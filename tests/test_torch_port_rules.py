@@ -18,7 +18,7 @@ from evolutionary_illusion_generator_tpu_torch.evolution import (
     probe,
 )
 from evolutionary_illusion_generator_tpu_torch.examples import quickstart
-from evolutionary_illusion_generator_tpu_torch.models.prednet import loader
+from evolutionary_illusion_generator_tpu_torch.models.prednet import loader, pretrain
 from evolutionary_illusion_generator_tpu_torch.neat import preset
 from evolutionary_illusion_generator_tpu_torch.structure import StructureType
 from evolutionary_illusion_generator_tpu_torch.utils.image_io import save_image
@@ -91,7 +91,10 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         compat.lucas_kanade(png, png)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quickstart.main([str(tmp_path / "qs")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pretrain.main(["--channels", "1,4,8", "--steps", "1", "--out", str(tmp_path / "w.npz")])
     assert not (tmp_path / "p").exists() and not (tmp_path / "qs").exists()
+    assert not (tmp_path / "w.npz").exists()
     params = loader.load_or_init(None, (1, 4, 8), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GenerationEvaluator(EvalConfig(c_dim=1), params, cfg)
