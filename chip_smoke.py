@@ -15,8 +15,8 @@ Phases, each printing its wall time and raising on failure:
    plain version and a library yardstick, and its bound; the gate kernel in
    both its contracts (the main path's bfloat16 one and the JAX function's
    float32 one), timed on the device (``device_ms``) beside the host's call
-   rate (``call_ms``), and at every type and an odd pixel count on views off
-   alignment; the fused kernel per layer with its TFLOP/s (CUDA events),
+   rate (``call_ms``), at the s2d pixel layer's shape (8, 60, 80, 12), and
+   at every type and an odd pixel count on views off alignment; the fused kernel per layer with its TFLOP/s (CUDA events),
    at every tile mapping the wrapper chooses from, and at ragged shapes;
 5. reference: the port's rollout on the card against the same rollout on
    the CPU (plain versions) on a small input with the bundled weights;
@@ -38,6 +38,22 @@ Phases, each printing its wall time and raising on failure:
    reference's file bus on the same image and model (``compat.test_prednet``
    writing the frames as PNGs, ``compat.lucas_kanade`` reading them), whose
    vectors must equal the probe's; asserts the launch counts;
+   options: the predictor's options at the main path's shape with the
+   bundled weights: ``s2d_l0``, ``subpixel_up`` and ``prednet_int8`` each
+   through ``neat_illusion`` for two generations (22 gate and 66 fused
+   launches a generation, none under int8; finite fitness; s/generation)
+   and one step of each on the card against the port on the CPU (the
+   reference phase's rules); the main path with the program cache (CUDA
+   graph replay, the default) and without it for four generations each,
+   vectors, masks and fitness bit-equal, the last generation replayed, the
+   launch counts equal in the generations both ran eagerly, with
+   s/generation at generations 1-3 (warm-up, capture, replay);
+   ``debug_nans=True``: a clean generation with the fitness of the run
+   without it, then NaNs planted in layer 2 raising ``FloatingPointError``
+   naming ``fused_convlstm_layer_multi``: in ``lstm_b`` at an op inside its
+   wrapper, in the packed ``lstm_k_r`` (read only by the kernel) at the
+   wrapper's check of the kernel's outputs; the probe's ``--int8`` and
+   ``--s2d`` on the cli phase's ``best.png``;
 10. scorers: one generation at the ``default_color`` shape (pop 40) with
    each scoring back end (``score_backend="numpy"``, ``"native"``,
    ``score_on_device=True``): asserts the C++ scorer was built here, holds
@@ -54,7 +70,10 @@ Phases, each printing its wall time and raising on failure:
    on, logged only), one ``data="v2"`` step; logs s/step, data ms per batch
    and the peak device memory; asserts that no kernel was launched;
 12. profile: device time by kernel and the number of kernel launches over
-   one warm main-path generation;
+   one warm main-path generation, replayed as a CUDA graph (the default)
+   and run eagerly (``program_cache=False``); in both the trace must hold
+   22 gate and 66 fused kernels, which in the replay no wrapper launched
+   (the graph recorded them at its capture);
 13. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
    its north-star layer-1 shape (``--big --rows 48``, all ten rungs);
    asserts each rung's launch count, then holds each of the seven rung
@@ -68,11 +87,12 @@ Phases, each printing its wall time and raising on failure:
    shapes; logs E's and J's times beside D's.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main path, cli, probe, scorers, train and bisect phases), and as the last line
+the main path, cli, probe, options, scorers, train and bisect phases), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a card or without the port beside it.
 """
 
+import contextlib
 import itertools
 import json
 import math
@@ -111,6 +131,8 @@ RAGGED_CASES = (
     (2, 13, 21, (12, 40, 24), 24, "bfloat16"),
 )
 STEPS = 22  # 20 open-loop + 2 closed-loop steps per chunk
+# the s2d pixel layer's gate step: C' = 4C = 12 at half the resolution
+S2D_GATES_SHAPE = (MAIN_BATCH, 60, 80, 12)
 
 # kernel vs plain version, both at bf16 inputs with float32 sums:
 GATES_TOL = 1e-5  # float32 elementwise math, last-ulp differences
@@ -145,6 +167,14 @@ TRACE_KERNELS = {"fused_lstm_gates": ("lstm_gates_kernel", STEPS),
 # best.png, two probe rollouts and one file-bus rollout
 PROBE_CHANNELS = (3, 48, 96, 192)
 PROBE_ROLLOUTS = 3
+# the options phase: the predictor's options at the main path's shape, and
+# the program cache on and off over PROGRAM_GENERATIONS generations.  The
+# population grows from 5 to 10 after generation 0, so its chunk from 8 to
+# 16: generation 1 is the eager warm-up of the larger key, 2 its capture,
+# 3 a replay
+OPTIONS = (("s2d_l0", dict(s2d_l0=True)), ("subpixel_up", dict(subpixel_up=True)),
+           ("prednet_int8", dict(prednet_int8=True)))
+PROGRAM_GENERATIONS = 4
 # the scorers phase: the default_color shape, one generation per back end
 SCORER_BACKENDS = (("numpy", dict(score_backend="numpy")),
                    ("native", dict(score_backend="native")),
@@ -444,10 +474,30 @@ def check_gates(gen):
                 worst = max(worst, err)
     log(f"  fused_lstm_gates at 1x7x9, C 1/3/8/48, every type, aligned and odd views: "
         f"max abs err {worst:.2e}")
+
+    # the s2d pixel layer's gate step: gate-major gates, C' = 12 at 60x80
+    B2, H2, W2, C2 = S2D_GATES_SHAPE
+    g2 = torch.randn(B2, H2, W2, 4 * C2, device="cuda", generator=gen).mul_(2).to(bf16)
+    c2 = torch.randn(B2, H2, W2, C2, device="cuda", generator=gen).to(bf16)
+    call = lambda: cg.fused_lstm_gates(g2, c2, out_dtype=bf16)  # noqa: E731
+    out = call()
+    err, ok = _gates_err(out, cg.lstm_gates_plain(g2, c2, out_dtype=bf16))
+    if not ok:
+        raise AssertionError(f"fused_lstm_gates at the s2d shape {S2D_GATES_SHAPE}: err {err}")
+    moved = nbytes(g2, c2, *out)
+    b_ms, b_by = bound_ms(10.0 * B2 * H2 * W2 * C2, moved, PEAK_F32_FLOPS)
+    ms, _ = device_ms(call, 200)
+    s2d = dict(max_abs_err=err, ms=ms, call_ms=cuda_ms(call, 200),
+               plain_ms=device_ms(lambda: cg.lstm_gates_plain(g2, c2, out_dtype=bf16), 200)[0],
+               bound_ms=b_ms, bound_by=b_by)
+    log(f"  fused_lstm_gates at the s2d shape {S2D_GATES_SHAPE} (main contract): err {err:.2e} "
+        f"device {ms * 1e3:.2f} us, call rate {s2d['call_ms'] * 1e3:.2f} us, plain device "
+        f"{s2d['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
+        f"{moved / 1e6:.2f} MB)")
     return dict(route="cuda",
                 source="evolutionary_illusion_generator_tpu_torch/csrc/lstm_gates.cu",
                 replaces="evolutionary_illusion_generator_tpu/ops/convlstm_pallas.py:57",
-                **rows["main"], f32_contract=rows["f32"])
+                **rows["main"], f32_contract=rows["f32"], s2d_shape=s2d)
 
 
 @phase("kernels")
@@ -663,18 +713,25 @@ def _counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def _check_generations(label, generations, steps, counts, out):
-    """The launch counts (one chunk per generation), the generation count
-    and finite fitness of a run that wrote ``out``/metrics.jsonl."""
+def _check_generations(label, generations, steps, records, out, kernels=True):
+    """The generation count, finite fitness, and each generation's launch
+    counts (of a run that wrote ``out``/metrics.jsonl, its generations in
+    ``records``): ``steps`` gate and 3 ``steps`` fused launches for each
+    chunk run eagerly, none for a chunk replayed as a CUDA graph (its
+    kernels run, but no wrapper launches them) or without ``kernels``."""
     with open(os.path.join(out, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    want = dict.fromkeys(counts, 0)
-    want.update({"fused_lstm_gates": generations * steps,
-                 "fused_convlstm_layer_multi": generations * steps * 3})
-    if counts != want:
-        raise AssertionError(f"{label}: kernel launches {counts}, expected {want}")
-    if len(recs) != generations:
-        raise AssertionError(f"{label}: ran {len(recs)} generations")
+    if not len(recs) == len(records) == generations:
+        raise AssertionError(f"{label}: ran {len(recs)} generations ({len(records)} recorded)")
+    for gen, r in enumerate(records):
+        eager = (r["chunks"] - r["replays"]) if kernels else 0
+        want = dict.fromkeys(r["launches"], 0)
+        want.update({"fused_lstm_gates": eager * steps,
+                     "fused_convlstm_layer_multi": eager * steps * 3})
+        if r["launches"] != want:
+            raise AssertionError(f"{label}: generation {gen} kernel launches {r['launches']}, "
+                                 f"expected {want} ({r['chunks']} chunks, {r['replays']} "
+                                 f"replayed)")
     for r in recs:
         if not all(map(math.isfinite, (r["fitness_mean"], r["fitness_max"],
                                        r["fitness_std"]))):
@@ -682,31 +739,35 @@ def _check_generations(label, generations, steps, counts, out):
         log(f"  {label} generation {r['generation']}: pop {r['pop_size']} "
             f"{r['eval_seconds']:.3f} s fitness max {r['fitness_max']:.5f} "
             f"mean {r['fitness_mean']:.5f}")
-    log(f"  {label} launches {counts}")
+    log(f"  {label} chunks replayed a generation {[r['replays'] for r in records]}")
     return recs
 
 
-def run_generations(label, generations, steps, **kwargs):
+def run_generations(label, generations, steps, kernels=True, **kwargs):
     """``neat_illusion`` on the card, without artifacts; checks the launch
-    counts, finite fitness and the generation count."""
+    counts, finite fitness and the generation count.  Returns the launch
+    counts, the metrics records and each generation's record
+    (:func:`_recorded_generations`)."""
     from evolutionary_illusion_generator_tpu_torch.evolution import neat_illusion
 
-    with tempfile.TemporaryDirectory() as out:
+    records = []
+    with tempfile.TemporaryDirectory() as out, _recorded_generations(records):
         _reset_counts()
         pop = neat_illusion(out, None, generations=generations, seed=0,
                             save_artifacts=False, quiet=True, device="cuda", **kwargs)
         counts = _counts()
-        recs = _check_generations(label, generations, steps, counts, out)
+        recs = _check_generations(label, generations, steps, records, out, kernels)
+    log(f"  {label} launches {counts}")
     if pop.generation != generations:
         raise AssertionError(f"{label}: ran {pop.generation} generations")
-    return counts, recs
+    return counts, recs, records
 
 
 @phase("main_path")
 def main_path():
     from evolutionary_illusion_generator_tpu_torch.structure import StructureType
 
-    counts, recs = run_generations(
+    counts, recs, _ = run_generations(
         "main", 2, STEPS, config=None, structure=StructureType.Circles, w=160, h=120,
         channels=(3, 48, 96, 192), c_dim=3)
     log(f"  main s/generation (generation 1): {recs[1]['eval_seconds']:.4f}")
@@ -718,7 +779,7 @@ def default_color():
     from evolutionary_illusion_generator_tpu_torch.neat import preset
     from evolutionary_illusion_generator_tpu_torch.structure import StructureType
 
-    _, recs = run_generations(
+    _, recs, _ = run_generations(
         "default_color", 2, 5 + 2, config=preset("circles").replace(pop_size=40),
         structure=StructureType.CirclesFree, w=320, h=240, channels=(3, 48, 96, 192),
         c_dim=3, repeat=5)
@@ -741,22 +802,22 @@ def cli_run(keep_dir):
     from evolutionary_illusion_generator_tpu_torch.utils.png import read_png
     from evolutionary_illusion_generator_tpu_torch.utils.profiling import TRACE_FILE
 
-    evaluators, artifact_s = [], []
-    evaluator, save = driver.GenerationEvaluator, driver.save_best_artifacts
+    evaluators, artifact_s, records = [], [], []
+    with tempfile.TemporaryDirectory() as out, _recorded_generations(records):
+        evaluator, save = driver.GenerationEvaluator, driver.save_best_artifacts
 
-    class Recording(evaluator):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            evaluators.append(self)
+        class Recording(evaluator):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                evaluators.append(self)
 
-    def timed_save(*a, **kw):
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        save(*a, **kw)
-        artifact_s.append((time.time() - t0, torch.cuda.max_memory_allocated() - base))
+        def timed_save(*a, **kw):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            save(*a, **kw)
+            artifact_s.append((time.time() - t0, torch.cuda.max_memory_allocated() - base))
 
-    with tempfile.TemporaryDirectory() as out:
         prof = os.path.join(out, "prof")
         driver.GenerationEvaluator, driver.save_best_artifacts = Recording, timed_save
         try:
@@ -765,7 +826,8 @@ def cli_run(keep_dir):
             counts = _counts()
         finally:
             driver.GenerationEvaluator, driver.save_best_artifacts = evaluator, save
-        recs = _check_generations("cli", 2, STEPS, counts, out)
+        recs = _check_generations("cli", 2, STEPS, records, out)
+        log(f"  cli launches {counts}")
         pngs = {}
         for name, shape in (("best.png", CLI_SHAPE), ("best_flow.png", CLI_SHAPE),
                             ("best_black_bg.png", CLI_SHAPE), ("enhanced.png", (800, 800, 3))):
@@ -852,6 +914,229 @@ def probe_run(png, card):
         f"test_prednet {t3 - t2:.4f}, lucas_kanade {t4 - t3:.4f} ({card})")
     log(f"  probe launches {counts}")
     return counts
+
+
+@contextlib.contextmanager
+def _eval_options(**opt):
+    """``neat_illusion`` builds its ``EvalConfig`` with ``opt`` added: the
+    driver takes the JAX driver's arguments, which do not name the
+    predictor's options or the program cache."""
+    from evolutionary_illusion_generator_tpu_torch.evolution import driver
+
+    make = driver.EvalConfig
+    driver.EvalConfig = lambda **kw: make(**kw, **opt)
+    try:
+        yield
+    finally:
+        driver.EvalConfig = make
+
+
+@contextlib.contextmanager
+def _recorded_generations(records):
+    """Each generation's vectors, masks and fitness, its kernel launches,
+    its chunks and how many of them were replayed as a CUDA graph, appended
+    to ``records`` by the driver's evaluator."""
+    import numpy as np
+
+    from evolutionary_illusion_generator_tpu_torch.evolution import driver
+
+    evaluator = driver.GenerationEvaluator
+
+    class Recording(evaluator):
+        def __call__(self, *a, **kw):
+            counts, replays = _counts(), self._programs.replays
+            scores = super().__call__(*a, **kw)
+            res = self.last_results
+            records.append(dict(
+                vectors=res["vectors"].copy(), masks=res["mask"].copy(),
+                fitness=np.array(scores), chunks=len(res["outputs"]._chunks),
+                replays=self._programs.replays - replays,
+                launches={k: v - counts[k] for k, v in _counts().items()}))
+            return scores
+
+    driver.GenerationEvaluator = Recording
+    try:
+        yield
+    finally:
+        driver.GenerationEvaluator = evaluator
+
+
+def _step_card_vs_cpu(label, params_cpu, params_cuda, **opt):
+    """One step of an option's route on the card against the port on the
+    CPU, from the CPU's state after 3 steps, with the reference phase's
+    rules (4 noise images 64x48, bf16 compute, the bundled weights)."""
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+
+    gen = torch.Generator().manual_seed(1)
+    imgs = (torch.rand(4, 48, 64, 3, generator=gen) * 255).to(torch.uint8).float() / 255
+    s2d = opt.get("s2d_l0", False)
+    frame = model._s2d(imgs) if s2d else imgs
+    bf16 = torch.bfloat16
+
+    def steps(params, device, n, state=None):
+        state = state or model.init_state(4, 48, 64, (3, 48, 96, 192), dtype=bf16,
+                                          device=device, s2d_l0=s2d)
+        with torch.inference_mode():
+            for _ in range(n):
+                state, pred = model.prednet_step(params, state, frame.to(device),
+                                                 compute_dtype=bf16, **opt)
+        return state, pred
+
+    # the layout weights, made once as the evaluator makes them
+    params_cpu, params_cuda = (model.with_layout_weights(p, **opt)
+                               for p in (params_cpu, params_cuda))
+    state3, _ = steps(params_cpu, "cpu", 3)
+    ref_state, ref_pred = steps(params_cpu, "cpu", 1, state3)
+    out_state, out_pred = steps(params_cuda, "cuda", 1,
+                                [{k: v.cuda() for k, v in l.items()} for l in state3])
+    pairs = [(out_pred, ref_pred)] + [(o[k], r[k]) for o, r in zip(out_state, ref_state)
+                                      for k in "rce"]
+    worst, share = 0.0, 0.0
+    for a, b in pairs:
+        if not (a.shape == b.shape and torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: step outputs not finite or of the wrong shape")
+        d = (a.cpu().float() - b.float()).abs()
+        worst, share = max(worst, d.max().item()), max(share, (d > 0).float().mean().item())
+    if not (worst <= STEP_ATOL and share <= STEP_DIFF_SHARE):
+        raise AssertionError(f"{label}: one step on the card disagrees with the CPU: max "
+                             f"{worst:.3e}, {share:.2%} of a tensor differ")
+    log(f"  {label} one step card vs cpu: max abs {worst:.3e}, at most {share:.2%} of a "
+        f"tensor's elements differ")
+
+
+@phase("options")
+def options_phase(params, png, card):
+    """The predictor's options, the program cache and the sanitizer at the
+    main path's shape with the bundled weights (the module docstring's
+    list); returns the launches of the runs that drive a path."""
+    import copy
+    import io
+
+    import numpy as np
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.evolution import (
+        EvalConfig,
+        GenerationEvaluator,
+        probe,
+    )
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import load_or_init
+    from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
+    from evolutionary_illusion_generator_tpu_torch.structure import StructureType
+
+    total = dict.fromkeys(_wrappers(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    main = dict(config=None, structure=StructureType.Circles, w=160, h=120,
+                channels=PROBE_CHANNELS, c_dim=3)
+    params_cpu = load_or_init(None, PROBE_CHANNELS, device="cpu")
+    for name, opt in OPTIONS:
+        int8 = "prednet_int8" in opt
+        with _eval_options(**opt):
+            counts, recs, _ = run_generations(name, 2, STEPS, kernels=not int8, **main)
+        add(counts)
+        log(f"  {name} s/generation (generation 1): {recs[1]['eval_seconds']:.4f} ({card})")
+        if int8:  # the codes quantised on the card equal the CPU's
+            q_cpu, q_cuda = (model.quantize_params_int8(p) for p in (params_cpu, params))
+            for a, b in zip(q_cpu, q_cuda):
+                if a.keys() != b.keys() or not all(torch.equal(a[k], b[k].cpu()) for k in a):
+                    raise AssertionError("prednet_int8: the card's int8 params differ from the CPU's")
+            _step_card_vs_cpu(name, q_cpu, q_cuda)
+        else:
+            _step_card_vs_cpu(name, params_cpu, params, **opt)
+
+    # the program cache: the main path replayed as a CUDA graph, and eager.
+    # run_generations checked each generation's launches against its eager
+    # chunks; the wrappers count only what they launch themselves, so the
+    # two runs' launches are compared where both ran eagerly, and the
+    # profile phase counts a replay's kernels in the trace
+    runs = {}
+    for on in (True, False):
+        with _eval_options(program_cache=on):
+            counts, recs, records = run_generations(f"program_cache={on}", PROGRAM_GENERATIONS,
+                                                    STEPS, **main)
+        add(counts)
+        runs[on] = (records, recs)
+    (graph, g_recs), (eager, e_recs) = runs[True], runs[False]
+    replayed = [gen for gen, r in enumerate(graph) if r["replays"]]
+    if any(r["replays"] for r in eager) or PROGRAM_GENERATIONS - 1 not in replayed:
+        raise AssertionError(f"program_cache: generations {replayed} replayed with the graph, "
+                             f"{[r['replays'] for r in eager]} chunks without")
+    for gen, (a, b) in enumerate(zip(graph, eager)):
+        for what in ("vectors", "masks", "fitness"):
+            if not np.array_equal(a[what], b[what]):
+                raise AssertionError(f"program_cache: generation {gen} {what} differ between "
+                                     f"the graph replay and the eager pass")
+        if gen not in replayed and a["launches"] != b["launches"]:
+            raise AssertionError(f"program_cache: generation {gen} launched {a['launches']} "
+                                 f"with the graph, {b['launches']} without")
+    log(f"  program_cache: {PROGRAM_GENERATIONS} generations, vectors, masks and fitness "
+        f"bit-equal with and without the graph; generations {replayed} replayed, the others "
+        f"with equal launches")
+    for gen in range(1, PROGRAM_GENERATIONS):
+        log(f"  program_cache s/generation (generation {gen}): graph "
+            f"{g_recs[gen]['eval_seconds']:.4f}, eager {e_recs[gen]['eval_seconds']:.4f} ({card})")
+
+    # the sanitizer: silent on a clean generation, names the kernel on a NaN
+    ncfg = preset("circles")
+    items = list(Population(ncfg, seed=0).population.items())
+    _reset_counts()
+    plain = GenerationEvaluator(EvalConfig(), params, ncfg, device="cuda")
+    checked = GenerationEvaluator(EvalConfig(debug_nans=True), params, ncfg, device="cuda")
+    ref = plain(copy.deepcopy(items))
+    t0 = time.time()
+    got = checked(copy.deepcopy(items))
+    checked_s = time.time() - t0
+    if not np.array_equal(ref, got):
+        raise AssertionError(f"debug_nans: fitness {got} under the sanitizer, {ref} without")
+    # a NaN in layer 2's bias reaches an op the mode sees inside the fused
+    # kernel's wrapper (its cast); one in its packed lstm_k_r only the
+    # kernel reads, so the wrapper's own check of the kernel's outputs
+    # must catch it
+    clean = checked.params[2]
+    for key, want in (("lstm_b", " inside fused_convlstm_layer_multi"),
+                      ("lstm_k_r", "debug_nans: NaN in the output of fused_convlstm_layer_multi")):
+        checked.params[2] = dict(clean, **{key: clean[key].clone()})
+        checked.params[2][key].view(-1)[0] = float("nan")
+        try:
+            checked(copy.deepcopy(items))
+        except FloatingPointError as err:
+            if not (str(err).endswith(want) if key == "lstm_b" else str(err) == want):
+                raise AssertionError(f"debug_nans: the NaN in {key} raised {err!r}") from err
+            log(f"  debug_nans: the NaN in layer 2's {key}: {err}")
+        else:
+            raise AssertionError(f"debug_nans: the NaN planted in layer 2's {key} raised nothing")
+    checked.params[2] = clean
+    log(f"  debug_nans: a clean generation {checked_s:.4f} s, fitness equal to the run "
+        f"without it ({card})")
+    add(_counts())
+
+    # the probe's --int8 and --s2d on the cli phase's best.png
+    for flag, want in (("int8", 0), ("s2d", STEPS)):
+        _reset_counts()
+        out = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            probe.main(["-i", png, f"--{flag}"])
+        main_s = time.time() - t0
+        vectors = probe.get_vectors(png, None, PROBE_CHANNELS, **{flag: True})
+        counts = _counts()
+        expect = dict.fromkeys(counts, 0)
+        expect.update({"fused_lstm_gates": 2 * want, "fused_convlstm_layer_multi": 6 * want})
+        score = float(out.getvalue().split("score", 1)[1].split()[0])
+        if counts != expect or not (math.isfinite(score) and np.isfinite(vectors).all()):
+            raise AssertionError(f"probe --{flag}: launches {counts}, score {score}")
+        add(counts)
+        log(f"  probe --{flag}: {len(vectors)} vectors, score {score:.6f}, main {main_s:.4f} s "
+            f"({card}); vectors {np.round(vectors[:3], 3).tolist()}...")
+    log(f"  options launches {total}")
+    return total
 
 
 @phase("scorers")
@@ -1126,22 +1411,47 @@ def profile_generation(params):
 
     cfg = preset("circles")
     items = list(Population(cfg, seed=0).population.items())
-    evaluator = GenerationEvaluator(EvalConfig(), params, cfg, device="cuda")
-    evaluator(items)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        evaluator(items)
+    want = {name: n for name, (_, n) in TRACE_KERNELS.items()}
+    for label, on in (("CUDA graph replay", True), ("eager", False)):
+        evaluator = GenerationEvaluator(EvalConfig(program_cache=on), params, cfg,
+                                        device="cuda")
+        evaluator(items)  # warm-up: eager
+        evaluator(items)  # with the graph: the capture
         torch.cuda.synchronize()
-        wall = time.time() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"  profiled generation: wall {wall * 1e3:.1f} ms (profiler on), device "
-        f"kernels {busy_us / 1e3:.1f} ms, busy share {busy_us / 1e6 / wall:.3f}, "
-        f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+        _reset_counts()
+        replays = evaluator._programs.replays
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            evaluator(items)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        counts = {k: v for k, v in _counts().items() if v}
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        # the path's kernels as the trace saw them run: in the replay they
+        # run from the graph, and no wrapper launched them
+        ran = {name: sum(e.count for e in kernels if key in e.key)
+               for name, (key, _) in TRACE_KERNELS.items()}
+        log(f"  profiled generation ({label}): wall {wall * 1e3:.1f} ms (profiler on), device "
+            f"kernels {busy_us / 1e3:.1f} ms, busy share {busy_us / 1e6 / wall:.3f}, "
+            f"{sum(e.count for e in kernels)} kernel launches; in the trace {ran}, counted by "
+            f"the wrappers {counts}")
+        if ran != want:
+            raise AssertionError(f"profile ({label}): the trace holds {ran}, expected {want}")
+        if on:
+            graphs = [g for g in evaluator._programs.graphs.values() if g is not None]
+            if not (len(graphs) == 1 and evaluator._programs.replays == replays + 1
+                    and graphs[0].recorded == want and not counts):
+                raise AssertionError(
+                    f"profile: {len(graphs)} captured graphs, "
+                    f"{evaluator._programs.replays - replays} replays, recorded "
+                    f"{[g.recorded for g in graphs]}, wrapper launches {counts}; expected one "
+                    f"replay of a graph that recorded {want} and no wrapper launch")
+        elif counts != want:
+            raise AssertionError(f"profile (eager): wrapper launches {counts}, expected {want}")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+            log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
 @phase("bisect")
@@ -1370,15 +1680,17 @@ def main():
     with tempfile.TemporaryDirectory() as keep:
         cli_counts, best_png = cli_run(keep)
         probe_counts = probe_run(best_png, card)
+        options_counts = options_phase(params, best_png, card)
     scorer_counts = scorers(params, card)
     train_counts = train_phase(card)
     profile_generation(params)
     bisect_kernels, bisect_counts = bisect()
     kernels.update(bisect_kernels)
     log(f"[total] {time.time() - t0:.1f} s")
-    # launches over the driven paths: main_path, cli, probe, scorers, train
-    # (none: the trainer runs the plain route), then the bisection ladder
-    paths = (counts, cli_counts, probe_counts, scorer_counts, train_counts, bisect_counts)
+    # launches over the driven paths: main_path, cli, probe, options, scorers,
+    # train (none: the trainer runs the plain route), then the bisection ladder
+    paths = (counts, cli_counts, probe_counts, options_counts, scorer_counts, train_counts,
+             bisect_counts)
     rows = [dict(name=name, launches=sum(c[name] for c in paths), **r)
             for name, r in kernels.items()]
     print(json.dumps({"kernels": rows}))

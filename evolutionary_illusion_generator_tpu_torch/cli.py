@@ -5,8 +5,9 @@ The JAX package's ``cli.py`` flag for flag: the reference's 9 flags
 --color_space --channels --gradient``) with the same defaults and the same
 small=160x120 / big=640x480 size presets, the extra knobs and the run
 presets, with the same names, short forms and defaults; plus ``--device``
-(empty = the card; ``cpu`` must be asked for).  The flags whose values the
-port does not implement yet are refused by ``neat_illusion``.
+(empty = the card; ``cpu`` must be asked for).  A run preset for more than
+one device is refused by ``neat_illusion``: the parallel evaluator is not
+ported yet.
 
 Run as ``python -m evolutionary_illusion_generator_tpu_torch.cli [...]``.
 """
@@ -55,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pertype_count", default=1, type=int, help="renders per genome, fitness = mean over renders")
     parser.add_argument("--tensorboard", action="store_true", help="write TensorBoard scalars to <output_dir>/tensorboard beside metrics.jsonl")
     parser.add_argument("--chainer_half_order", default="ahat-a", choices=("ahat-a", "a-ahat", "auto"), help="E-unit half convention of an imported Chainer .model snapshot (auto = detect empirically)")
-    parser.add_argument("--debug_nans", action="store_true", help="sanitizer mode (not ported yet)")
+    parser.add_argument("--debug_nans", action="store_true", help="sanitizer mode: raise at the first op of the device pass that makes a NaN (slow; debugging only)")
     # the port's own
     parser.add_argument("--device", default="", help="torch device (empty = the CUDA card; 'cpu' must be asked for)")
     return parser

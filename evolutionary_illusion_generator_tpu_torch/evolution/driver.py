@@ -5,8 +5,10 @@ The signature of the JAX package's ``neat_illusion`` (the reference's
 channels, c_dim, checkpoint, gradient)`` plus the run knobs), with
 ``device``.  Each generation writes the winner's artifacts
 (``evolution/artifacts.py``); ``profile_dir`` takes a ``torch.profiler``
-trace of generation 1.  The JAX driver's arguments that the port does not
-implement yet keep their names and defaults and raise on any other value.
+trace of generation 1; ``debug_nans=True`` runs the device pass under the
+NaN sanitizer (:mod:`..utils.debug_nans`).  ``n_devices`` keeps its name
+and default and raises on more than one device: the parallel evaluator is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -105,17 +107,13 @@ def neat_illusion(
 
     ``use_pallas`` is accepted and has no effect: the port's route is fixed,
     its CUDA kernels, which compute the JAX ``use_pallas="fused"`` math.
-    ``n_devices > 1`` and ``debug_nans=True`` are not ported yet and raise
-    ``NotImplementedError`` naming their ROADMAP.md item.
+    ``debug_nans=True`` raises ``FloatingPointError`` at the first op of
+    the device pass that makes a NaN.  ``n_devices > 1`` is not ported yet
+    and raises ``NotImplementedError`` naming its ROADMAP.md item.
     """
-    refused = (
-        (n_devices is not None and n_devices > 1, f"n_devices={n_devices}", "Parallel"),
-        (debug_nans, "debug_nans=True", "The sanitizer mode debug_nans"),
-    )
-    for asked, what, item in refused:
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md Queue 1, {item!r})")
+    if n_devices is not None and n_devices > 1:
+        raise NotImplementedError(
+            f"n_devices={n_devices} is not ported yet (ROADMAP.md Queue 1, 'Parallel')")
     device = resolve_device(device)
     if device.type == "cuda":
         # float32 convolutions and matmuls in full float32 (cuDNN would
@@ -141,6 +139,7 @@ def neat_illusion(
         pertype_count=pertype_count,
         score_on_device=score_on_device,
         microbatch=microbatch,
+        debug_nans=debug_nans,
     )
     evaluator = GenerationEvaluator(eval_cfg, params, neat_cfg, device=device)
 

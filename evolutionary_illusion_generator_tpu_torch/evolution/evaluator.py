@@ -11,15 +11,19 @@ reference's exact math), or the scores are computed on the device with
 ``score_on_device=True`` (:mod:`..ops.fitness.metrics_torch`, float32).  The
 population is chunked at the host level (``_bucket``, minimum 8) and the
 genomes are packed into grow-only (levels x width) CPPN buckets and a
-grow-only activation set, as in the JAX package.
+grow-only activation set, as in the JAX package.  On the card the chunk
+pass of each bucket key is captured once as a CUDA graph and replayed
+(``program_cache``, :mod:`..utils.program_cache`); ``debug_nans`` runs it
+eagerly under the NaN sanitizer (:mod:`..utils.debug_nans`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +37,11 @@ from ..models.cppn import (
     population_act_set,
     required_nodes,
 )
-from ..models.prednet.model import rollout_flow_frames
+from ..models.prednet.model import (
+    quantize_params_int8,
+    rollout_flow_frames,
+    with_layout_weights,
+)
 from ..neat.config import NeatConfig
 from ..neat.genome import Genome
 from ..ops.fitness import native
@@ -43,6 +51,8 @@ from ..ops.flow.api import FlowConfig, batched_flow
 from ..ops.grids import GRID_SCALING, create_grid
 from ..ops.render import render_equilum_images, render_images, to_unit_float
 from ..structure import StructureType
+from ..utils import debug_nans as sanitizer
+from ..utils.program_cache import ProgramCache, program_cache_enabled
 
 __all__ = ["EvalConfig", "GenerationEvaluator", "GenerationOutputs"]
 
@@ -81,8 +91,27 @@ class EvalConfig:
     score_backend: str = "auto"
     # replace non-finite fitness scores with 0 (with a warning)
     nan_to_zero: bool = True
+    # Sanitizer mode: raise FloatingPointError at the first op of the
+    # device pass that makes a NaN, naming it (utils/debug_nans.py, the
+    # counterpart of jax_debug_nans).  A device sync per op: debugging only.
+    debug_nans: bool = False
+    # Top-down conv(upsample2(R_above)) of the split-conv layers as four
+    # parity 2x2 convs at the coarse resolution
+    # (models/prednet/model.py::_upconv_subpixel): 4/9 the FLOPs of that
+    # conv and no upsampled intermediate, at bf16-rounding-level drift.
+    subpixel_up: bool = False
+    # Pixel-layer convs/states in space-to-depth layout (models/prednet/
+    # model.py::_s2d_kernel): 4x channels at 1/4 the spatial size.  Same
+    # math up to accumulation-order rounding.  ``None`` (default) resolves
+    # to True on TPU backends and False elsewhere, so False on the card.
+    s2d_l0: Optional[bool] = None
     # predictor compute dtype ("bfloat16" | "float32")
     prednet_dtype: str = "bfloat16"
+    # int8-quantize the frozen predictor's conv weights (per-output-channel
+    # scales) with a dynamic per-row activation scale
+    # (models/prednet/model.py::quantize_params_int8); quantization noise
+    # perturbs the drift signal the fitness reads, so it is opt-in.
+    prednet_int8: bool = False
     # population chunk bound (memory); 0 = whole population at once
     microbatch: int = 0
     # CPPN level bucket (grow-only): levels x width node slots
@@ -91,6 +120,18 @@ class EvalConfig:
     # "population": only the activations present so far (grow-only);
     # "all": the full 7-function stack
     cppn_act_mode: str = "population"
+    # The program cache: on the card each bucket key's chunk pass is
+    # captured once as a CUDA graph and replayed (utils/program_cache.py);
+    # no effect on the CPU, off under debug_nans or EIGEN_PROGRAM_CACHE=0.
+    program_cache: bool = True
+
+
+def wants_program_cache(cfg: EvalConfig) -> bool:
+    """Whether ``cfg`` asks for the CUDA-graph program cache: its
+    ``program_cache``, unless ``debug_nans`` (the sanitizer must see every
+    op, as the JAX cache steps aside for ``jax_debug_nans``) or the
+    environment sets ``EIGEN_PROGRAM_CACHE=0``."""
+    return cfg.program_cache and not cfg.debug_nans and program_cache_enabled()
 
 
 class GenerationOutputs:
@@ -146,8 +187,15 @@ class GenerationEvaluator:
             raise ValueError("equiluminant rendering needs c_dim=3 (H,S,V nodes)")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = [{k: v.to(self.device) for k, v in layer.items()}
-                       for layer in params]
+        # the backend-dependent default, resolved once (part of the program
+        # key): the card is not a TPU
+        self._s2d_l0 = False if cfg.s2d_l0 is None else cfg.s2d_l0
+        params = [{k: v.to(self.device) for k, v in layer.items()} for layer in params]
+        if cfg.prednet_int8:
+            params = quantize_params_int8(params)
+        # the layout options' weights, lifted once here and not every step
+        self.params = with_layout_weights(params, s2d_l0=self._s2d_l0,
+                                          subpixel_up=cfg.subpixel_up)
         self.neat_cfg = neat_cfg
         grid = create_grid(cfg.structure, cfg.w, cfg.h, GRID_SCALING)
         x_mat = torch.as_tensor(grid["x_mat"], dtype=torch.float32)
@@ -167,6 +215,8 @@ class GenerationEvaluator:
         self._act_set: tuple = (
             tuple(range(len(ACTIVATIONS))) if cfg.cppn_act_mode == "all" else ()
         )
+        self._programs = ProgramCache(
+            self._eval_chunk, enabled=self.device.type == "cuda" and wants_program_cache(cfg))
         self.last_timings: Dict[str, float] = {}
         self.last_results: Dict[str, object] = {}
 
@@ -189,6 +239,7 @@ class GenerationEvaluator:
             self.params, to_unit_float(imgs_u8), repeat=cfg.repeat,
             extension=cfg.extension, pair="population",
             compute_dtype=getattr(torch, cfg.prednet_dtype),
+            subpixel_up=cfg.subpixel_up, s2d_l0=self._s2d_l0,
         )
         vectors, vmask = batched_flow(f0, f1, cfg.flow)
         out = {
@@ -201,6 +252,13 @@ class GenerationEvaluator:
         if cfg.score_on_device:
             out["scores"] = score_vectors_torch(cfg.structure, vectors, vmask, cfg.w, cfg.h)
         return out
+
+    def program_key(self, chunk: int) -> tuple:
+        """The chunk pass's key in the program cache: the pop bucket, the
+        level and width buckets and the activation set.  The cache is this
+        evaluator's own, so the other parts of the JAX key (the class, the
+        config, the resolved ``s2d_l0``) cannot change inside it."""
+        return (chunk, self._levels, self._width, self._act_set)
 
     def evaluate_images(self, genomes: List[Genome]) -> GenerationOutputs:
         """Run the device pass over host-level chunks of the population.
@@ -236,13 +294,19 @@ class GenerationEvaluator:
                 k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
                 for k, v in packed.items()
             }
+        key = self.program_key(chunk)
+
+        def live(k):  # buckets only grow: another level/width or act set is gone
+            return k[1:] == key[1:]
+
         pieces = []
-        for start in range(0, padded, chunk):
-            part = {
-                k: torch.as_tensor(v[start : start + chunk]).to(self.device)
-                for k, v in packed.items()
-            }
-            pieces.append(self._eval_chunk(part))
+        with sanitizer.sanitize() if self.cfg.debug_nans else contextlib.nullcontext():
+            for start in range(0, padded, chunk):
+                part = {
+                    k: torch.as_tensor(v[start : start + chunk]).to(self.device)
+                    for k, v in packed.items()
+                }
+                pieces.append(self._programs.run(key, live, part))
         return GenerationOutputs(pieces, chunk, n)
 
     def _score_host(self, vectors: np.ndarray, mask: np.ndarray) -> np.ndarray:

@@ -25,7 +25,7 @@ import torch
 
 from .._device import resolve_device
 from ..models.prednet.loader import load_or_init
-from ..models.prednet.model import rollout_flow_frames
+from ..models.prednet.model import quantize_params_int8, rollout_flow_frames
 from ..ops.fitness.calculate import calculate_fitness
 from ..ops.fitness.metrics_np import swarm_score
 from ..ops.flow.api import FlowConfig, flow_vectors
@@ -35,8 +35,6 @@ from ..utils.image_io import load_image
 from ..utils.resample import lanczos_resize
 
 __all__ = ["get_vectors", "score_image", "pad_to_size", "main"]
-
-_REFUSED = "is not ported yet (ROADMAP.md Queue 1, 'The s2d, subpixel and int8 toggles')"
 
 
 def _png_quantize(x: np.ndarray) -> np.ndarray:
@@ -70,21 +68,22 @@ def get_vectors(
     ``quantize=True`` (default) puts both flow frames through the uint8 PNG
     round trip before the flow stage, as the reference computes flow between
     files on disk; with it this function equals the ``compat.test_prednet``
-    + ``lucas_kanade`` file bus.  ``int8`` and ``s2d`` raise
-    ``NotImplementedError``: those predictor layouts are not ported yet.
+    + ``lucas_kanade`` file bus.  ``int8=True`` runs the predictor on its
+    int8-quantized weights (``quantize_params_int8``), ``s2d=True`` its
+    pixel layer in space-to-depth layout (``s2d_l0``), as the JAX probe does.
 
     Returns an (N, 4) numpy array of [x, y, dx, dy] rows (empty when nothing
     was trackable).
     """
-    for asked, what in ((int8, "int8=True"), (s2d, "s2d=True")):
-        if asked:
-            raise NotImplementedError(f"{what} {_REFUSED}")
     device = resolve_device(device)
     params = load_or_init(model_name, list(channels), seed=seed, device=device)
+    if int8:
+        params = quantize_params_int8(params)
     img = load_image(image_path, size=(w, h), c_dim=channels[0])
     with torch.inference_mode():
         f0, f1 = rollout_flow_frames(params, torch.from_numpy(img)[None].to(device),
-                                     repeat=repeat, extension=extension, pair="probe")
+                                     repeat=repeat, extension=extension, pair="probe",
+                                     s2d_l0=s2d)
         if quantize:
             f0, f1 = (torch.from_numpy(_png_quantize(f.cpu().numpy())).to(device)
                       for f in (f0, f1))
@@ -135,9 +134,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="predictor channel stack (extension; the "
                         "reference's test.py is fixed to the color stack)")
     parser.add_argument("--int8", action="store_true",
-                        help="int8-quantized predictor convs (not ported yet)")
+                        help="int8-quantized predictor convs (extension)")
     parser.add_argument("--s2d", action="store_true",
-                        help="space-to-depth pixel layer (not ported yet)")
+                        help="space-to-depth pixel layer (extension)")
     parser.add_argument("--device", default="",
                         help="torch device (empty = the CUDA card; 'cpu' must be asked for)")
     args = parser.parse_args(argv)

@@ -7,7 +7,14 @@ from .loader import (
     load_params,
     params_from_numpy,
 )
-from .model import init_params, init_state, prednet_step, rollout, rollout_flow_frames
+from .model import (
+    init_params,
+    init_state,
+    prednet_step,
+    quantize_params_int8,
+    rollout,
+    rollout_flow_frames,
+)
 
 __all__ = [
     "bundled_weights_path",
@@ -18,6 +25,7 @@ __all__ = [
     "init_params",
     "init_state",
     "prednet_step",
+    "quantize_params_int8",
     "rollout",
     "rollout_flow_frames",
 ]

@@ -61,6 +61,9 @@ WEIGHTS_DIR = (
 )
 
 _CONV_KEYS = ("ahat_w", "a_w")
+#: Prefixes of the weights ``model.with_layout_weights`` derives from a
+#: layer's own (lifted s2d kernels, subpixel tap pairs); never saved.
+DERIVED_PREFIXES = ("s2d_", "sub_")
 _PEEPHOLE_KEYS = ("w_ci", "w_cf", "w_co")
 
 
@@ -114,7 +117,7 @@ def params_to_numpy(params: Sequence[dict]) -> List[dict]:
         layer = {"lstm_w": np.concatenate([_numpy(w).transpose(2, 3, 1, 0) for w in slices],
                                           axis=2)}
         for k, v in p.items():
-            if not k.startswith(("lstm_w_", "lstm_k_")):
+            if not k.startswith(("lstm_w_", "lstm_k_") + DERIVED_PREFIXES):
                 layer[k] = np.ascontiguousarray(
                     _numpy(v).transpose(2, 3, 1, 0) if k in _CONV_KEYS else _numpy(v))
         layers.append(layer)

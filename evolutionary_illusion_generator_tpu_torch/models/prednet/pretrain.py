@@ -16,8 +16,8 @@ the JAX package's optimizer tree, under the JAX checkpoint's names; the
 part file's name hashes the recipe's flags but ``--out``,
 ``--save_every`` and ``--device``, so one recipe resumes on either device.
 The JAX ``main`` turns on its persistent compilation cache first
-(``utils/compilation_cache.py``); that module has no counterpart in the
-port yet (ROADMAP.md Queue 1 item 10).
+(``utils/compilation_cache.py``); the port's counterpart is the persistent
+``.build/`` of its kernels (``_build.py``), and the trainer launches none.
 """
 
 from __future__ import annotations

@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .convlstm_fused import convlstm_layer_plain, gate_conv_plain, pack_gate_weight
-from .convlstm_gates import lstm_gates_plain
+from .convlstm_gates import count_launch, lstm_gates_plain
 
 __all__ = [
     "aligned_width",
@@ -220,7 +220,7 @@ def _conv_rung(key, wrapper, x, w, b, c_prev, rows=None):
         return plain(key, x, w, b, c_prev)
     out = launch(key, prepare(key, x, rows), pack_gate_weight(w), b, c_prev, rows,
                  _stream(c_prev))
-    wrapper.launches += 1
+    count_launch(wrapper)
     if key == "C":  # the gate math after the kernel, plain as in the reference
         return lstm_gates_plain(out, c_prev)
     return out
@@ -233,7 +233,7 @@ def variant_A(x, w, b, c_prev):
     if c_prev.device.type == "cpu":
         return plain("A", x, w, b, c_prev)
     out = launch_a(c_prev, _stream(c_prev))
-    variant_A.launches += 1
+    count_launch(variant_A)
     return out, out
 
 
@@ -298,5 +298,7 @@ RUNGS = {
     "J": variant_E2,
 }
 for _fn in RUNGS.values():
-    _fn.launches = 0  # kernel launches (not plain-version calls)
+    # kernel launches (not plain-version calls), and kernels recorded into
+    # a CUDA graph (convlstm_gates.count_launch)
+    _fn.launches = _fn.captured = 0
 del _fn

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .convlstm_gates import lstm_gates_plain, refuse_grad
+from ..utils import debug_nans
+from .convlstm_gates import count_launch, lstm_gates_plain, refuse_grad
 
 __all__ = [
     "pack_gate_weight",
@@ -167,18 +168,22 @@ def launch(srcs, wks, b, c_prev, stream: int, tw: Optional[int] = None):
 
 
 def _run(srcs, wks, b, c_prev, wrapper):
-    """The kernel on CUDA tensors (counted on ``wrapper``), the plain
+    """The kernel on CUDA tensors (counted on ``wrapper``,
+    :func:`.convlstm_gates.count_launch`), the plain
     version on CPU tensors; either refuses inputs that require a gradient
-    in grad mode (:func:`.convlstm_gates.refuse_grad`)."""
+    in grad mode (:func:`.convlstm_gates.refuse_grad`), and names
+    ``wrapper`` in a ``debug_nans`` error (:mod:`..utils.debug_nans`)."""
     _check(srcs, wks, b, c_prev)
     refuse_grad(wrapper.__name__, *srcs, *wks, b, c_prev)
-    if c_prev.device.type == "cpu":
-        return convlstm_layer_plain(srcs, wks, b, c_prev)
-    if c_prev.device.type != "cuda":
-        raise ValueError(f"unsupported device {c_prev.device}")
-    out = launch(srcs, wks, b, c_prev, torch.cuda.current_stream(c_prev.device).cuda_stream)
-    wrapper.launches += 1
-    return out
+    with debug_nans.scope(wrapper.__name__):
+        if c_prev.device.type == "cpu":
+            return convlstm_layer_plain(srcs, wks, b, c_prev)
+        if c_prev.device.type != "cuda":
+            raise ValueError(f"unsupported device {c_prev.device}")
+        out = launch(srcs, wks, b, c_prev, torch.cuda.current_stream(c_prev.device).cuda_stream)
+        count_launch(wrapper)
+        debug_nans.check(wrapper.__name__, *out)
+        return out
 
 
 def fused_convlstm_layer_multi(srcs: Sequence[torch.Tensor],
@@ -206,6 +211,8 @@ def fused_convlstm_layer(x: torch.Tensor, wk: torch.Tensor, b: torch.Tensor,
     return _run([x], [wk], b, c_prev, fused_convlstm_layer)
 
 
-# kernel launches (not plain-version calls)
-fused_convlstm_layer_multi.launches = 0
-fused_convlstm_layer.launches = 0
+# kernel launches (not plain-version calls), and kernels recorded into a
+# CUDA graph (convlstm_gates.count_launch)
+for _fn in (fused_convlstm_layer_multi, fused_convlstm_layer):
+    _fn.launches = _fn.captured = 0
+del _fn

@@ -22,8 +22,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils import debug_nans
 
-__all__ = ["fused_lstm_gates", "lstm_gates_plain", "refuse_grad"]
+__all__ = ["count_launch", "fused_lstm_gates", "lstm_gates_plain", "refuse_grad"]
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -94,6 +95,17 @@ def _launch(gates: torch.Tensor, c_prev: torch.Tensor, stream: int,
     return h, c
 
 
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel, on its ``launches``.  While the
+    stream is being captured into a CUDA graph the kernel is only recorded
+    (it runs at the graph's replays, which count nothing): that goes on
+    ``wrapper.captured``."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def fused_lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor, *,
                      out_dtype: torch.dtype = torch.float32):
     """ConvLSTM cell update; the kernel on a CUDA tensor, the plain version
@@ -112,13 +124,17 @@ def fused_lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor, *,
     """
     _check(gates, c_prev, out_dtype)
     refuse_grad("fused_lstm_gates", gates, c_prev)
-    if gates.device.type == "cpu":
-        return lstm_gates_plain(gates, c_prev, out_dtype=out_dtype)
-    if gates.device.type != "cuda":
-        raise ValueError(f"unsupported device {gates.device}")
-    out = _launch(gates, c_prev, torch.cuda.current_stream(gates.device).cuda_stream, out_dtype)
-    fused_lstm_gates.launches += 1
-    return out
+    with debug_nans.scope("fused_lstm_gates"):
+        if gates.device.type == "cpu":
+            return lstm_gates_plain(gates, c_prev, out_dtype=out_dtype)
+        if gates.device.type != "cuda":
+            raise ValueError(f"unsupported device {gates.device}")
+        out = _launch(gates, c_prev, torch.cuda.current_stream(gates.device).cuda_stream,
+                      out_dtype)
+        count_launch(fused_lstm_gates)
+        debug_nans.check("fused_lstm_gates", *out)
+        return out
 
 
 fused_lstm_gates.launches = 0  # kernel launches (not plain-version calls)
+fused_lstm_gates.captured = 0  # kernels recorded into a CUDA graph (count_launch)

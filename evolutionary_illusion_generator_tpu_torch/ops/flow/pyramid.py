@@ -20,7 +20,9 @@ def to_gray(image):
     """(..., H, W, C) [0,1] float -> (..., H, W) grayscale."""
     if image.shape[-1] == 1:
         return image[..., 0]
-    luma = torch.tensor(_LUMA, dtype=image.dtype, device=image.device)
+    # on the host: CUDA ops take a CPU 0-dim tensor as a scalar, so nothing
+    # is copied to the device (a copy would break a CUDA-graph capture)
+    luma = torch.tensor(_LUMA, dtype=image.dtype)
     return image[..., 0] * luma[0] + image[..., 1] * luma[1] + image[..., 2] * luma[2]
 
 

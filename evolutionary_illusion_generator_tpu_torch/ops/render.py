@@ -49,7 +49,8 @@ def render_images(node_outputs, x_mat, c_dim, bg=1, gradient=1):
         # quantized 5-color palette
         v = node_outputs[:, 0, :].reshape(pop, h, w).clamp(0.0, 1.0)
         color = torch.floor(v * 4.0).to(torch.int32)  # 0..4
-        full = torch.tensor(255, dtype=torch.int32, device=v.device)
+        # filled on the device, not copied from the host (capturable)
+        full = torch.full((), 255, dtype=torch.int32, device=v.device)
         zero = torch.zeros((), dtype=torch.int32, device=v.device)
         r = torch.where((color == 0) | (color == 1), full, zero)
         g = torch.where((color == 0) | (color == 2), full, zero)

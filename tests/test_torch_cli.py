@@ -43,7 +43,6 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--debug_nans"], "debug_nans"),
     (["--preset", "pop256_v5e8"], "Parallel"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
@@ -56,11 +55,12 @@ def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
     (["--score_on_device"], dict(score_on_device=True)),
     (["--chainer_half_order", "a-ahat"], dict(chainer_half_order="a-ahat")),
     (["--chainer_half_order", "auto"], dict(chainer_half_order="auto")),
+    (["--debug_nans"], dict(debug_nans=True)),
 ])
 def test_cli_passes_the_ported_flags(argv, kwargs, monkeypatch):
     """The flags the port now implements reach ``neat_illusion`` as the
-    JAX CLI passes them (each runs on the CPU in tests/test_torch_scoring.py
-    and tests/test_torch_chainer_loader.py)."""
+    JAX CLI passes them (each runs on the CPU in tests/test_torch_scoring.py,
+    tests/test_torch_chainer_loader.py and tests/test_torch_debug_nans.py)."""
     seen = {}
     monkeypatch.setattr(cli, "neat_illusion", lambda *a, **kw: seen.update(kw))
     assert cli.main(["--device", "cpu", *argv]) == 0

@@ -371,3 +371,171 @@ def test_cuda_wrappers_refuse_gradients(wrapper):
         h, _ = fn()
     torch.cuda.synchronize()
     assert count.launches == n + 1 and h.grad_fn is None and torch.isfinite(h.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# the predictor's options and the program cache on the card
+
+
+@pytest.mark.cuda
+def test_cuda_gates_kernel_at_the_s2d_shape():
+    """The gate kernel on the s2d pixel layer's gate-major gates, C' = 4C =
+    12 at half the resolution, in the main path's bfloat16 contract."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    gates = torch.randn(2, 60, 80, 48, device="cuda", generator=g).mul_(2).bfloat16()
+    c_prev = torch.randn(2, 60, 80, 12, device="cuda", generator=g).bfloat16()
+    n = fused_lstm_gates.launches
+    h, c = fused_lstm_gates(gates, c_prev, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused_lstm_gates.launches == n + 1
+    h_p, c_p = convlstm_gates.lstm_gates_plain(gates, c_prev, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(h.float(), h_p.float(), atol=GATES_ATOL, rtol=BF16_RTOL)
+    torch.testing.assert_close(c.float(), c_p.float(), atol=GATES_ATOL, rtol=BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 2, 5, 7), (2, 15, 20, 6, 12), (8, 30, 40, 192, 96)])
+def test_cuda_int8_conv_exact(shape):
+    """``torch._int_mm`` on the zero-padded im2col (K, N to multiples of 8,
+    M past 16): exact int32 sums, equal to the CPU's."""
+    _cuda_or_skip()
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+
+    B, H, W, cin, cout = shape
+    rng = np.random.default_rng(cin)
+    xq = torch.from_numpy(rng.integers(-127, 128, (B, H, W, cin)).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (cout, cin, 3, 3)).astype(np.int8))
+    got = model._int8_conv(xq.cuda(), wq.cuda())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), model._int8_conv(xq, wq))
+
+
+@pytest.mark.cuda
+def test_cuda_int8_batch_composition_independence():
+    """On the card, too, a candidate's int8 rollout is bit-equal alone and
+    beside a full-intensity neighbour; the int8 route launches no kernel."""
+    _cuda_or_skip()
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import loader, model
+
+    params = model.quantize_params_int8(loader.load_or_init(None, PROBE_CHANNELS, device="cuda"))
+    base = torch.from_numpy(_probe_image())[None].cuda()
+    loud = torch.cat([base, torch.ones_like(base)])
+    n = (fused_lstm_gates.launches, fused_convlstm_layer_multi.launches)
+    with torch.inference_mode():
+        a = model.rollout_flow_frames(params, base, repeat=4, extension=2,
+                                      compute_dtype=torch.bfloat16)
+        b = model.rollout_flow_frames(params, loud, repeat=4, extension=2,
+                                      compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (fused_lstm_gates.launches, fused_convlstm_layer_multi.launches) == n
+    for u, v in zip(a, b):
+        assert torch.isfinite(u).all() and torch.equal(u[0], v[0])
+
+
+def _graph_evaluators(**kw):
+    from evolutionary_illusion_generator_tpu_torch.evolution import EvalConfig, GenerationEvaluator
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import loader
+    from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
+
+    ncfg = preset("circles").replace(pop_size=12)
+    params = loader.load_or_init(None, PROBE_CHANNELS, device="cuda")
+    items = list(Population(ncfg, seed=3).population.items())
+    evs = [GenerationEvaluator(EvalConfig(microbatch=8, program_cache=on, **kw), params, ncfg,
+                               device="cuda") for on in (True, False)]
+    return evs, items
+
+
+def _trace_counts(fn, names):
+    """How many times each kernel whose name holds one of ``names`` ran in
+    ``fn()``, from torch.profiler's device trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # one cycle; acc_events keeps the profiler from warning that it clears
+    # events between cycles
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [sum(e.count for e in kernels if name in e.key) for name in names]
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_equals_the_eager_pass(monkeypatch):
+    """Two chunks of 8 a generation (pop 12, microbatch 8), three
+    generations: in the first, chunk 1 runs eagerly (the warm-up) and
+    chunk 2 is captured and replayed; then both replay.  Every output
+    bit-equal to the eager pass and each chunk's outputs its own (no
+    aliasing of the graph's buffers).  The wrappers count only what runs
+    eagerly; the graph records 22 gate and 66 fused kernels, and the
+    profiler sees them run once a chunk in a replayed generation."""
+    _cuda_or_skip()
+    monkeypatch.delenv("EIGEN_PROGRAM_CACHE", raising=False)
+    (graph, eager), items = _graph_evaluators()
+    counted = (fused_lstm_gates, fused_convlstm_layer_multi)
+    for gen in range(3):
+        launches = []
+        replays = graph._programs.replays
+        for ev in (graph, eager):
+            n = [w.launches for w in counted]
+            ev(list(items))
+            torch.cuda.synchronize()
+            launches.append([w.launches - m for w, m in zip(counted, n)])
+        assert launches[1] == [2 * 22, 2 * 66], (gen, launches)
+        assert launches[0] == ([22, 66] if gen == 0 else [0, 0]), (gen, launches)
+        assert graph._programs.replays - replays == (1 if gen == 0 else 2)
+        a = graph.last_results["outputs"]
+        ours = a.to_numpy()
+        for k, v in eager.last_results["outputs"].to_numpy().items():
+            assert np.array_equal(ours[k], v), (gen, k)
+        first, second = (c["images_u8"] for c in a._chunks)
+        assert first.data_ptr() != second.data_ptr() and not torch.equal(first, second)
+        np.testing.assert_array_equal(graph.last_results["scores"], eager.last_results["scores"])
+    assert len(graph._programs.graphs) == 1 and not eager._programs.graphs
+    (key, captured), = graph._programs.graphs.items()
+    assert captured.recorded == {"fused_lstm_gates": 22, "fused_convlstm_layer_multi": 66}
+    n = [w.launches for w in counted]
+    ran = _trace_counts(lambda: graph(list(items)), ("lstm_gates_kernel", "convlstm_fused_kernel"))
+    assert ran == [2 * 22, 2 * 66] and [w.launches for w in counted] == n
+
+
+@pytest.mark.cuda
+def test_cuda_options_replay_equals_the_eager_pass(monkeypatch):
+    """s2d and subpixel (the gate kernel at C' = 12) through the graph,
+    bit-equal to their eager passes; int8 captures with no kernel."""
+    _cuda_or_skip()
+    monkeypatch.delenv("EIGEN_PROGRAM_CACHE", raising=False)
+    for opt in (dict(s2d_l0=True), dict(subpixel_up=True), dict(prednet_int8=True)):
+        (graph, eager), items = _graph_evaluators(**opt)
+        for _ in range(2):
+            graph(list(items))
+            eager(list(items))
+        a = graph.last_results["outputs"].to_numpy()
+        for k, v in eager.last_results["outputs"].to_numpy().items():
+            assert np.array_equal(a[k], v), (opt, k)
+        assert len(graph._programs.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_debug_nans_names_the_fused_kernel():
+    """A NaN planted in layer 2's packed ``lstm_k_r``, which only the fused
+    kernel reads: no op the sanitizer mode sees holds it before the launch,
+    so the wrapper's own check of the kernel's outputs raises."""
+    _cuda_or_skip()
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import loader, model
+    from evolutionary_illusion_generator_tpu_torch.utils import debug_nans
+
+    params = loader.load_or_init(None, PROBE_CHANNELS, device="cuda")
+    img = torch.from_numpy(_probe_image())[None].cuda()
+    kw = dict(repeat=2, extension=2, compute_dtype=torch.bfloat16)
+    with torch.inference_mode(), debug_nans.sanitize():
+        model.rollout_flow_frames(params, img, **kw)  # clean: nothing raises
+    params[2] = dict(params[2], lstm_k_r=params[2]["lstm_k_r"].clone())
+    params[2]["lstm_k_r"].view(-1)[5] = float("nan")
+    with torch.inference_mode(), debug_nans.sanitize():
+        with pytest.raises(FloatingPointError) as err:
+            model.rollout_flow_frames(params, img, **kw)
+    assert str(err.value) == "debug_nans: NaN in the output of fused_convlstm_layer_multi"

@@ -107,7 +107,6 @@ def test_driver_runs_generations_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(n_devices=2), "Parallel"),
-    (dict(debug_nans=True), "debug_nans"),
 ])
 def test_driver_refuses_what_is_not_ported(kwargs, match, tmp_path):
     """The JAX driver's arguments the port does not implement yet raise,
@@ -119,11 +118,13 @@ def test_driver_refuses_what_is_not_ported(kwargs, match, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [dict(score_on_device=True),
-                                    dict(chainer_half_order="auto")])
+                                    dict(chainer_half_order="auto"),
+                                    dict(debug_nans=True)])
 def test_driver_runs_the_ported_options(kwargs, tmp_path):
-    """``score_on_device=True`` and a ``chainer_half_order`` other than
+    """``score_on_device=True``, a ``chainer_half_order`` other than
     ``"ahat-a"`` (no Chainer file given, so nothing is imported, as in the
-    JAX driver) run a generation."""
+    JAX driver) and ``debug_nans=True`` (the sanitizer, silent on a clean
+    generation: tests/test_torch_debug_nans.py) run a generation."""
     cfg = preset("circles_bw").replace(pop_size=4, num_hidden=4, min_species_size=4,
                                        elitism=2)
     pop = neat_illusion(str(tmp_path / "run"), None, cfg, StructureType.Circles, w=48, h=40,
