@@ -69,12 +69,24 @@ Phases, each printing its wall time and raising on failure:
    loss and params against the port's CPU run (the second step's, and TF32
    on, logged only), one ``data="v2"`` step; logs s/step, data ms per batch
    and the peak device memory; asserts that no kernel was launched;
-12. profile: device time by kernel and the number of kernel launches over
+12. parallel: ``parallel/`` on a mesh that repeats cuda:0 (one logical
+   shard per entry): the sharded evaluator at the main path's shape for
+   three generations (program cache on and off) against the unsharded
+   evaluator, with 22 gate and 66 fused launches per shard's eager pass
+   (on two real devices too where the machine has them, else one line
+   says it could not); one data-parallel step of the train phase's recipe
+   on two shards against one device (the train phase's rules); a spatial
+   rollout at 1280x960 (sp 2) and a four-stage pipelined rollout at
+   160x120 against the unsharded plain rollout (one step tightly, 22 in
+   the mean; no kernel launched), with seconds and peak memory; two
+   processes on cuda:0 over gloo, each evaluating half a population, whose
+   fitness must equal the single-process evaluator's on both ranks;
+13. profile: device time by kernel and the number of kernel launches over
    one warm main-path generation, replayed as a CUDA graph (the default)
    and run eagerly (``program_cache=False``); in both the trace must hold
    22 gate and 66 fused kernels, which in the replay no wrapper launched
    (the graph recorded them at its capture);
-13. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
+14. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
    its north-star layer-1 shape (``--big --rows 48``, all ten rungs);
    asserts each rung's launch count, then holds each of the seven rung
    kernels against its plain version on the card (A also at ragged counts
@@ -87,7 +99,8 @@ Phases, each printing its wall time and raising on failure:
    shapes; logs E's and J's times beside D's.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main path, cli, probe, options, scorers, train and bisect phases), and as the last line
+the main path, cli, probe, options, scorers, train, parallel and bisect
+phases), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a card or without the port beside it.
 """
@@ -279,7 +292,10 @@ def device_ms(fn, iters, warmup=3):
     shorter than its host work, the gaps between kernels are not in it.  A
     kernel's duration ends before the L2 has written its last dirty lines
     back, so for a kernel that writes more than the L2 holds it is short of
-    the work; time that one with :func:`cuda_ms`.
+    the work; time that one with :func:`cuda_ms`.  Once in a whole script
+    run (rung A's timing, after every earlier phase had profiled) the
+    profiler handed back no device event; such a window is logged and
+    profiled once more, and a second empty one raises.
     Returns (ms, kernels launched per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -287,13 +303,18 @@ def device_ms(fn, iters, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+        log("  device_ms: torch.profiler recorded no device kernel; profiling once more")
+    else:
         raise RuntimeError("torch.profiler recorded no device kernel")
     return (sum(e.self_device_time_total for e in kernels) / iters / 1e3,
             sum(e.count for e in kernels) / iters)
@@ -1394,6 +1415,334 @@ def train_phase(card):
     return counts
 
 
+# the parallel phase: parallel/ on one card, whose mesh repeats cuda:0 (one
+# logical shard per entry; the JAX tests' virtual devices): the sharded
+# evaluator at the main path's shape for PARALLEL_GENERATIONS generations
+# (a warm-up, a graph capture and replays per shard key), the
+# data-parallel train step, a spatial rollout at the pop256_v5e8 frame, a
+# pipelined rollout, and two processes sharing the card over gloo
+PARALLEL_SHARDS = 2
+PARALLEL_GENERATIONS = 3
+SPATIAL_SHAPE = (2, 960, 1280, 3)  # (B, H, W, C): the pop256_v5e8 frame
+PIPELINE_SHAPE = (8, 120, 160, 3)
+# Each shard runs the unsharded pass's ops on fewer rows, and cuDNN's
+# algorithms follow the batch, so a bfloat16 sum may round another way
+# (bit-equal at the main path's shape on the H100; at 64x48 a fifth of
+# the flow's corner slots changed, tests/test_torch_cuda.py).  The
+# rollouts are held as the reference phase
+# holds card against CPU (one step: STEP_ATOL on at most STEP_DIFF_SHARE
+# of the entries; 22 steps in the mean).  Corners are ranked by response,
+# so a flip may swap two near-equal corners' slots: the flow's vectors are
+# held slot by slot where both runs hold the same corner (on at least
+# SHARD_MATCHED_SHARE of the masked slots), by their displacement
+# (SHARD_SHIFT_ATOL px), and the fitness within SHARD_FITNESS_ATOL; whether
+# all is bit-equal is logged beside them.
+SHARD_MATCHED_SHARE = 0.5
+SHARD_SHIFT_ATOL = 0.05
+SHARD_FITNESS_ATOL = 0.05
+TWO_PROCESS_TIMEOUT_S = 150
+
+_TWO_PROCESS_CHILD = """
+import hashlib, json, sys
+sys.path.insert(0, {repo!r})
+import torch
+import torch.distributed as dist
+from evolutionary_illusion_generator_tpu_torch.evolution import EvalConfig
+from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import load_or_init
+from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
+from evolutionary_illusion_generator_tpu_torch.parallel import (
+    ShardedGenerationEvaluator, initialize_distributed, make_mesh)
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+assert initialize_distributed()  # JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID
+mesh = make_mesh(devices=["cuda:0"])
+cfg = preset("circles")
+items = list(Population(cfg, seed=0).population.items())
+ev = ShardedGenerationEvaluator(EvalConfig(program_cache=False), load_or_init(
+    None, (3, 48, 96, 192), device="cuda"), cfg, mesh)
+scores = ev(items)
+rows = {{i: hashlib.sha1(ev.last_results["outputs"].fetch("images_u8", i).tobytes()).hexdigest()
+        for i in range(len(items))}}
+print(json.dumps({{"rank": dist.get_rank(), "processes": mesh.processes.tolist(),
+                  "scores": scores.tolist(), "rows": rows}}))
+dist.destroy_process_group()
+"""
+
+
+def _held_like_a_step(label, got, want):
+    """``got`` against ``want`` by the reference phase's one-step rule;
+    returns (max abs, share of entries that differ)."""
+    d = (got.float() - want.float()).abs()
+    worst, share = d.max().item(), (d > 0).float().mean().item()
+    if not (got.shape == want.shape and bool(got.isfinite().all())):
+        raise AssertionError(f"parallel: {label} not finite or of the wrong shape")
+    if not (worst <= STEP_ATOL and share <= STEP_DIFF_SHARE):
+        raise AssertionError(f"parallel: {label} max {worst:.3e}, {share:.2%} differ")
+    return worst, share
+
+
+def _held_in_the_mean(label, got, want):
+    d = (got.float() - want.float()).abs()
+    if not (got.shape == want.shape and bool(got.isfinite().all())):
+        raise AssertionError(f"parallel: {label} not finite or of the wrong shape")
+    if not d.mean().item() <= ROLLOUT_MEAN_TOL:
+        raise AssertionError(f"parallel: {label} mean {d.mean().item():.3e}")
+    return d.max().item(), d.mean().item()
+
+
+def _sharded_generations(params, devices, label):
+    """The sharded evaluator (program cache on, and eager) against the
+    unsharded one, generation after generation of one population; returns
+    the sharded evaluators' launch counts."""
+    import numpy as np
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.evolution import (
+        EvalConfig,
+        GenerationEvaluator,
+    )
+    from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
+    from evolutionary_illusion_generator_tpu_torch.parallel import (
+        ShardedGenerationEvaluator,
+        make_mesh,
+    )
+
+    cfg = preset("circles")
+    mesh = make_mesh(devices=devices)
+    n = mesh.size
+    single = GenerationEvaluator(EvalConfig(), params, cfg, device="cuda")
+    graph = ShardedGenerationEvaluator(EvalConfig(), params, cfg, mesh)
+    eager = ShardedGenerationEvaluator(EvalConfig(program_cache=False), params, cfg, mesh)
+    pop = Population(cfg, seed=0)
+    report = []
+
+    def evaluate(items, _cfg):
+        row = {}
+        want = single(list(items))
+        ref = single.last_results
+        for name, ev in (("graph", graph), ("eager", eager)):
+            before = _counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got = ev(list(items))
+            torch.cuda.synchronize()
+            row[name + "_s"] = time.time() - t0
+            launched = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+            res = ev.last_results
+            either = res["mask"] | ref["mask"]
+            same = res["mask"] & ref["mask"] & (
+                res["vectors"][..., :2] == ref["vectors"][..., :2]).all(-1)
+            matched = float(same.sum() / max(either.sum(), 1))
+            dv = float(np.abs(res["vectors"][..., 2:] - ref["vectors"][..., 2:])[same]
+                       .max(initial=0.0))
+            df = float(np.abs(got - want).max())
+            if not (matched >= SHARD_MATCHED_SHARE and dv <= SHARD_SHIFT_ATOL
+                    and df <= SHARD_FITNESS_ATOL and np.isfinite(got).all()):
+                raise AssertionError(f"parallel ({label}, {name}): the same corner in "
+                                     f"{matched:.4f} of the slots, displacements {dv:.3e}, "
+                                     f"fitness {df:.3e} from the unsharded")
+            exact = all(np.array_equal(res[k], ref[k]) for k in ("vectors", "mask"))
+            row[name] = (matched, dv, df, exact and bool(np.array_equal(got, want)), launched)
+            if name == "eager":
+                chunks = len(res["outputs"]._chunks)
+                expect = {"fused_lstm_gates": chunks * n * STEPS,
+                          "fused_convlstm_layer_multi": chunks * n * 3 * STEPS}
+                if launched != expect:
+                    raise AssertionError(f"parallel ({label}): eager launches {launched}, "
+                                         f"expected {expect} ({chunks} chunks x {n} shards)")
+        for (gid, g), f in zip(items, graph.last_results["scores"]):
+            g.fitness = float(f)
+        row["pop"] = len(items)
+        report.append(row)
+
+    _reset_counts()
+    pop.run(evaluate, PARALLEL_GENERATIONS)
+    counts = _counts()
+    graphs = [k for k, g in graph._programs.graphs.items() if g is not None]
+    if not (graph._programs.replays >= n and graphs
+            and all(isinstance(k[0], torch.device) for k in graphs)):
+        raise AssertionError(f"parallel ({label}): {graph._programs.replays} replays, graph keys "
+                             f"{graphs}")
+    for gen, row in enumerate(report):
+        log(f"  sharded {label}, generation {gen} (pop {row['pop']}): s/generation graph "
+            f"{row['graph_s']:.4f}, eager {row['eager_s']:.4f}; against the unsharded "
+            f"(share of slots with the same corner, displacement max, fitness max, "
+            f"vectors, masks and fitness bit-equal, launches): "
+            f"graph {row['graph']}, eager {row['eager']}")
+    log(f"  sharded {label}: {graph._programs.replays} graph replays over "
+        f"{len(graphs)} captured keys")
+    return counts
+
+
+@phase("parallel")
+def parallel_phase(params, card):
+    """``parallel/`` on the card, on a mesh that repeats cuda:0: the sharded
+    evaluator (counted), the data-parallel train step, the spatial and
+    pipelined rollouts (the plain route: no kernel), and two processes over
+    gloo; on real devices too where the machine has two."""
+    import hashlib
+    import socket
+
+    import numpy as np
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.evolution import (
+        EvalConfig,
+        GenerationEvaluator,
+    )
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import pretrain as pre
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import (
+        bundled_weights_path,
+        params_to_numpy,
+    )
+    from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
+    from evolutionary_illusion_generator_tpu_torch.parallel import (
+        make_mesh,
+        make_mesh_2d,
+        make_spatial_rollout,
+    )
+    from evolutionary_illusion_generator_tpu_torch.parallel.pipeline import (
+        make_pp_mesh,
+        pipelined_rollout_flow_frames,
+    )
+
+    counts = _sharded_generations(params, ["cuda:0"] * PARALLEL_SHARDS,
+                                  f"cuda:0 x {PARALLEL_SHARDS}")
+    if torch.cuda.device_count() >= 2:
+        more = _sharded_generations(params, [f"cuda:{i}" for i in range(2)], "cuda:0, cuda:1")
+        counts = {k: v + more[k] for k, v in counts.items()}
+    else:
+        log(f"  a run on two real devices was not possible: this machine has "
+            f"{torch.cuda.device_count()} CUDA device")
+
+    _reset_counts()
+    # the data-parallel train step: the colour recipe, one step
+    warm = bundled_weights_path((3, 48, 96, 192))
+    kw = dict(pre.pretrain_kwargs(pre._parser().parse_args(
+        TRAIN_RECIPE + ["--init_weights", warm])), steps=1, verbose=False)
+    t0 = time.time()
+    p1, l1 = pre.pretrain(**dict(kw, device="cuda"))
+    t1 = time.time()
+    pd, ld = pre.pretrain(**dict(kw, mesh=make_mesh(devices=["cuda:0"] * PARALLEL_SHARDS)))
+    t2 = time.time()
+    gap = abs(ld - l1) / abs(l1)
+    excess, share = -math.inf, 0.0
+    for o, c in zip(params_to_numpy(pd), params_to_numpy(p1)):
+        for k in c:
+            g = np.abs(o[k] - c[k])
+            diff = int((g > 0).sum())
+            share = max(share, diff / g.size)
+            over = diff > max(1.0, TRAIN_FLIP_SHARE * g.size)
+            excess = max(excess, math.inf if over else
+                         float((g - 2.0**-7 * np.abs(c[k])).max()) - 2 * kw["lr"])
+    log(f"  data-parallel train step ({PARALLEL_SHARDS} shards of batch "
+        f"{kw['batch'] // PARALLEL_SHARDS}): loss {ld!r} vs one device {l1!r} (relative gap "
+        f"{gap:.3e}); params differ on at most {share:.3e} of a tensor's entries, excess "
+        f"over the flip rule {excess:.3e}; s/step (set-up included) one device "
+        f"{t1 - t0:.3f}, sharded {t2 - t1:.3f}")
+    if not (gap <= TRAIN_LOSS_RTOL and excess <= 0):
+        raise AssertionError("parallel: the data-parallel step disagrees with one device")
+
+    # the spatial rollout at the pop256_v5e8 frame: one step, then 22
+    gen = torch.Generator().manual_seed(7)
+    B, H, W, C = SPATIAL_SHAPE
+    imgs = (torch.rand(B, H, W, C, generator=gen) * 255).to(torch.uint8).float().div(255).cuda()
+    mesh2 = make_mesh_2d(1, PARALLEL_SHARDS, devices=["cuda:0"] * PARALLEL_SHARDS)
+    for repeat, extension, held in ((1, 1, _held_like_a_step), (20, 2, _held_in_the_mean)):
+        peaks, frames, secs = {}, {}, {}
+        for name, run in (
+                ("unsharded", lambda: model.rollout_flow_frames(
+                    params, imgs, repeat=repeat, extension=extension, use_pallas=False)),
+                ("spatial", lambda: make_spatial_rollout(
+                    mesh2, repeat=repeat, extension=extension)(params, imgs))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            with torch.inference_mode():
+                frames[name] = run()
+            torch.cuda.synchronize()
+            secs[name] = time.time() - t0
+            peaks[name] = torch.cuda.max_memory_allocated()
+        stats = [held(f"spatial {repeat + extension} steps, frame {i}", a, b)
+                 for i, (a, b) in enumerate(zip(frames["spatial"], frames["unsharded"]))]
+        log(f"  spatial (pop 1, sp {PARALLEL_SHARDS}) at {SPATIAL_SHAPE}, {repeat}+{extension} "
+            f"steps: frames against the unsharded {stats}; s {secs}; peak device memory GiB "
+            f"{ {k: round(v / 2**30, 3) for k, v in peaks.items()} }")
+        del frames
+    del imgs
+
+    # the pipelined rollout: four stages, four microbatches
+    B, H, W, C = PIPELINE_SHAPE
+    imgs = (torch.rand(B, H, W, C, generator=gen) * 255).to(torch.uint8).float().div(255).cuda()
+    pp = make_pp_mesh(4, devices=["cuda:0"] * 4)
+    for repeat, extension, held in ((1, 1, _held_like_a_step), (20, 2, _held_in_the_mean)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.inference_mode():
+            got = pipelined_rollout_flow_frames(params, imgs, pp, repeat=repeat,
+                                                extension=extension, n_micro=4)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            want = model.rollout_flow_frames(params, imgs, repeat=repeat, extension=extension,
+                                             use_pallas=False)
+            torch.cuda.synchronize()
+        stats = [held(f"pipeline {repeat + extension} steps, frame {i}", a, b)
+                 for i, (a, b) in enumerate(zip(got, want))]
+        log(f"  pipeline (4 stages, 4 microbatches) at {PIPELINE_SHAPE}, {repeat}+{extension} "
+            f"steps: frames against the unpipelined {stats}; s pipelined {t1 - t0:.3f}, "
+            f"unpipelined {time.time() - t1:.3f}")
+    rollout_counts = _counts()
+    if any(rollout_counts.values()):
+        raise AssertionError(f"parallel: the plain-route rollouts launched {rollout_counts}")
+
+    # two processes on cuda:0 over gloo, each evaluating its half
+    cfg = preset("circles")
+    items = list(Population(cfg, seed=0).population.items())
+    single = GenerationEvaluator(EvalConfig(program_cache=False), params, cfg, device="cuda")
+    want = single(list(items))
+    hashes = {str(i): hashlib.sha1(single.last_results["outputs"].fetch("images_u8", i)
+                                   .tobytes()).hexdigest() for i in range(len(items))}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    code = _TWO_PROCESS_CHILD.format(repo=os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+                 JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank),
+                 OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2))))
+        for rank in range(2)]
+    t0 = time.time()
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=TWO_PROCESS_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"parallel: a two-process rank failed: {err[-2000:]}")
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    fitness = {r["rank"]: r["scores"] for r in results}
+    log(f"  two processes on cuda:0 (gloo), {len(items)} genomes: fitness by rank {fitness}, "
+        f"single process {want.tolist()}; {time.time() - t0:.1f} s with start-up")
+    for r in results:
+        if r["processes"] != [0, 1] or r["rows"] != hashes:
+            raise AssertionError(f"parallel: rank {r['rank']} mesh {r['processes']}, fetched "
+                                 f"rows equal {r['rows'] == hashes}")
+        if not np.abs(np.array(r["scores"]) - want).max() <= SHARD_FITNESS_ATOL:
+            raise AssertionError(f"parallel: rank {r['rank']} fitness {r['scores']} vs {want}")
+    if fitness[0] != fitness[1]:
+        raise AssertionError("parallel: the two ranks assigned different fitness")
+    # the sharded runs' launches and the single-process reference's
+    counts = {k: counts[k] + v for k, v in _counts().items()}
+    log(f"  parallel kernel launches {counts} ({card})")
+    return counts
+
+
 @phase("profile")
 def profile_generation(params):
     """Device time by kernel over one warm main-path generation (the first
@@ -1683,14 +2032,16 @@ def main():
         options_counts = options_phase(params, best_png, card)
     scorer_counts = scorers(params, card)
     train_counts = train_phase(card)
+    parallel_counts = parallel_phase(params, card)
     profile_generation(params)
     bisect_kernels, bisect_counts = bisect()
     kernels.update(bisect_kernels)
     log(f"[total] {time.time() - t0:.1f} s")
     # launches over the driven paths: main_path, cli, probe, options, scorers,
-    # train (none: the trainer runs the plain route), then the bisection ladder
+    # train (none: the trainer runs the plain route), parallel, then the
+    # bisection ladder
     paths = (counts, cli_counts, probe_counts, options_counts, scorer_counts, train_counts,
-             bisect_counts)
+             parallel_counts, bisect_counts)
     rows = [dict(name=name, launches=sum(c[name] for c in paths), **r)
             for name, r in kernels.items()]
     print(json.dumps({"kernels": rows}))

@@ -5,9 +5,10 @@ The JAX package's ``cli.py`` flag for flag: the reference's 9 flags
 --color_space --channels --gradient``) with the same defaults and the same
 small=160x120 / big=640x480 size presets, the extra knobs and the run
 presets, with the same names, short forms and defaults; plus ``--device``
-(empty = the card; ``cpu`` must be asked for).  A run preset for more than
-one device is refused by ``neat_illusion``: the parallel evaluator is not
-ported yet.
+(empty = the card; ``cpu`` must be asked for).  ``--use_pallas`` selects
+the predictor route ``True`` (the gate kernel on every layer); without it
+the route is ``"fused"``, the port's kernels.  A run preset for more
+devices than the machine has raises ``make_mesh``'s ``ValueError``.
 
 Run as ``python -m evolutionary_illusion_generator_tpu_torch.cli [...]``.
 """
@@ -48,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", default=0, type=int, help="run RNG seed")
     parser.add_argument("--checkpoint_every", default=1, type=int, help="checkpoint cadence (reference: 100)")
     parser.add_argument("--score_on_device", action="store_true", help="score fitness on device (f32) instead of host f64")
-    parser.add_argument("--use_pallas", action="store_true", help="accepted, no effect: the port always runs its CUDA kernels")
+    parser.add_argument("--use_pallas", action="store_true", help="the gate kernel on every predictor layer (default: the fused kernel where a layer is wide enough)")
     parser.add_argument("--microbatch", default=0, type=int, help="population microbatch size (memory bound)")
     parser.add_argument("--preset", default="", help="named run preset; overrides size/structure flags")
     parser.add_argument("--profile_dir", default="", help="write a torch.profiler trace of generation 1 here")
@@ -69,7 +70,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         generations=args.generations,
         seed=args.seed,
         score_on_device=args.score_on_device,
-        use_pallas=args.use_pallas,
+        use_pallas=True if args.use_pallas else "fused",
         profile_dir=args.profile_dir or None,
         equilum=args.equilum,
         pertype_count=args.pertype_count,

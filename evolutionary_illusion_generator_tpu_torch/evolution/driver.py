@@ -6,9 +6,9 @@ channels, c_dim, checkpoint, gradient)`` plus the run knobs), with
 ``device``.  Each generation writes the winner's artifacts
 (``evolution/artifacts.py``); ``profile_dir`` takes a ``torch.profiler``
 trace of generation 1; ``debug_nans=True`` runs the device pass under the
-NaN sanitizer (:mod:`..utils.debug_nans`).  ``n_devices`` keeps its name
-and default and raises on more than one device: the parallel evaluator is
-not ported yet.
+NaN sanitizer (:mod:`..utils.debug_nans`).  ``n_devices > 1`` shards the
+population over a mesh of that many devices
+(:class:`..parallel.ShardedGenerationEvaluator`).
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def neat_illusion(
     seed: int = 0,
     checkpoint_every: int = 1,
     score_on_device: bool = False,
-    use_pallas: Union[bool, str] = False,
+    use_pallas: Union[bool, str] = "fused",
     microbatch: int = 0,
     repeat: int = 20,
     extension: int = 2,
@@ -93,7 +93,7 @@ def neat_illusion(
     profile_dir: Optional[str] = None,
     chainer_half_order: str = "ahat-a",
     debug_nans: bool = False,
-    device=None,
+    device: Union[None, str, torch.device, Sequence] = None,
 ) -> Population:
     """Evolve illusions for up to ``generations`` generations on ``device``
     (``None`` = the card; ``"cpu"`` must be asked for).
@@ -105,15 +105,26 @@ def neat_illusion(
     seeded random weights.  ``score_on_device=True`` scores on the device
     in float32 instead of on the host in float64.
 
-    ``use_pallas`` is accepted and has no effect: the port's route is fixed,
-    its CUDA kernels, which compute the JAX ``use_pallas="fused"`` math.
+    ``use_pallas`` is the predictor's route (``EvalConfig.use_pallas``):
+    ``"fused"`` (the default, the port's kernels; the JAX driver's default
+    is ``False``, its TPU XLA path), ``True`` or ``False`` (no kernel).
     ``debug_nans=True`` raises ``FloatingPointError`` at the first op of
-    the device pass that makes a NaN.  ``n_devices > 1`` is not ported yet
-    and raises ``NotImplementedError`` naming its ROADMAP.md item.
+    the device pass that makes a NaN.  ``n_devices > 1`` splits each
+    population chunk over a mesh of ``n_devices`` devices
+    (:func:`..parallel.make_mesh`): every CUDA device, or ``device`` when it
+    is a list of devices (which may repeat one, one shard per entry);
+    ``make_mesh`` raises ``ValueError`` where there are fewer.
     """
+    mesh = None
     if n_devices is not None and n_devices > 1:
-        raise NotImplementedError(
-            f"n_devices={n_devices} is not ported yet (ROADMAP.md Queue 1, 'Parallel')")
+        from ..parallel import make_mesh
+
+        devices = device if isinstance(device, (list, tuple)) else (
+            None if device is None else [device])
+        mesh = make_mesh(n_devices, devices=devices)
+        device = mesh.local_devices()[0] if mesh.local_devices() else None
+    elif isinstance(device, (list, tuple)):
+        raise ValueError("a list of devices needs n_devices > 1")
     device = resolve_device(device)
     if device.type == "cuda":
         # float32 convolutions and matmuls in full float32 (cuDNN would
@@ -138,10 +149,16 @@ def neat_illusion(
         equilum=equilum,
         pertype_count=pertype_count,
         score_on_device=score_on_device,
+        use_pallas=use_pallas,
         microbatch=microbatch,
         debug_nans=debug_nans,
     )
-    evaluator = GenerationEvaluator(eval_cfg, params, neat_cfg, device=device)
+    if mesh is not None:
+        from ..parallel import ShardedGenerationEvaluator
+
+        evaluator = ShardedGenerationEvaluator(eval_cfg, params, neat_cfg, mesh)
+    else:
+        evaluator = GenerationEvaluator(eval_cfg, params, neat_cfg, device=device)
 
     pop = restore_checkpoint(checkpoint) if checkpoint else Population(neat_cfg, seed=seed)
     if not quiet:

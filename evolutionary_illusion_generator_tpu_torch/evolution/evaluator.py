@@ -23,12 +23,12 @@ import contextlib
 import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import indexed_device, resolve_device
 from ..models.cppn import (
     ACTIVATIONS,
     genome_depth,
@@ -66,9 +66,9 @@ def _bucket(n: int, minimum: int = 8) -> int:
 
 @dataclass(frozen=True)
 class EvalConfig:
-    """Configuration of the generation's device pass: the fields of the
-    JAX package's ``EvalConfig`` that the port implements, with the same
-    names and defaults."""
+    """Configuration of the generation's device pass: every field of the
+    JAX package's ``EvalConfig``, with the same names, and the same
+    defaults but for ``use_pallas``."""
 
     structure: StructureType = StructureType.Circles
     w: int = 160
@@ -95,6 +95,15 @@ class EvalConfig:
     # device pass that makes a NaN, naming it (utils/debug_nans.py, the
     # counterpart of jax_debug_nans).  A device sync per op: debugging only.
     debug_nans: bool = False
+    # The predictor's route (models/prednet/model.py::prednet_step), with
+    # the JAX values: "fused" (the fused ConvLSTM kernel on layers of 32
+    # channels or more, the gate kernel on the narrow ones), True (the
+    # gate kernel after split gate convs on every layer) or False (split
+    # convs and the plain gate math, no kernel).  The one default that
+    # differs from the JAX field's (False): the JAX default is the TPU's
+    # XLA path, while the port's main path is its kernels, so following it
+    # would leave every entry point running no kernel.
+    use_pallas: Union[bool, str] = "fused"
     # Top-down conv(upsample2(R_above)) of the split-conv layers as four
     # parity 2x2 convs at the coarse resolution
     # (models/prednet/model.py::_upconv_subpixel): 4/9 the FLOPs of that
@@ -137,6 +146,10 @@ def wants_program_cache(cfg: EvalConfig) -> bool:
 class GenerationOutputs:
     """Results of one generation's device pass.
 
+    ``chunks`` holds, per population chunk, one dict of device tensors per
+    shard of ``shard_rows`` rows (one shard of the whole chunk on a single
+    device; one per mesh entry, on its device, under
+    :class:`..parallel.sharded_evaluator.ShardedGenerationEvaluator`).
     The small per-candidate data (flow vectors, masks, device scores) is
     copied to the host on demand in one go; bulky tensors (rendered images,
     the first flow frame) stay on the device and are fetched row by row.
@@ -144,34 +157,48 @@ class GenerationOutputs:
 
     SMALL = ("vectors", "mask", "scores")
 
-    def __init__(self, chunks, chunk_size: int, n: int) -> None:
-        self._chunks = chunks  # list of dicts of device tensors
+    def __init__(self, chunks, chunk_size: int, n: int,
+                 shard_rows: Optional[int] = None) -> None:
+        self._chunks = chunks  # [chunk][shard] -> dict of device tensors
         self._chunk_size = chunk_size
+        self._shard_rows = shard_rows or chunk_size
         self._n = n
 
     def __len__(self) -> int:
         return self._n
 
+    def _pieces(self, keys):
+        """Host copies of ``keys`` of every shard, in population order."""
+        return [{k: shard[k].cpu().numpy() for k in keys}
+                for chunk in self._chunks for shard in chunk]
+
     def _host(self, keys) -> Dict[str, np.ndarray]:
-        return {
-            k: torch.cat([c[k] for c in self._chunks])[: self._n].cpu().numpy()
-            for k in keys
-        }
+        # each piece to the host first: the shards may live on several devices
+        pieces = self._pieces(list(keys))
+        return {k: np.concatenate([p[k] for p in pieces])[: self._n] for k in keys}
+
+    def _keys(self):
+        return list(self._chunks[0][0].keys())
 
     def small(self) -> Dict[str, np.ndarray]:
         """Host copies of the small outputs, truncated to the population."""
-        return self._host([k for k in self.SMALL if k in self._chunks[0]])
+        return self._host([k for k in self.SMALL if k in self._keys()])
 
-    def fetch(self, key: str, i: int) -> np.ndarray:
-        """Host copy of one candidate's row of a bulky output."""
+    def _locate(self, i: int):
         if not 0 <= i < self._n:
             raise IndexError(i)
         c, r = divmod(i, self._chunk_size)
-        return self._chunks[c][key][r].cpu().numpy()
+        s, r = divmod(r, self._shard_rows)
+        return c, s, r
+
+    def fetch(self, key: str, i: int) -> np.ndarray:
+        """Host copy of one candidate's row of a bulky output."""
+        c, s, r = self._locate(i)
+        return self._chunks[c][s][key][r].cpu().numpy()
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """Full host copy of everything (tests / debugging)."""
-        return self._host(self._chunks[0].keys())
+        return self._host(self._keys())
 
 
 class GenerationEvaluator:
@@ -204,6 +231,9 @@ class GenerationEvaluator:
         self._grid_flat = torch.stack([x_mat.reshape(-1), y_mat.reshape(-1)]).to(
             self.device
         )
+        # what the chunk pass reads, by the device its input is on (the
+        # sharded evaluator adds a copy per device of its mesh)
+        self._replicas = {indexed_device(self.device): self._frozen()}
         self._levels = cfg.cppn_levels
         self._width = cfg.cppn_width
         while self._levels * self._width < (
@@ -222,22 +252,29 @@ class GenerationEvaluator:
 
     # ------------------------------------------------------------------
 
+    def _frozen(self) -> Dict[str, object]:
+        """The tensors every chunk pass reads: the lifted params and the
+        coordinate grid."""
+        return {"params": self.params, "x_mat": self._x_mat, "grid_flat": self._grid_flat}
+
     @torch.inference_mode()
     def _eval_chunk(self, chunk: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The per-candidate pipeline for one population chunk."""
+        """The per-candidate pipeline for one population chunk (or shard),
+        on the params and grid of the device its input is on."""
         cfg = self.cfg
+        frozen = self._replicas[chunk["weights"].device]
         outs = make_population_eval(self._act_set or None)(
             chunk["weights"], chunk["bias"], chunk["response"],
-            chunk["act_id"], chunk["out_slot"], self._grid_flat,
+            chunk["act_id"], chunk["out_slot"], frozen["grid_flat"],
         )  # (chunk, O, P)
         if cfg.equilum:
-            imgs_u8 = render_equilum_images(outs, self._x_mat, bg=cfg.bg)
+            imgs_u8 = render_equilum_images(outs, frozen["x_mat"], bg=cfg.bg)
         else:
-            imgs_u8 = render_images(outs, self._x_mat, cfg.c_dim, bg=cfg.bg,
+            imgs_u8 = render_images(outs, frozen["x_mat"], cfg.c_dim, bg=cfg.bg,
                                     gradient=cfg.gradient)
         f0, f1 = rollout_flow_frames(
-            self.params, to_unit_float(imgs_u8), repeat=cfg.repeat,
-            extension=cfg.extension, pair="population",
+            frozen["params"], to_unit_float(imgs_u8), repeat=cfg.repeat,
+            extension=cfg.extension, pair="population", use_pallas=cfg.use_pallas,
             compute_dtype=getattr(torch, cfg.prednet_dtype),
             subpixel_up=cfg.subpixel_up, s2d_l0=self._s2d_l0,
         )
@@ -295,18 +332,26 @@ class GenerationEvaluator:
                 for k, v in packed.items()
             }
         key = self.program_key(chunk)
-
-        def live(k):  # buckets only grow: another level/width or act set is gone
-            return k[1:] == key[1:]
-
         pieces = []
         with sanitizer.sanitize() if self.cfg.debug_nans else contextlib.nullcontext():
             for start in range(0, padded, chunk):
-                part = {
-                    k: torch.as_tensor(v[start : start + chunk]).to(self.device)
-                    for k, v in packed.items()
-                }
-                pieces.append(self._programs.run(key, live, part))
+                part = {k: v[start : start + chunk] for k, v in packed.items()}
+                pieces.append(self._run_chunk(key, part))
+        return self._outputs(pieces, chunk, n)
+
+    @staticmethod
+    def _live(key: tuple):
+        """Whether a program key can still occur beside ``key``: the
+        buckets only grow, so one of another level/width bucket or
+        activation set (its last three parts) is gone."""
+        return lambda k: k[-3:] == key[-3:]
+
+    def _run_chunk(self, key: tuple, part: Dict[str, np.ndarray]) -> List[Dict[str, torch.Tensor]]:
+        """One chunk's pass on this evaluator's device: a list of one shard."""
+        inputs = {k: torch.as_tensor(v).to(self.device) for k, v in part.items()}
+        return [self._programs.run(key, self._live(key), inputs)]
+
+    def _outputs(self, pieces, chunk: int, n: int) -> GenerationOutputs:
         return GenerationOutputs(pieces, chunk, n)
 
     def _score_host(self, vectors: np.ndarray, mask: np.ndarray) -> np.ndarray:

@@ -161,11 +161,16 @@ def pretrain(
     function).  ``init_weights`` warm-starts from a ``save_params`` NPZ
     (the optimizer starts fresh; the data still follow ``seed``).
     ``checkpoint`` / ``save_every`` write a resumable checkpoint every
-    ``save_every`` steps and resume from it.  ``mesh`` is not ported
-    (``NotImplementedError``).  On the card it turns TF32 off for float32
+    ``save_every`` steps and resume from it.  ``mesh`` (a mesh of this
+    process, :func:`..parallel.mesh.make_mesh`) trains data-parallel, the
+    batch split over its entries (:func:`.train.make_train_step`); the params
+    live on ``device``, by default the mesh's first device.  On the card it
+    turns TF32 off for float32
     convolutions and matmuls, as the evolution driver does, and leaves it
     off.
     """
+    if device is None and mesh is not None:
+        device = mesh.devices.flat[0]
     device = resolve_device(device)
     if device.type == "cuda":
         # float32 convolutions and matmuls in full float32 (cuDNN would

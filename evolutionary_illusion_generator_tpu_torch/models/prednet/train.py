@@ -31,7 +31,9 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from ..._device import device_context
 from ...ops.convlstm_fused import pack_gate_weight
+from ...parallel.mesh import replicate, shard_leading
 from .model import init_state, prednet_step
 
 __all__ = [
@@ -42,6 +44,7 @@ __all__ = [
     "make_train_step",
     "init_opt_state",
     "trainable",
+    "whole_batch",
 ]
 
 _PACKED = "lstm_k_"
@@ -64,12 +67,15 @@ def _channels(params):
 
 
 def prednet_loss(params, frames, *, layer_weights: Optional[Sequence[float]] = None,
-                 skip_first: bool = True):
+                 skip_first: bool = True, whole: Optional[dict] = None):
     """Mean weighted E-unit activity over a (B, T, H, W, C0) frame sequence
     in [0, 1].
 
     ``layer_weights`` defaults to Lotter's [1, 0.1, 0.1, ...]; the first
-    timestep is excluded (zero-state prediction is uninformative)."""
+    timestep is excluded (zero-state prediction is uninformative).
+    ``whole`` (:func:`whole_batch`) makes ``frames`` one shard of a larger
+    batch: the result is then this shard's part of the whole batch's loss,
+    and the shards' parts add up to it."""
     B, T, H, W, C0 = frames.shape
     L = len(params)
     lw = _layer_weights(L, layer_weights, frames.device)
@@ -81,7 +87,10 @@ def prednet_loss(params, frames, *, layer_weights: Optional[Sequence[float]] = N
         errs = torch.stack([state[l]["e"].float().mean() for l in range(L)])
         losses.append((errs * lw).sum())
     start = 1 if skip_first else 0
-    return torch.stack(losses[start:]).mean()
+    loss = torch.stack(losses[start:]).mean()
+    if whole is not None:  # the per-step means are over this shard's B
+        loss = loss * (B / whole["batch"])
+    return loss
 
 
 def _spatial_grads(x):
@@ -93,10 +102,30 @@ def _seq_mean(x):  # (B, ...) -> (B,)
     return x.flatten(1).mean(dim=1)
 
 
-def _norm_weights(mask, B, device):
+def _norm_weights(mask, B, device, total=None):
+    """Per-sequence weights: ``mask`` (``None``: all 1) over its sum, or
+    over ``total``, the sum over the whole batch of which this is a shard."""
     m = (torch.ones(B, dtype=torch.float32, device=device) if mask is None
          else mask.to(torch.float32))
-    return m / torch.clamp(m.sum(), min=1e-6)
+    return m / torch.clamp(m.sum() if total is None else total, min=1e-6)
+
+
+def whole_batch(B: int, closed_mask=None, open_mask=None, cue_motion_mask=None,
+                device=None) -> dict:
+    """The sums over a whole batch that normalise the losses, for computing
+    them shard by shard (the ``whole`` argument of :func:`prednet_loss`
+    and :func:`prednet_seq_loss`): the batch size, and the sums of the
+    closed mask (all 1 without one), of its complement (the motion hinge's
+    mask), of the open mask past the zero-state step, and of the cue mask.
+    float32 0-dim tensors on ``device``."""
+    f32 = dict(dtype=torch.float32, device=device)
+    m = torch.ones(B, **f32) if closed_mask is None else closed_mask.to(**f32)
+    out = {"batch": torch.tensor(float(B), **f32), "closed": m.sum(), "motion": (1.0 - m).sum()}
+    if open_mask is not None:
+        out["open"] = open_mask.to(**f32)[:, 1:].sum()
+    if cue_motion_mask is not None:
+        out["cue"] = cue_motion_mask.to(**f32).sum()
+    return out
 
 
 def prednet_seq_loss(params, frames, *, t_open: int, closed_weight: float = 5.0,
@@ -104,7 +133,7 @@ def prednet_seq_loss(params, frames, *, t_open: int, closed_weight: float = 5.0,
                      layer_weights: Optional[Sequence[float]] = None,
                      closed_mask=None, motion_weight: float = 0.0, motion_mask=None,
                      open_mask=None, cue_motion_weight: float = 0.0,
-                     cue_motion_mask=None):
+                     cue_motion_mask=None, whole: Optional[dict] = None):
     """Open-loop E-loss on ``frames[:, :t_open]``, then the model's own
     prediction fed back for the remaining ``T - t_open`` frames, each
     closed-loop prediction paying ``closed_weight`` times an L1 pixel loss
@@ -123,6 +152,10 @@ def prednet_seq_loss(params, frames, *, t_open: int, closed_weight: float = 5.0,
       cue_motion_weight / cue_motion_mask: the PIXELWISE closed-loop
         amplitude hinge ``relu(|d target| - |d pred|)``, averaged per
         sequence after the relu.
+      whole: :func:`whole_batch` of the batch of which ``frames`` (and the
+        masks) are a shard: every term is then normalised by the whole
+        batch's sums, so the result is this shard's part of the whole
+        batch's loss, and the shards' parts add up to it.
     """
     B, T, H, W, C0 = frames.shape
     L = len(params)
@@ -138,18 +171,24 @@ def prednet_seq_loss(params, frames, *, t_open: int, closed_weight: float = 5.0,
         errs = torch.stack([state[l]["e"].float().mean(dim=(1, 2, 3)) for l in range(L)])
         open_losses.append((errs * lw[:, None]).sum(dim=0))  # (B,)
     open_losses = torch.stack(open_losses)  # (t_open, B)
+    whole = whole or {}
     if open_mask is None:
         open_loss = open_losses[1:].mean()  # skip the zero-state step
+        if whole:
+            open_loss = open_loss * (B / whole["batch"])
     else:
         om = open_mask.to(torch.float32).t().clone()  # (t_open, B)
         om[0] = 0.0  # zero-state step never graded
-        open_loss = (open_losses * om).sum() / torch.clamp(om.sum(), min=1e-6)
+        open_loss = (open_losses * om).sum() / torch.clamp(whole.get("open", om.sum()), min=1e-6)
 
-    wseq = _norm_weights(closed_mask, B, device)
+    wseq = _norm_weights(closed_mask, B, device,
+                         whole.get("batch" if closed_mask is None else "closed"))
     if motion_weight > 0.0:
-        wmot = _norm_weights(motion_mask, B, device)
+        wmot = _norm_weights(motion_mask, B, device,
+                             whole.get("batch" if motion_mask is None else "motion"))
     if cue_motion_weight > 0.0:
-        wcue = _norm_weights(cue_motion_mask, B, device)
+        wcue = _norm_weights(cue_motion_mask, B, device,
+                             whole.get("batch" if cue_motion_mask is None else "cue"))
 
     def _wmean(x):  # (B, ...) -> masked scalar mean over sequences
         return (_seq_mean(x) * wseq).sum()
@@ -275,15 +314,22 @@ def make_train_step(tx: Adam, *, mesh=None, t_open: Optional[int] = None,
     * ``cue_motion_weight > 0`` adds a final (B,) cue-regime indicator for
       the pixelwise hinge.
 
-    ``mesh`` (the JAX data-parallel step) is not ported: anything but
-    ``None`` raises ``NotImplementedError``.  The step runs in
-    deterministic cuDNN mode, so a resumed run repeats an uninterrupted
-    one bit for bit on the card as well.
+    ``mesh`` (a :class:`..parallel.mesh.Mesh` of this process; the JAX
+    data-parallel step) splits the batch axis of ``frames`` and the masks
+    over its entries and runs each shard's loss and gradients on its
+    entry's device, from float32 params placed on each device: each
+    shard's loss is its part of the whole batch's (:func:`whole_batch`
+    normalises it), so the shards' float32 gradients add up, on the
+    params' device, to the whole batch's, and one Adam step on the float32
+    master gives the update of the whole batch.  A mesh that spans
+    processes raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 13).
+    The step runs in deterministic cuDNN mode, so a resumed run repeats an
+    uninterrupted one bit for bit on the card as well.
     """
-    if mesh is not None:
+    if mesh is not None and mesh.spans_processes:
         raise NotImplementedError(
-            "make_train_step(mesh=...): the data-parallel train step is not ported "
-            "(ROADMAP.md Queue 1 item 9, parallel/*)")
+            "make_train_step(mesh=...) over several processes: the data-parallel step runs "
+            "within one process (ROADMAP.md Queue 1 item 13)")
     if closed_weight > 0.0:
         if t_open is None:
             raise ValueError("closed_weight > 0 requires t_open")
@@ -292,12 +338,13 @@ def make_train_step(tx: Adam, *, mesh=None, t_open: Optional[int] = None,
         if cue_motion_weight > 0.0 and not masked_closed:
             raise ValueError("cue_motion_weight requires masked_closed")
 
-        def loss_fn(p, f, m=None, om=None, cm=None):
+        def loss_fn(p, f, m=None, om=None, cm=None, whole=None):
             return prednet_seq_loss(
                 p, f, t_open=t_open, closed_weight=closed_weight,
                 edge_weight=edge_weight, closed_mask=m, motion_weight=motion_weight,
                 motion_mask=(None if m is None or motion_weight <= 0.0 else 1.0 - m),
-                open_mask=om, cue_motion_weight=cue_motion_weight, cue_motion_mask=cm)
+                open_mask=om, cue_motion_weight=cue_motion_weight, cue_motion_mask=cm,
+                whole=whole)
     else:
         if masked_closed:
             raise ValueError("masked_closed requires closed_weight > 0")
@@ -307,6 +354,35 @@ def make_train_step(tx: Adam, *, mesh=None, t_open: Optional[int] = None,
             raise ValueError("cue_motion_weight requires closed_weight > 0")
         loss_fn = prednet_loss
 
+    def _loss(p, frames, mask, open_mask, cue_mask, whole=None):
+        kw = {} if whole is None else {"whole": whole}
+        if mask is None and open_mask is None and cue_mask is None:
+            return loss_fn(p, frames, **kw)
+        return loss_fn(p, frames, mask, open_mask, cue_mask, **kw)
+
+    def _grads(params32, leaves, frames, mask, open_mask, cue_mask):
+        """(loss, flat float32 gradients) of the whole batch."""
+        with torch.enable_grad():
+            if mesh is None:
+                loss = _loss(params32, frames, mask, open_mask, cue_mask)
+                # a leaf the loss does not reach raises here
+                return loss, torch.autograd.grad(loss, leaves)
+            home = frames.device
+            whole = whole_batch(frames.shape[0], mask, open_mask, cue_mask, device=home)
+            shards = [shard_leading(x, mesh) if x is not None else [None] * mesh.size
+                      for x in (frames, mask, open_mask, cue_mask)]
+            placed = replicate(params32, mesh)  # differentiable copies
+            loss, grads = None, None
+            for i, dev in enumerate(mesh.devices.flat):
+                with device_context(dev):
+                    part = _loss(placed[dev], *(x[i] for x in shards),
+                                 whole={k: v.to(dev) for k, v in whole.items()})
+                    g = torch.autograd.grad(part, leaves)
+                part = part.to(home)
+                loss = part if loss is None else loss + part
+                grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            return loss, grads
+
     def _update(params, opt_state, frames, mask, open_mask, cue_mask):
         cudnn = torch.backends.cudnn
         saved = cudnn.deterministic, cudnn.benchmark
@@ -314,15 +390,10 @@ def make_train_step(tx: Adam, *, mesh=None, t_open: Optional[int] = None,
         try:
             params32 = _master(params)
             leaves = [v for layer in params32 for v in layer.values()]
-            with torch.enable_grad():
-                if mask is None and open_mask is None and cue_mask is None:
-                    loss = loss_fn(params32, frames)
-                else:
-                    loss = loss_fn(params32, frames, mask, open_mask, cue_mask)
-                # a leaf the loss does not reach raises here
-                flat = iter(torch.autograd.grad(loss, leaves))
+            loss, flat = _grads(params32, leaves, frames, mask, open_mask, cue_mask)
         finally:
             cudnn.deterministic, cudnn.benchmark = saved
+        flat = iter(flat)
         grads = [{k: next(flat) for k in layer} for layer in params32]
         with torch.no_grad():
             updates, opt_state = tx.update(grads, opt_state)

@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .convlstm_fused import convlstm_layer_plain, gate_conv_plain, pack_gate_weight
-from .convlstm_gates import count_launch, lstm_gates_plain
+from .convlstm_gates import count_launch, kernel_stream, lstm_gates_plain
 
 __all__ = [
     "aligned_width",
@@ -210,8 +210,8 @@ def launch(key: str, xin: torch.Tensor, wt: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _stream(key: str, t: torch.Tensor):
+    return kernel_stream(f"variant_{key}", t.device)
 
 
 def _conv_rung(key, wrapper, x, w, b, c_prev, rows=None):
@@ -219,7 +219,7 @@ def _conv_rung(key, wrapper, x, w, b, c_prev, rows=None):
     if c_prev.device.type == "cpu":
         return plain(key, x, w, b, c_prev)
     out = launch(key, prepare(key, x, rows), pack_gate_weight(w), b, c_prev, rows,
-                 _stream(c_prev))
+                 _stream(key, c_prev))
     count_launch(wrapper)
     if key == "C":  # the gate math after the kernel, plain as in the reference
         return lstm_gates_plain(out, c_prev)
@@ -232,7 +232,7 @@ def variant_A(x, w, b, c_prev):
     _check(x, w, b, c_prev, None)
     if c_prev.device.type == "cpu":
         return plain("A", x, w, b, c_prev)
-    out = launch_a(c_prev, _stream(c_prev))
+    out = launch_a(c_prev, _stream("A", c_prev))
     count_launch(variant_A)
     return out, out
 

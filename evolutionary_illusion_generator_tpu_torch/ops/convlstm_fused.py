@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..utils import debug_nans
-from .convlstm_gates import count_launch, lstm_gates_plain, refuse_grad
+from .convlstm_gates import count_launch, kernel_stream, lstm_gates_plain, refuse_grad
 
 __all__ = [
     "pack_gate_weight",
@@ -171,7 +171,8 @@ def _run(srcs, wks, b, c_prev, wrapper):
     """The kernel on CUDA tensors (counted on ``wrapper``,
     :func:`.convlstm_gates.count_launch`), the plain
     version on CPU tensors; either refuses inputs that require a gradient
-    in grad mode (:func:`.convlstm_gates.refuse_grad`), and names
+    in grad mode (:func:`.convlstm_gates.refuse_grad`) and tensors off the
+    current CUDA device (:func:`.convlstm_gates.kernel_stream`), and names
     ``wrapper`` in a ``debug_nans`` error (:mod:`..utils.debug_nans`)."""
     _check(srcs, wks, b, c_prev)
     refuse_grad(wrapper.__name__, *srcs, *wks, b, c_prev)
@@ -180,7 +181,7 @@ def _run(srcs, wks, b, c_prev, wrapper):
             return convlstm_layer_plain(srcs, wks, b, c_prev)
         if c_prev.device.type != "cuda":
             raise ValueError(f"unsupported device {c_prev.device}")
-        out = launch(srcs, wks, b, c_prev, torch.cuda.current_stream(c_prev.device).cuda_stream)
+        out = launch(srcs, wks, b, c_prev, kernel_stream(wrapper.__name__, c_prev.device))
         count_launch(wrapper)
         debug_nans.check(wrapper.__name__, *out)
         return out

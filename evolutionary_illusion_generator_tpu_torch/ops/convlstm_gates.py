@@ -24,7 +24,7 @@ import torch
 from .. import _build
 from ..utils import debug_nans
 
-__all__ = ["count_launch", "fused_lstm_gates", "lstm_gates_plain", "refuse_grad"]
+__all__ = ["count_launch", "fused_lstm_gates", "kernel_stream", "lstm_gates_plain", "refuse_grad"]
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -95,6 +95,21 @@ def _launch(gates: torch.Tensor, c_prev: torch.Tensor, stream: int,
     return h, c
 
 
+def kernel_stream(name: str, device: torch.device) -> int:
+    """The current stream of ``device``, for a launch of ``name``'s kernel
+    on tensors there.  ``cudaLaunchKernel`` and a CUDA-graph capture go to
+    the *current* CUDA device, not to the one the tensors are on, so a
+    kernel on tensors of another device would read and write them through
+    the wrong device's context: raise instead.  Run a shard's pass under
+    ``torch.cuda.device(shard_device)``, as the sharded evaluator does."""
+    current = torch.cuda.current_device()
+    if device.index != current:
+        raise RuntimeError(
+            f"{name}: tensors on {device}, but the current CUDA device is cuda:{current}; "
+            f"call it under torch.cuda.device({device})")
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def count_launch(wrapper) -> None:
     """One launch of ``wrapper``'s kernel, on its ``launches``.  While the
     stream is being captured into a CUDA graph the kernel is only recorded
@@ -120,7 +135,8 @@ def fused_lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor, *,
       (h, c), both (B, H, W, C) in ``out_dtype``.
     Raises:
       RuntimeError: an input requires a gradient in grad mode
-        (:func:`refuse_grad`).
+        (:func:`refuse_grad`), or the tensors are on a CUDA device that is
+        not the current one (:func:`kernel_stream`).
     """
     _check(gates, c_prev, out_dtype)
     refuse_grad("fused_lstm_gates", gates, c_prev)
@@ -129,7 +145,7 @@ def fused_lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor, *,
             return lstm_gates_plain(gates, c_prev, out_dtype=out_dtype)
         if gates.device.type != "cuda":
             raise ValueError(f"unsupported device {gates.device}")
-        out = _launch(gates, c_prev, torch.cuda.current_stream(gates.device).cuda_stream,
+        out = _launch(gates, c_prev, kernel_stream("fused_lstm_gates", gates.device),
                       out_dtype)
         count_launch(fused_lstm_gates)
         debug_nans.check("fused_lstm_gates", *out)

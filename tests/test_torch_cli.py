@@ -42,11 +42,13 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
         assert [json.loads(line)["generation"] for line in f] == [0, 1]
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--preset", "pop256_v5e8"], "Parallel"),
+@pytest.mark.parametrize("argv,exc,match", [
+    # the 8-device preset on the CPU's one device: make_mesh's error
+    pytest.param(["--preset", "pop256_v5e8"], ValueError, "need 8 devices, have 1",
+                 id="argv0-Parallel"),
 ])
-def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
+def test_cli_refuses_what_is_not_ported(argv, exc, match, tmp_path):
+    with pytest.raises(exc, match=match):
         cli.main(["-o", str(tmp_path), "--device", "cpu", *argv])
     assert not os.listdir(tmp_path)  # refused before anything ran
 
@@ -56,6 +58,8 @@ def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
     (["--chainer_half_order", "a-ahat"], dict(chainer_half_order="a-ahat")),
     (["--chainer_half_order", "auto"], dict(chainer_half_order="auto")),
     (["--debug_nans"], dict(debug_nans=True)),
+    (["--use_pallas"], dict(use_pallas=True)),
+    ([], dict(use_pallas="fused")),  # the port's default route: its kernels
 ])
 def test_cli_passes_the_ported_flags(argv, kwargs, monkeypatch):
     """The flags the port now implements reach ``neat_illusion`` as the

@@ -1,7 +1,7 @@
 """The port's own copies of the JAX package's framework-free modules
 (``ops/fitness/{metrics_np,calculate}``, ``ops/grids``, ``neat``,
-``configs``, the C++ scorer ``ops/fitness/native``) give bit-equal results
-to the originals on the same inputs."""
+``configs``, the C++ scorer ``ops/fitness/native``, ``analysis/ratings``)
+give bit-equal results to the originals on the same inputs."""
 
 import math
 from pathlib import Path
@@ -11,11 +11,13 @@ import pytest
 
 from evolutionary_illusion_generator_tpu import configs as jax_configs
 from evolutionary_illusion_generator_tpu import neat as jax_neat
+from evolutionary_illusion_generator_tpu.analysis import ratings as jax_ratings
 from evolutionary_illusion_generator_tpu.ops import grids as jax_grids
 from evolutionary_illusion_generator_tpu.ops.fitness import calculate as jax_calculate
 from evolutionary_illusion_generator_tpu.ops.fitness import metrics_np as jax_metrics
 from evolutionary_illusion_generator_tpu.ops.fitness import native as jax_native
 from evolutionary_illusion_generator_tpu_torch import configs, neat
+from evolutionary_illusion_generator_tpu_torch.analysis import ratings
 from evolutionary_illusion_generator_tpu_torch.ops import grids
 from evolutionary_illusion_generator_tpu_torch.ops.fitness import calculate, metrics_np, native
 from evolutionary_illusion_generator_tpu_torch.structure import StructureType
@@ -147,3 +149,51 @@ def test_native_scorer_bit_equal(structure):
     ours = native.score_population_native(int(structure), vectors, mask, W, H)
     ref = jax_native.score_population_native(int(structure), vectors, mask, W, H)
     assert _same(ours, ref)
+
+
+def _ratings_frame(seed=0, n_participants=30):
+    """A seeded synthetic study: every participant rates the control, three
+    of the gallery's illusions (by their study names) and one more; some answer the attention check wrong,
+    and one gives the same rating to everything (a zero range)."""
+    rng = np.random.default_rng(seed)
+    names = ["control", "01_bw_rotating", "03_bw_shrink", "07_medaka", "other"]
+    rows, checks = [], []
+    for p in range(n_participants):
+        pid = f"P{p:03d}"
+        flat = rng.integers(0, 6) if p == 7 else None
+        for k, name in enumerate(names):
+            rows.append((pid, name, int(flat if flat is not None
+                                        else rng.integers(0, 2 + k))))
+        checks.append((pid, "cat2.jpg" if rng.random() > 0.2 else "dog.jpg"))
+    import pandas as pd
+
+    results = pd.DataFrame(rows, columns=["participant_id", "illusion_name", "strength"])
+    check = pd.DataFrame(checks, columns=["Participant.External.Session.ID", "Response"])
+    return results, check
+
+
+def test_ratings_copy_bit_equal():
+    """Every analysis function of the copy against the original on the same
+    frame; the source differs from the original's in nothing."""
+    import pandas as pd
+
+    assert Path(ratings.__file__).read_bytes() == Path(jax_ratings.__file__).read_bytes()
+    results, check = _ratings_frame()
+    out = {}
+    for mod in (jax_ratings, ratings):
+        passed = mod.attention_check_pass(check)
+        kept = mod.filter_participants(results, passed)
+        norm = mod.normalize_per_participant(kept)
+        summary = mod.summarize(norm)
+        welch = mod.welch_tests_vs_control(norm, "control")
+        merged, r, p = mod.correlate_with_model_scores(summary)
+        out[mod] = (passed, kept, norm, summary, welch, merged, r, p)
+    for a, b in zip(out[jax_ratings], out[ratings]):
+        if isinstance(a, pd.DataFrame):
+            pd.testing.assert_frame_equal(a, b, check_exact=True)
+        elif isinstance(a, pd.Index):
+            pd.testing.assert_index_equal(a, b, exact=True)
+        else:
+            assert _same(a, b)
+    pd.testing.assert_frame_equal(ratings.GALLERY_MODEL_SCORES, jax_ratings.GALLERY_MODEL_SCORES,
+                                  check_exact=True)

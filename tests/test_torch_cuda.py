@@ -491,7 +491,7 @@ def test_cuda_graph_replay_equals_the_eager_pass(monkeypatch):
         ours = a.to_numpy()
         for k, v in eager.last_results["outputs"].to_numpy().items():
             assert np.array_equal(ours[k], v), (gen, k)
-        first, second = (c["images_u8"] for c in a._chunks)
+        first, second = (c[0]["images_u8"] for c in a._chunks)  # one shard a chunk
         assert first.data_ptr() != second.data_ptr() and not torch.equal(first, second)
         np.testing.assert_array_equal(graph.last_results["scores"], eager.last_results["scores"])
     assert len(graph._programs.graphs) == 1 and not eager._programs.graphs
@@ -539,3 +539,168 @@ def test_cuda_debug_nans_names_the_fused_kernel():
         with pytest.raises(FloatingPointError) as err:
             model.rollout_flow_frames(params, img, **kw)
     assert str(err.value) == "debug_nans: NaN in the output of fused_convlstm_layer_multi"
+
+
+# ---- parallel/ on one card: a mesh that repeats cuda:0 -------------------------
+
+PARALLEL_CHANNELS = (3, 48, 96)  # a narrow pixel layer and two fused layers
+# A shard runs the unsharded pass's ops on fewer rows, and cuDNN's
+# algorithms follow the batch, so a bfloat16 sum of the rollout may round
+# another way.  Corners are ranked by response, so such a flip may swap
+# near-equal corners' slots (at 64x48, channels 3,48,96, on the H100: 79%
+# of the masked slots hold the same corner in both runs, and their
+# displacements agree within 2e-3 px; bit-equal at the main path's shape,
+# chip_smoke.py's parallel phase).  Vectors are held slot by slot where
+# both runs hold the same corner (on at least SHARD_MATCHED_SHARE of the
+# slots), by their displacement; the fitness within SHARD_FITNESS_ATOL.
+SHARD_MATCHED_SHARE = 0.5
+SHARD_SHIFT_ATOL = 0.05
+SHARD_FITNESS_ATOL = 0.05
+
+
+def _flow_gap(a, b):
+    """(share of the slots masked in either run where both hold the same
+    corner, largest displacement gap over those slots) between two
+    evaluators' outputs."""
+    either = a["mask"] | b["mask"]
+    same = a["mask"] & b["mask"] & (a["vectors"][..., :2] == b["vectors"][..., :2]).all(-1)
+    shift = np.abs(a["vectors"][..., 2:] - b["vectors"][..., 2:])[same]
+    return same.sum() / max(either.sum(), 1), float(shift.max(initial=0.0))
+
+
+def _parallel_evaluators(n_shards, **kw):
+    from evolutionary_illusion_generator_tpu_torch.evolution import EvalConfig, GenerationEvaluator
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import loader
+    from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
+    from evolutionary_illusion_generator_tpu_torch.parallel import (
+        ShardedGenerationEvaluator,
+        make_mesh,
+    )
+
+    ncfg = preset("circles").replace(pop_size=16)
+    params = loader.load_or_init(None, PARALLEL_CHANNELS, device="cuda")
+    items = list(Population(ncfg, seed=3).population.items())
+    cfg = EvalConfig(w=64, h=48, **kw)
+    single = GenerationEvaluator(cfg, params, ncfg, device="cuda")
+    sharded = ShardedGenerationEvaluator(cfg, params, ncfg,
+                                         make_mesh(devices=["cuda:0"] * n_shards))
+    return single, sharded, items
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_cuda_sharded_evaluator_on_a_repeated_device(n_shards):
+    """The sharded evaluator on ``["cuda:0"] * n``: each shard runs the
+    kernels on its rows (counted per shard), and the outputs are the
+    unsharded evaluator's: images bit-equal; the predictor's frames and
+    flow are held as chip_smoke.py's parallel phase holds them (the
+    fused kernel's tiles and cuDNN's algorithms follow the batch)."""
+    _cuda_or_skip()
+    single, sharded, items = _parallel_evaluators(n_shards, program_cache=False)
+    counted = (fused_lstm_gates, fused_convlstm_layer_multi)
+    n = [w.launches for w in counted]
+    want = single(list(items))
+    torch.cuda.synchronize()
+    m = [w.launches for w in counted]
+    got = sharded(list(items))
+    torch.cuda.synchronize()
+    steps = 22
+    assert [b - a for a, b in zip(n, m)] == [steps, 2 * steps]
+    assert [w.launches - b for w, b in zip(counted, m)] == [n_shards * steps,
+                                                            n_shards * 2 * steps]
+    a = single.last_results["outputs"].to_numpy()
+    b = sharded.last_results["outputs"].to_numpy()
+    np.testing.assert_array_equal(b["images_u8"], a["images_u8"])
+    matched, shift = _flow_gap(a, b)
+    gap = float(np.abs(got - want).max())
+    assert (matched >= SHARD_MATCHED_SHARE and shift <= SHARD_SHIFT_ATOL
+            and gap <= SHARD_FITNESS_ATOL and np.isfinite(got).all()), (matched, shift, gap)
+    # outputs stay on the card, one shard per entry
+    chunk = sharded.last_results["outputs"]._chunks[0]
+    assert len(chunk) == n_shards and all(s["images_u8"].is_cuda for s in chunk)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_graph_replays_per_device_key(monkeypatch):
+    """With the program cache, the two shards of a chunk share one graph
+    (its key holds the device and the shard's shape): shard 1 warms up,
+    shard 2 captures, later generations replay; bit-equal to the eager
+    sharded pass."""
+    _cuda_or_skip()
+    monkeypatch.delenv("EIGEN_PROGRAM_CACHE", raising=False)
+    _, graph, items = _parallel_evaluators(2)
+    _, eager, _ = _parallel_evaluators(2, program_cache=False)
+    for gen in range(3):
+        graph(list(items))
+        eager(list(items))
+        a = graph.last_results["outputs"].to_numpy()
+        for k, v in eager.last_results["outputs"].to_numpy().items():
+            assert np.array_equal(a[k], v), (gen, k)
+    (key, captured), = graph._programs.graphs.items()
+    assert key[0] == torch.device("cuda", 0) and captured is not None
+    assert graph._programs.replays == 1 + 2 + 2
+
+
+@pytest.mark.cuda
+def test_cuda_dp_train_step_on_a_repeated_device():
+    """One data-parallel Adam step on ``["cuda:0"] * 2`` against the
+    one-device step on the card: the loss at TRAIN_LOSS_RTOL, the params
+    by the bfloat16 flip rule of the train test above."""
+    _cuda_or_skip()
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import loader, train
+    from evolutionary_illusion_generator_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(5)
+    frames = torch.from_numpy(rng.uniform(0, 1, (4, 4, 32, 48, 3)).astype(np.float32)).cuda()
+    mask = torch.tensor([1.0, 0.0, 0.75, 1.0], device="cuda")
+    params = loader.load_or_init(None, PARALLEL_CHANNELS, device="cuda")
+    tx = train.adam(2e-3)
+    kw = dict(t_open=3, closed_weight=5.0, masked_closed=True, motion_weight=0.5)
+    p1, _, l1 = train.make_train_step(tx, **kw)(params, train.init_opt_state(tx, params),
+                                                frames, mask)
+    pd, _, ld = train.make_train_step(tx, mesh=make_mesh(devices=["cuda:0"] * 2), **kw)(
+        params, train.init_opt_state(tx, params), frames, mask)
+    np.testing.assert_allclose(ld.item(), l1.item(), rtol=TRAIN_LOSS_RTOL)
+    for a, b in zip(pd, p1):
+        for k in b:
+            x, y = a[k].float(), b[k].float()
+            gap = (x - y).abs()
+            assert (gap > 0).float().mean().item() <= TRAIN_FLIP_SHARE, k
+            assert bool((gap <= 2.0**-7 * y.abs() + 4e-3).all()), (k, gap.max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["gates", "multi"])
+def test_cuda_wrappers_refuse_tensors_off_the_current_device(wrapper, monkeypatch):
+    """A launch goes to the current device, so a wrapper given tensors of
+    another device raises.  One card cannot hold tensors off the current
+    device, so the current device is made to read as cuda:1."""
+    _cuda_or_skip()
+    srcs, ws, b, c_prev = _layer_inputs(9, 1, 6, 8, (16,), 8)
+    c = torch.from_numpy(c_prev).cuda()
+    if wrapper == "gates":
+        call = lambda: fused_lstm_gates(torch.zeros(1, 6, 8, 32, device="cuda"), c)  # noqa: E731
+    else:
+        x = torch.from_numpy(srcs[0]).cuda().bfloat16()
+        wk = pack_gate_weight(torch.from_numpy(ws[0]).cuda())
+        call = lambda: fused_convlstm_layer_multi([x], [wk], torch.from_numpy(b).cuda(), c)  # noqa: E731
+    call()  # on the current device: runs
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    with pytest.raises(RuntimeError, match="current CUDA device is cuda:1"):
+        call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,per_step", [("fused", (1, 2)), (True, (3, 0)), (False, (0, 0))])
+def test_cuda_use_pallas_routes_launch_counts(route, per_step):
+    """``EvalConfig.use_pallas``: per step, "fused" launches the gate kernel
+    on the pixel layer and the fused kernel on the two wide layers, True
+    the gate kernel on all three, False none."""
+    _cuda_or_skip()
+    single, _, items = _parallel_evaluators(1, use_pallas=route, program_cache=False)
+    counted = (fused_lstm_gates, fused_convlstm_layer_multi)
+    n = [w.launches for w in counted]
+    scores = single(list(items))
+    torch.cuda.synchronize()
+    assert [w.launches - m for w, m in zip(counted, n)] == [22 * k for k in per_step]
+    assert np.isfinite(scores).all()

@@ -105,13 +105,15 @@ def test_driver_runs_generations_on_cpu(tmp_path):
     assert resumed.generation == 3
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(n_devices=2), "Parallel"),
+@pytest.mark.parametrize("kwargs,exc,match", [
+    # the parallel evaluator is ported: two devices where the run has one
+    # is make_mesh's error (tests/test_torch_parallel.py runs it on two)
+    pytest.param(dict(n_devices=2), ValueError, "need 2 devices, have 1",
+                 id="kwargs0-Parallel"),
 ])
-def test_driver_refuses_what_is_not_ported(kwargs, match, tmp_path):
-    """The JAX driver's arguments the port does not implement yet raise,
-    naming their ROADMAP.md item, before anything runs."""
-    with pytest.raises(NotImplementedError, match=match):
+def test_driver_refuses_what_is_not_ported(kwargs, exc, match, tmp_path):
+    """Driver arguments the run cannot honour raise before anything runs."""
+    with pytest.raises(exc, match=match):
         neat_illusion(str(tmp_path / "run"), None, None, StructureType.Circles, device="cpu",
                       **kwargs)
     assert not (tmp_path / "run").exists()

@@ -17,9 +17,12 @@ from evolutionary_illusion_generator_tpu_torch.evolution import (
     neat_illusion,
     probe,
 )
-from evolutionary_illusion_generator_tpu_torch.examples import quickstart
+from evolutionary_illusion_generator_tpu_torch.examples import multichip, quickstart
 from evolutionary_illusion_generator_tpu_torch.models.prednet import loader, pretrain
 from evolutionary_illusion_generator_tpu_torch.neat import preset
+from evolutionary_illusion_generator_tpu_torch.ops.convlstm_gates import kernel_stream
+from evolutionary_illusion_generator_tpu_torch.parallel import make_mesh, make_mesh_2d
+from evolutionary_illusion_generator_tpu_torch.parallel.pipeline import make_pp_mesh
 from evolutionary_illusion_generator_tpu_torch.structure import StructureType
 from evolutionary_illusion_generator_tpu_torch.utils.image_io import save_image
 
@@ -100,6 +103,38 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         GenerationEvaluator(EvalConfig(c_dim=1), params, cfg)
     # asked for, the CPU works
     GenerationEvaluator(EvalConfig(c_dim=1), params, cfg, device="cpu")
+
+
+def test_parallel_entry_points_raise_without_a_card(no_card, tmp_path):
+    """A mesh takes every CUDA device unless it is given devices: without a
+    card it raises as the other entry points do, and never becomes a CPU
+    mesh on its own."""
+    for make in (make_mesh, lambda: make_mesh_2d(1, 1), lambda: make_pp_mesh(1),
+                 lambda: make_mesh(devices=["cuda:0"] * 2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        neat_illusion(str(tmp_path), None, preset("circles"), StructureType.Circles,
+                      channels=(3, 4), generations=1, n_devices=2, save_artifacts=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multichip.main(["--tiny", "--output_dir", str(tmp_path / "mc")])
+    assert not (tmp_path / "mc").exists()
+    # asked for, a CPU mesh works
+    assert make_mesh(devices=["cpu"] * 2).size == 2
+
+
+def test_kernel_stream_refuses_tensors_off_the_current_device(monkeypatch):
+    """A launch goes to the current CUDA device whatever its tensors'
+    device; the wrappers' stream lookup refuses tensors elsewhere (mocked
+    here: no card; tests/test_torch_cuda.py shows it through a wrapper)."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 1234})())
+    with pytest.raises(RuntimeError, match="current CUDA device is cuda:0"):
+        kernel_stream("fused_lstm_gates", torch.device("cuda", 1))
+    assert kernel_stream("fused_lstm_gates", torch.device("cuda", 0)) == 1234
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert kernel_stream("fused_lstm_gates", torch.device("cuda", 1)) == 1234
 
 
 def test_cuda_tensors_without_a_card_are_not_run_on_the_cpu(no_card):
