@@ -81,12 +81,20 @@ Phases, each printing its wall time and raising on failure:
    the mean; no kernel launched), with seconds and peak memory; two
    processes on cuda:0 over gloo, each evaluating half a population, whose
    fitness must equal the single-process evaluator's on both ranks;
-13. profile: device time by kernel and the number of kernel launches over
+13. composition: the ``pop256_v5e8`` run preset as it stands (pop 256,
+   1280x960, 3,48,96,192, global chunks of 64) through
+   ``graft_entry.composition`` on the fused route over a mesh of cuda:0 x
+   8: one generation, its checkpoint and the resumed generation; logs the
+   fused kernel's strip width at each fused layer, s/generation with its
+   eager, captured and replayed shard passes, the peak device memory, the
+   launches and the best fitness; fails on a non-finite fitness, a best
+   fitness of 0 or launch counts that are not 22 and 66 per eager pass;
+14. profile: device time by kernel and the number of kernel launches over
    one warm main-path generation, replayed as a CUDA graph (the default)
    and run eagerly (``program_cache=False``); in both the trace must hold
    22 gate and 66 fused kernels, which in the replay no wrapper launched
    (the graph recorded them at its capture);
-14. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
+15. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
    its north-star layer-1 shape (``--big --rows 48``, all ten rungs);
    asserts each rung's launch count, then holds each of the seven rung
    kernels against its plain version on the card (A also at ragged counts
@@ -99,8 +107,8 @@ Phases, each printing its wall time and raising on failure:
    shapes; logs E's and J's times beside D's.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main path, cli, probe, options, scorers, train, parallel and bisect
-phases), and as the last line
+the main path, cli, probe, options, scorers, train, parallel, composition
+and bisect phases), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a card or without the port beside it.
 """
@@ -292,10 +300,12 @@ def device_ms(fn, iters, warmup=3):
     shorter than its host work, the gaps between kernels are not in it.  A
     kernel's duration ends before the L2 has written its last dirty lines
     back, so for a kernel that writes more than the L2 holds it is short of
-    the work; time that one with :func:`cuda_ms`.  Once in a whole script
-    run (rung A's timing, after every earlier phase had profiled) the
-    profiler handed back no device event; such a window is logged and
-    profiled once more, and a second empty one raises.
+    the work; time that one with :func:`cuda_ms`.  In some whole script
+    runs (rung A's timing in the bisect phase, after every earlier phase
+    had profiled) the profiler handed back no device event, in two windows
+    in a row; such a window is logged and profiled once more, and after a
+    second empty one the time is taken with CUDA events (:func:`cuda_ms`,
+    logged as such) and the kernels per call are NaN.
     Returns (ms, kernels launched per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -315,7 +325,10 @@ def device_ms(fn, iters, warmup=3):
             break
         log("  device_ms: torch.profiler recorded no device kernel; profiling once more")
     else:
-        raise RuntimeError("torch.profiler recorded no device kernel")
+        ms = cuda_ms(fn, iters)
+        log(f"  device_ms: torch.profiler recorded no device kernel again; {ms:.4f} ms from "
+            f"CUDA events instead")
+        return ms, math.nan
     return (sum(e.self_device_time_total for e in kernels) / iters / 1e3,
             sum(e.count for e in kernels) / iters)
 
@@ -1743,6 +1756,97 @@ def parallel_phase(params, card):
     return counts
 
 
+@contextlib.contextmanager
+def _recorded_sharded_generations(records):
+    """Each sharded generation's seconds (CUDA-synchronised), shard passes,
+    graph replays and captures, and kernel launches, appended to
+    ``records`` by the driver's sharded evaluator."""
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch import parallel
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
+
+    sharded = parallel.ShardedGenerationEvaluator
+
+    class Recording(sharded):
+        def __call__(self, *a, **kw):
+            counts, replays = _counts(), self._programs.replays
+            captured = cg.fused_lstm_gates.captured
+            torch.cuda.synchronize()
+            t0 = time.time()
+            scores = super().__call__(*a, **kw)
+            torch.cuda.synchronize()
+            res = self.last_results
+            records.append(dict(
+                seconds=time.time() - t0, fitness=list(map(float, scores)),
+                passes=sum(len(c) for c in res["outputs"]._chunks),
+                replays=self._programs.replays - replays,
+                captures=int(cg.fused_lstm_gates.captured != captured),
+                launches={k: v - counts[k] for k, v in _counts().items() if v != counts[k]}))
+            return scores
+
+    parallel.ShardedGenerationEvaluator = Recording
+    try:
+        yield
+    finally:
+        parallel.ShardedGenerationEvaluator = sharded
+
+
+@phase("composition")
+def composition_phase(card):
+    """``graft_entry.composition`` at the ``pop256_v5e8`` preset's own
+    geometry on the card (the fused route, a mesh of cuda:0 x 8): one
+    generation, its checkpoint, the resumed generation.  Logs the fused
+    kernel's strip width at each fused layer, s/generation with the shard
+    passes run eagerly, captured and replayed, the peak device memory, the
+    launches and the best fitness; fails on a non-finite fitness, a best
+    fitness of 0 or launches that are not 22 and 66 per eager pass."""
+    import numpy as np
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.configs import run_preset
+    from evolutionary_illusion_generator_tpu_torch.graft_entry import composition
+    from evolutionary_illusion_generator_tpu_torch.ops.convlstm_fused import tile_width
+
+    rp = run_preset("pop256_v5e8")
+    n, B, H, W = rp.n_devices, rp.microbatch // rp.n_devices, rp.h, rp.w
+    widths = {f"layer {l} ({B}, {H >> l}, {W >> l})": tile_width(B, H >> l, W >> l)
+              for l in (1, 2, 3)}
+    log(f"  fused kernel strip widths {widths}")
+    records = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as out, _recorded_sharded_generations(records):
+        pop, pop2 = composition(out, n, ["cuda:0"] * n)
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    if len(records) != 2 or len(recs) != 2 or pop2.generation != 2:
+        raise AssertionError(f"composition: {len(records)} generations recorded, {len(recs)} "
+                             f"in metrics.jsonl, resumed to generation {pop2.generation}")
+    for gen, (r, m) in enumerate(zip(records, recs)):
+        if not (len(r["fitness"]) == 256 and np.isfinite(r["fitness"]).all()
+                and max(r["fitness"]) > 0.0):
+            raise AssertionError(f"composition: generation {gen} fitness {r['fitness']}")
+        eager = r["passes"] - r["replays"]
+        want = {"fused_lstm_gates": eager * STEPS, "fused_convlstm_layer_multi": eager * 3 * STEPS}
+        if r["launches"] != want:
+            raise AssertionError(f"composition: generation {gen} launches {r['launches']}, "
+                                 f"expected {want}")
+        log(f"  composition generation {m['generation']}: {r['seconds']:.3f} s "
+            f"(eval_seconds {m['eval_seconds']:.3f}); {r['passes']} shard passes: "
+            f"{eager} eager, {r['replays']} replayed as a CUDA graph ({r['captures']} of them "
+            f"its capture); launches {r['launches']}; fitness max {max(r['fitness']):.5f} "
+            f"mean {float(np.mean(r['fitness'])):.5f}")
+    log(f"  composition: best fitness {pop.best_genome.fitness:.5f} then "
+        f"{pop2.best_genome.fitness:.5f}; peak device memory "
+        f"{peak / 2**30:.3f} GiB; {time.time() - t0:.1f} s in all; launches {counts} ({card})")
+    return counts
+
+
 @phase("profile")
 def profile_generation(params):
     """Device time by kernel over one warm main-path generation (the first
@@ -2033,15 +2137,16 @@ def main():
     scorer_counts = scorers(params, card)
     train_counts = train_phase(card)
     parallel_counts = parallel_phase(params, card)
+    composition_counts = composition_phase(card)
     profile_generation(params)
     bisect_kernels, bisect_counts = bisect()
     kernels.update(bisect_kernels)
     log(f"[total] {time.time() - t0:.1f} s")
     # launches over the driven paths: main_path, cli, probe, options, scorers,
-    # train (none: the trainer runs the plain route), parallel, then the
-    # bisection ladder
+    # train (none: the trainer runs the plain route), parallel, composition,
+    # then the bisection ladder
     paths = (counts, cli_counts, probe_counts, options_counts, scorer_counts, train_counts,
-             parallel_counts, bisect_counts)
+             parallel_counts, composition_counts, bisect_counts)
     rows = [dict(name=name, launches=sum(c[name] for c in paths), **r)
             for name, r in kernels.items()]
     print(json.dumps({"kernels": rows}))

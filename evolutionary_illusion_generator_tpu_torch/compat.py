@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .models.cppn import evaluate_cppn_levels, pack_population_levels
+from .models.cppn import evaluate_population_levels, pack_population_levels
 from .models.prednet.loader import load_or_init
 from .models.prednet.model import init_state, prednet_step
 from .neat.config import NeatConfig
@@ -143,8 +143,9 @@ def create_cppn(
                 torch.as_tensor(np.asarray(leaves[n], np.float32).reshape(-1)) for n in leaf_names
             ]).to(device)
             with torch.inference_mode():
-                out = evaluate_cppn_levels(packed["weights"], packed["bias"], packed["response"],
-                                           packed["act_id"], packed["out_slot"], flat)
+                out = evaluate_population_levels(packed["weights"], packed["bias"],
+                                                 packed["response"], packed["act_id"],
+                                                 packed["out_slot"], flat)
             shape = np.shape(list(leaves.values())[0])
             return out[0, idx].cpu().numpy().reshape(shape)
 

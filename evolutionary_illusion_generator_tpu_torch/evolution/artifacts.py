@@ -18,12 +18,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..models.cppn import (
-    genome_depth,
-    make_population_eval,
-    pack_population_levels,
-    population_act_set,
-)
+from ..models.cppn import _bucket, evaluate_population, pack_population, required_nodes
 from ..neat.config import NeatConfig
 from ..neat.genome import Genome
 from ..ops.grids import GRID_SCALING, create_grid, enhanced_image_grid
@@ -34,6 +29,10 @@ from ..utils.image_io import draw_flow_overlay, save_image
 __all__ = ["render_genome", "save_best_artifacts", "ENHANCED_SIZE"]
 
 ENHANCED_SIZE = 800
+
+#: The CPPN slot bucket of artifact renders (the JAX package's): the
+#: node-serial evaluator's tables over 128 slots, doubled for a larger genome.
+_RENDER_BUCKET = 128
 
 
 @functools.lru_cache(maxsize=8)
@@ -59,16 +58,13 @@ def render_genome(
     """Render a single genome on an arbitrary grid on ``device`` (``None``
     = the card); returns (h, w, c) uint8."""
     device = resolve_device(device)
-    act_set = tuple(sorted(population_act_set([genome], neat_cfg)))
-    # as few levels as the genome is deep (the packer widens them as needed):
-    # the poster is 640,000 points a level
-    packed = pack_population_levels([genome], neat_cfg, genome_depth(genome, neat_cfg),
-                                    act_set=act_set)
+    packed = pack_population([genome], neat_cfg,
+                             _bucket(len(required_nodes(genome, neat_cfg)), _RENDER_BUCKET))
     prog = {k: torch.as_tensor(v).to(device) for k, v in packed.items()}
     x_mat = torch.as_tensor(grid["x_mat"], dtype=torch.float32)
     y_mat = torch.as_tensor(grid["y_mat"], dtype=torch.float32)
     flat = torch.stack([x_mat.reshape(-1), y_mat.reshape(-1)]).to(device)
-    outs = make_population_eval(act_set)(
+    outs = evaluate_population(
         prog["weights"], prog["bias"], prog["response"], prog["act_id"],
         prog["out_slot"], flat,
     )

@@ -31,6 +31,7 @@ import torch
 from .._device import indexed_device, resolve_device
 from ..models.cppn import (
     ACTIVATIONS,
+    _bucket,
     genome_depth,
     make_population_eval,
     pack_population_levels,
@@ -55,13 +56,6 @@ from ..utils import debug_nans as sanitizer
 from ..utils.program_cache import ProgramCache, program_cache_enabled
 
 __all__ = ["EvalConfig", "GenerationEvaluator", "GenerationOutputs"]
-
-
-def _bucket(n: int, minimum: int = 8) -> int:
-    b = minimum
-    while b < n:
-        b *= 2
-    return b
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,7 @@
 """PredNet predictive-coding ConvLSTM stack (PyTorch, CUDA kernels)."""
 
 from .loader import (
+    PredNetParams,
     bundled_weights_path,
     init_params_numpy,
     load_or_init,
@@ -17,6 +18,7 @@ from .model import (
 )
 
 __all__ = [
+    "PredNetParams",
     "bundled_weights_path",
     "init_params_numpy",
     "load_or_init",

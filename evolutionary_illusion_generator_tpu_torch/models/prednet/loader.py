@@ -39,8 +39,10 @@ import torch
 
 from ..._device import resolve_device
 from ...ops.convlstm_fused import pack_gate_weight
+from ...utils import prng
 
 __all__ = [
+    "PredNetParams",
     "WEIGHTS_DIR",
     "bundled_weights_path",
     "chainer_params_numpy",
@@ -53,6 +55,9 @@ __all__ = [
     "params_to_numpy",
     "save_params",
 ]
+
+#: Params are lists of per-layer dicts of tensors (the JAX package's alias).
+PredNetParams = List[dict]
 
 #: The JAX package's bundled weights, read as data (not imported).
 WEIGHTS_DIR = (
@@ -364,9 +369,9 @@ def init_params_numpy(channels: Sequence[int] = (3, 48, 96, 192), seed: int = 0,
     """Seeded random params in the JAX layout (HWIO float32 numpy).
 
     The same shapes and scaling as the JAX ``init_params``
-    (normal / sqrt(fan_in) weights, zero biases), drawn from numpy: the two
-    frameworks' generators give different numbers for one seed, so tests
-    hand these arrays to both."""
+    (normal / sqrt(fan_in) weights, zero biases), drawn from numpy's
+    generator: a fixture that tests hand to both packages.  The port's own
+    seeded params (:func:`load_or_init`) are JAX's draw."""
     rng = np.random.default_rng(seed)
     L = len(channels)
 
@@ -397,7 +402,8 @@ def load_or_init(path: Optional[str], channels: Sequence[int], seed: int = 0,
     """Load a model file if given: a native NPZ checkpoint, else (on its
     ``ValueError``) a Chainer snapshot imported with ``half_order``; without
     one, the bundled stand-in weights for this channel stack if shipped;
-    else seeded random params (:func:`init_params_numpy`)."""
+    else seeded random params drawn as the JAX ``load_or_init`` draws them
+    (:func:`.model.init_params` from ``PRNGKey(seed)``)."""
     if path:
         if not os.path.exists(path):
             raise FileNotFoundError(path)
@@ -408,4 +414,5 @@ def load_or_init(path: Optional[str], channels: Sequence[int], seed: int = 0,
     bundled = bundled_weights_path(channels)
     if bundled:
         return load_params(bundled, dtype, device)
-    return params_from_numpy(init_params_numpy(channels, seed), dtype, device)
+    from .model import init_params  # model imports this module
+    return init_params(prng.PRNGKey(seed), channels, dtype=dtype, device=device)

@@ -81,10 +81,11 @@ import torch.nn.functional as F
 from ...ops.convlstm_fused import fused_convlstm_layer_multi
 from ...ops.convlstm_gates import fused_lstm_gates
 from ...utils import prng
-from .loader import DERIVED_PREFIXES, params_from_numpy
+from .loader import DERIVED_PREFIXES, PredNetParams, params_from_numpy
 
 __all__ = [
     "FUSED_MIN_CHANNELS",
+    "PredNetParams",
     "init_params",
     "init_state",
     "prednet_step",

@@ -15,11 +15,10 @@ each key, so a batch of sequences draws its per-sequence scalars in one
 call.  The 32-bit arithmetic is numpy's uint32, which wraps.
 
 ``split``, ``fold_in``, ``uniform`` and ``choice`` are bit-equal to
-``jax.random``.  ``normal`` goes through ``erfinv``: this module evaluates
-the polynomial XLA uses (Giles' single-precision approximation, its
-Horner steps fused as XLA's CPU compiler fuses them), but ``log1p`` is
-numpy's, so a draw can differ from JAX's in its last bits
-(``tests/test_torch_prng.py`` holds it to a few float32 ulps).
+``jax.random``, and so is ``normal``: it goes through ``erfinv``, which
+this module evaluates as XLA's CPU compiler does (Giles' single-precision
+polynomial in ``-log1p(-x^2)``, with XLA's Cephes ``log1p`` and ``log``,
+every multiply-add fused where that compiler fuses it).
 """
 
 from __future__ import annotations
@@ -140,10 +139,71 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 
 
+# XLA's float32 log (Cephes logf: a degree-8 polynomial in the mantissa
+# moved to [sqrt(1/2) - 1, sqrt(2) - 1), plus the exponent times ln 2 in
+# two parts) and log1p (a Cephes rational approximation below
+# |x| = sqrt(2) - 1, log(1 + x) above)
+_LOG_P = tuple(np.float32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+    -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _log32(v: np.ndarray) -> np.ndarray:
+    v = np.asarray(v, dtype=np.float32)
+    f32 = np.float32
+    tiny = np.float32(np.finfo(np.float32).tiny)
+    bits = np.maximum(v, tiny).view(np.uint32)
+    e = ((bits >> np.uint32(23)).astype(np.int32) - 126).astype(f32)
+    x = ((bits & np.uint32(0x807FFFFF)) | np.uint32(0x3F000000)).view(f32)
+    small = x < f32(0.707106781186547524)
+    x = (x - f32(1.0)) + np.where(small, x, f32(0.0))
+    e = e - small.astype(f32)
+    x2 = x * x
+    x3 = x2 * x
+    y = fma32(x, _LOG_P[0], _LOG_P[1])
+    y1 = fma32(x, _LOG_P[3], _LOG_P[4])
+    y2 = fma32(x, _LOG_P[6], _LOG_P[7])
+    y = fma32(y, x, _LOG_P[2])
+    y1 = fma32(y1, x, _LOG_P[5])
+    y2 = fma32(y2, x, _LOG_P[8])
+    y = fma32(fma32(y, x3, y1), x3, y2)
+    y = fma32(y, x3, f32(-2.12194440e-4) * e)
+    x = fma32(f32(-0.5), x2, x) + y
+    out = fma32(f32(0.693359375), e, x)
+    out = np.where((v >= 0) & (v < tiny), f32(-np.inf), out)  # subnormals flush to zero
+    out = np.where(v < 0, f32(np.nan), out)
+    return np.where(v == np.inf, v, out).astype(f32)
+
+
+def _log1p32(x: np.ndarray) -> np.ndarray:
+    x = np.asarray(x, dtype=np.float32)
+    x = np.where(np.abs(x) < np.finfo(np.float32).tiny, np.float32(0.0), x)  # flush subnormals
+
+    def poly(coeffs):
+        p = np.zeros_like(x)
+        for c in coeffs:
+            p = fma32(p, x, np.float32(c))
+        return p
+
+    with np.errstate(over="ignore", divide="ignore", invalid="ignore"):
+        x2 = x * x
+        r = poly(_LOG1P_NUM) / poly(_LOG1P_DEN)
+        small = x + fma32(np.float32(-0.5), x2, x * x2 * r)
+        large = _log32(x + np.float32(1.0))
+    return np.where(np.abs(x) < np.float32(0.41421356237309504880), small, large).astype(np.float32)
+
+
 def _erfinv32(x: np.ndarray) -> np.ndarray:
     x = x.astype(np.float32)
     with np.errstate(divide="ignore", invalid="ignore"):
-        w = -np.log1p(-(x * x))
+        w = -_log1p32(-(x * x))
         lt = w < np.float32(5.0)
         w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3.0)).astype(np.float32)
         p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))

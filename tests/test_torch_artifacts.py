@@ -44,12 +44,20 @@ def _best(run):
     return pop.best_genome, pop.config
 
 
+# Both packages render through the node-serial evaluator at a 128-slot
+# bucket; last-bit CPPN differences (float32 sums, transcendentals) still
+# move a pixel by one where a value sits on a uint8 truncation boundary.
+# Measured on these renders: at most 6.9e-05 of the pixels (circles_color,
+# 4 of 57,600), none by more than 1.
+MAX_OFF_BY_ONE_SHARE = 1e-4
+
+
 def _assert_render_close(ours, ref):
-    """The known uint8 truncation tolerance: last-bit CPPN differences move
-    a pixel by one, on at most 1% of the pixels."""
+    """The uint8 truncation tolerance: a pixel off by one, on at most
+    MAX_OFF_BY_ONE_SHARE of the pixels."""
     assert ours.shape == ref.shape and ours.dtype == ref.dtype == np.uint8
     diff = np.abs(ours.astype(np.int16) - ref.astype(np.int16))
-    assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
+    assert diff.max() <= 1 and (diff > 0).mean() <= MAX_OFF_BY_ONE_SHARE
 
 
 @pytest.mark.parametrize("poster", [False, True], ids=["run_size", "enhanced"])

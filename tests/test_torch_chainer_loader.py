@@ -172,8 +172,10 @@ def test_load_or_init_routes_as_jax(tmp_path):
     bundled = loader.load_or_init(None, BW, dtype=torch.float32, device="cpu")
     _same(loader.params_to_numpy(bundled),
           jax_loader.load_params(jax_loader.bundled_weights_path(BW), dtype=jnp.float32))
-    seeded = loader.load_or_init(None, (1, 4, 8), seed=2, dtype=torch.float32, device="cpu")
-    _same(loader.params_to_numpy(seeded), loader.init_params_numpy((1, 4, 8), seed=2))
+    for dtype, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        seeded = loader.load_or_init(None, (1, 4, 8), seed=2, dtype=dtype, device="cpu")
+        _same(loader.params_to_numpy(seeded),
+              jax_loader.load_or_init(None, [1, 4, 8], seed=2, dtype=jdt))
     with pytest.raises(FileNotFoundError):
         loader.load_or_init(str(tmp_path / "none.model"), CHANNELS, device="cpu")
 

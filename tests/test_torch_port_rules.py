@@ -2,6 +2,7 @@
 package, no Pillow and no OpenCV, and its entry points never fall back to
 the CPU on their own."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -35,6 +36,26 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "evolutionary_illusion_generator_tpu_torch"
+JAX_PKG = REPO / "evolutionary_illusion_generator_tpu"
+
+#: JAX modules whose port has another file name.
+RENAMED = {
+    "ops/convlstm_pallas.py": "ops/convlstm_gates.py",
+    "ops/convlstm_fused_pallas.py": "ops/convlstm_fused.py",
+    "ops/fitness/metrics_jax.py": "ops/fitness/metrics_torch.py",
+}
+#: Public names of the JAX package the port leaves out on purpose, each
+#: with the (file, name) of what stands in its place in the port.
+DELIBERATE_GAPS = {
+    ("ops/convlstm_fused_pallas.py", "pick_rows"): ("ops/convlstm_fused.py", "tile_width"),
+    ("ops/fitness/metrics_jax.py", "score_vectors_jax"):
+        ("ops/fitness/metrics_torch.py", "score_vectors_torch"),
+    # the compiled-program cache: the evaluator's CUDA graphs
+    ("utils/program_cache.py", "cached_program"): ("utils/program_cache.py", "ProgramCache"),
+    ("utils/program_cache.py", "program_cache_dir"): ("utils/program_cache.py", "ProgramCache"),
+    # XLA's compilation cache: the kernels' build directory (.build/)
+    ("utils/compilation_cache.py", "enable_compilation_cache"): ("_build.py", "library"),
+}
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -147,3 +168,82 @@ def test_cuda_tensors_without_a_card_are_not_run_on_the_cpu(no_card):
                          torch.zeros(1, 2, 2, 2, device="meta"))
     h, c = fused_lstm_gates(torch.zeros(1, 2, 2, 8), torch.zeros(1, 2, 2, 2))
     np.testing.assert_allclose(c.numpy(), 0.0)
+
+
+def _public_names(path: Path) -> set:
+    """``__all__`` where the module has one, else the public functions,
+    classes and assignments it defines itself (not the names it imports)."""
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+def _defines(path: Path, name: str) -> bool:
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            if node.name == name:
+                return True
+        elif isinstance(node, ast.Assign):
+            if any(isinstance(t, ast.Name) and t.id == name for t in node.targets):
+                return True
+    return False
+
+
+def test_port_exports_every_public_name_of_the_jax_package():
+    """Each JAX module's public names (parsed, not imported: no jax needed)
+    are in its port's, but for the written deliberate gaps; each gap's
+    counterpart exists in the port, and no gap is listed that the port
+    now provides."""
+    missing, provided = [], []
+    for jax_file in sorted(JAX_PKG.rglob("*.py")):
+        rel = jax_file.relative_to(JAX_PKG).as_posix()
+        port_file = PORT / RENAMED.get(rel, rel)
+        ours = _public_names(port_file) if port_file.exists() else set()
+        for name in sorted(_public_names(jax_file)):
+            gap = DELIBERATE_GAPS.get((rel, name))
+            if name not in ours and gap is None:
+                missing.append(f"{rel}::{name}")
+            elif name in ours and gap is not None:
+                provided.append(f"{rel}::{name}")
+    assert not missing, f"the port lacks {missing}"
+    assert not provided, f"listed as gaps but ported: {provided}"
+    for (rel, name), (port_rel, port_name) in DELIBERATE_GAPS.items():
+        assert name in _public_names(JAX_PKG / rel), (rel, name)
+        assert _defines(PORT / port_rel, port_name), (port_rel, port_name)
+
+
+def test_analysis_re_exports_load_ratings_on_first_use():
+    """``analysis`` exports the JAX package's seven names but imports
+    ``ratings`` (pandas, scipy) only when one of them is first read."""
+    pytest.importorskip("pandas")
+    pytest.importorskip("scipy")
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import evolutionary_illusion_generator_tpu_torch.analysis as a\n"
+        "mod = 'evolutionary_illusion_generator_tpu_torch.analysis.ratings'\n"
+        "assert mod not in sys.modules and 'pandas' not in sys.modules\n"
+        "assert set(a.__all__) <= set(dir(a))\n"
+        "f = a.summarize\n"
+        "assert mod in sys.modules and f is sys.modules[mod].summarize\n"
+        "assert [getattr(a, n) is getattr(sys.modules[mod], n) for n in a.__all__].count(True) == 7\n"
+        "try:\n"
+        "    a.not_a_name\n"
+        "except AttributeError:\n"
+        "    print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=str(REPO))
+    assert proc.returncode == 0 and proc.stdout.split() == ["ok"], proc.stderr
