@@ -12,7 +12,11 @@ Phases, each printing its wall time and raising on failure:
    just built; fails on a non-zero exit, on any skip or on no test;
 4. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, in the main path's types, with times of the kernel, the
-   plain version and a library yardstick, and its bound; the gate kernel in
+   plain version and a library yardstick, and its bound; the narrow layer's
+   kernel at the main path's pixel layer (against float64 sums too), the
+   grayscale stack's narrow layers and odd widths, with the route it
+   replaced (cuDNN convs, upsample, adds, gate kernel) as its yardstick; the
+   gate kernel in
    both its contracts (the main path's bfloat16 one and the JAX function's
    float32 one), timed on the device (``device_ms``) beside the host's call
    rate (``call_ms``), at the s2d pixel layer's shape (8, 60, 80, 12), and
@@ -41,7 +45,8 @@ Phases, each printing its wall time and raising on failure:
    options: the predictor's options at the main path's shape with the
    bundled weights: ``s2d_l0``, ``subpixel_up`` and ``prednet_int8`` each
    through ``neat_illusion`` for two generations (22 gate and 66 fused
-   launches a generation, none under int8; finite fitness; s/generation)
+   launches a generation under s2d and subpixel, whose pixel layer keeps the
+   gate kernel, none under int8; finite fitness; s/generation)
    and one step of each on the card against the port on the CPU (the
    reference phase's rules); the main path with the program cache (CUDA
    graph replay, the default) and without it for four generations each,
@@ -72,7 +77,7 @@ Phases, each printing its wall time and raising on failure:
 12. parallel: ``parallel/`` on a mesh that repeats cuda:0 (one logical
    shard per entry): the sharded evaluator at the main path's shape for
    three generations (program cache on and off) against the unsharded
-   evaluator, with 22 gate and 66 fused launches per shard's eager pass
+   evaluator, with 22 narrow and 66 fused launches per shard's eager pass
    (on two real devices too where the machine has them, else one line
    says it could not); one data-parallel step of the train phase's recipe
    on two shards against one device (the train phase's rules); a spatial
@@ -88,12 +93,15 @@ Phases, each printing its wall time and raising on failure:
    fused kernel's strip width at each fused layer, s/generation with its
    eager, captured and replayed shard passes, the peak device memory, the
    launches and the best fitness; fails on a non-finite fitness, a best
-   fitness of 0 or launch counts that are not 22 and 66 per eager pass;
+   fitness of 0 or launch counts that are not 22 narrow and 66 fused per
+   eager pass;
 14. profile: device time by kernel and the number of kernel launches over
    one warm main-path generation, replayed as a CUDA graph (the default)
    and run eagerly (``program_cache=False``); in both the trace must hold
-   22 gate and 66 fused kernels, which in the replay no wrapper launched
-   (the graph recorded them at its capture);
+   22 narrow and 66 fused kernels and no gate kernel, which in the replay
+   no wrapper launched (the graph recorded them at its capture), and the
+   eager pass no upsampled copy of layer 1's R (the narrow kernel reads it
+   at half resolution);
 15. bisect: the kernel-bisection ladder (``scripts/kernel_bisect.py``) at
    its north-star layer-1 shape (``--big --rows 48``, all ten rungs);
    asserts each rung's launch count, then holds each of the seven rung
@@ -154,6 +162,17 @@ RAGGED_CASES = (
 STEPS = 22  # 20 open-loop + 2 closed-loop steps per chunk
 # the s2d pixel layer's gate step: C' = 4C = 12 at half the resolution
 S2D_GATES_SHAPE = (MAIN_BATCH, 60, 80, 12)
+# the narrow layer's kernel, (B, H, W, C, C_above): the main path's pixel
+# layer, the grayscale stack's (1,16,32,64) pixel layer and layer 1, a
+# narrow top layer; then odd widths (a coarse width of 19; R_above of 12
+# channels, staged element by element; no R_above at an odd H and W)
+NARROW_SHAPES = {
+    "main": (MAIN_BATCH, 120, 160, 3, 48),
+    "gray_pixel": (MAIN_BATCH, 120, 160, 1, 16),
+    "gray_layer1": (MAIN_BATCH, 60, 80, 16, 32),
+    "top": (MAIN_BATCH, 30, 40, 3, None),
+}
+NARROW_ODD = ((3, 26, 38, 3, 48), (2, 14, 22, 16, 12), (2, 9, 13, 1, None))
 
 # kernel vs plain version, both at bf16 inputs with float32 sums:
 GATES_TOL = 1e-5  # float32 elementwise math, last-ulp differences
@@ -178,12 +197,13 @@ ROLLOUT_MEAN_TOL = 2e-2
 CUDA_TESTS = "tests/test_torch_cuda.py"
 CUDA_TESTS_TIMEOUT_S = 300
 # the cli phase's run: the main path's shape, artifacts and a profiled
-# generation 1 (one chunk of 8, so 22 gate and 66 fused launches)
+# generation 1 (one chunk of 8, so 22 narrow and 66 fused launches)
 CLI_ARGS = ["-s", "1", "--generations", "2"]
 CLI_SHAPE = (120, 160, 3)
 OVERLAY_RED = (255, 0, 0)
-TRACE_KERNELS = {"fused_lstm_gates": ("lstm_gates_kernel", STEPS),
-                 "fused_convlstm_layer_multi": ("convlstm_fused_kernel", STEPS * 3)}
+TRACE_KERNELS = {"narrow_convlstm_layer": ("convlstm_narrow_kernel", STEPS),
+                 "fused_convlstm_layer_multi": ("convlstm_fused_kernel", STEPS * 3),
+                 "fused_lstm_gates": ("lstm_gates_kernel", 0)}
 # the probe phase: the color predictor at full width on the cli phase's
 # best.png, two probe rollouts and one file-bus rollout
 PROBE_CHANNELS = (3, 48, 96, 192)
@@ -534,6 +554,164 @@ def check_gates(gen):
                 **rows["main"], f32_contract=rows["f32"], s2d_shape=s2d)
 
 
+def _narrow_inputs(gen, B, H, W, C, C_above, params=None):
+    """Sources (E, R and R_above at half resolution, bfloat16 in [-1, 1] as
+    a rollout's are), packed weights, bias and bfloat16 c_prev of one
+    narrow layer: the bundled layer-0 weights where ``params`` is given,
+    else random ones drawn as ``init_params`` draws them (normal over the
+    square root of the fan-in, so gates of the bundled weights' size)."""
+    import torch
+
+    cins = [2 * C, C] + ([C_above] if C_above else [])
+    shapes = [(B, H, W, 2 * C), (B, H, W, C)] + ([(B, H // 2, W // 2, C_above)] if C_above
+                                                 else [])
+    srcs = [torch.rand(s, device="cuda", generator=gen).mul_(2).sub_(1).bfloat16() for s in shapes]
+    if params is not None:
+        p = params[0]
+        wks, b = [p[k] for k in ("lstm_k_e", "lstm_k_r", "lstm_k_up")], p["lstm_b"]
+    else:
+        from evolutionary_illusion_generator_tpu_torch.ops.convlstm_fused import pack_gate_weight
+
+        fan_in = 9 * sum(cins)
+        wks = [pack_gate_weight(torch.randn(3, 3, ci, 4 * C, device="cuda", generator=gen)
+                                .div_(math.sqrt(fan_in))) for ci in cins]
+        b = torch.randn(4 * C, device="cuda", generator=gen).mul_(0.3).bfloat16()
+    c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).bfloat16()
+    return srcs, wks, b, c_prev
+
+
+def _narrow_err(out, ref):
+    """Max abs error of bfloat16 (h, c) against the plain version's and the
+    largest share of elements that differ, held by the reference phase's
+    one-step rule: the two sum each source's products in another order, so
+    a source's bfloat16 conv may round the other way, a one-ulp flip of a
+    gate that moves h or c by about as much (STEP_ATOL), on at most
+    STEP_DIFF_SHARE of a tensor."""
+    err, share, same_type = 0.0, 0.0, True
+    for got, want in zip(out, ref):
+        d = (got.float() - want.float()).abs()
+        share = max(share, (d > 0).float().mean().item())
+        same_type = same_type and got.dtype == want.dtype
+        err = max(err, d.max().item())
+    return err, share, same_type and err <= STEP_ATOL and share <= STEP_DIFF_SHARE
+
+
+def _old_narrow_route(srcs, wks, b, c_prev):
+    """The narrow layer as the main path ran it before its kernel (the
+    ``use_pallas=True`` route): the upsampled copy of R_above, three cuDNN
+    bfloat16 convs, the bias and two adds in bfloat16, then the gate
+    kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
+
+    ws = [cf.unpack_gate_weight(wk).contiguous() for wk in wks]
+
+    def conv(x, w):
+        return F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+
+    def run():
+        gates = conv(srcs[0], ws[0]) + b
+        gates = gates + conv(srcs[1], ws[1])
+        if len(srcs) == 3:
+            gates = gates + conv(model._upsample2(srcs[2]), ws[2])
+        return cg.fused_lstm_gates(gates.contiguous(), c_prev, out_dtype=torch.bfloat16)
+    return run
+
+
+def check_narrow(gen, params):
+    """narrow_convlstm_layer (``csrc/convlstm_narrow.cu``) against its plain
+    version: at the main path's pixel layer (8, 120, 160, C 3, R_above 48
+    at 60x80, the bundled weights) in the main path's types, then in float32
+    compute and state against float64 sums (its c no further from them than
+    the plain version's); at the grayscale stack's pixel layer (C 1, R_above
+    16) and layer 1 (C 16 at 60x80, R_above 32), a narrow top layer, and odd
+    widths at every strip width the wrapper chooses from and odd ones.
+    Times the kernel on the device beside its bound, the plain version and
+    the route it replaced (cuDNN convs, the upsampled copy, the adds and the
+    gate kernel: the library time)."""
+    import torch
+    import torch.nn.functional as F
+
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_narrow as cn
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = {}
+    for label, (B, H, W, C, C_above) in NARROW_SHAPES.items():
+        srcs, wks, b, c_prev = _narrow_inputs(gen, B, H, W, C, C_above,
+                                              params if label == "main" else None)
+        call = lambda: cn.narrow_convlstm_layer(srcs, wks, b, c_prev)  # noqa: E731
+        out = call()
+        torch.cuda.synchronize()
+        err, share, ok = _narrow_err(out, cn.narrow_convlstm_layer_plain(
+            srcs, wks, b, c_prev, compute_dtype=bf16))
+        if not ok:
+            raise AssertionError(f"narrow_convlstm_layer {label} {(B, H, W, C, C_above)}: max "
+                                 f"abs err {err:.3e}, {share:.2%} of a tensor differ")
+        cins = [x.shape[-1] for x in srcs]
+        flops = 2.0 * B * H * W * 9 * sum(cins) * 4 * C
+        moved = nbytes(*srcs, *wks, b, c_prev, *out)
+        b_ms, b_by = bound_ms(flops, moved)
+        ms, per_call = device_ms(call, 200)
+        plain_ms = device_ms(lambda: cn.narrow_convlstm_layer_plain(
+            srcs, wks, b, c_prev, compute_dtype=bf16), 50)[0]
+        old = _old_narrow_route(srcs, wks, b, c_prev)
+        lib_ms, lib_kernels = device_ms(old, 200)
+        rows[label] = dict(max_abs_err=err, ms=ms, call_ms=cuda_ms(call, 200), plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        log(f"  narrow_convlstm_layer {label} {B}x{H}x{W} C={C} sources {cins}: err {err:.2e} "
+            f"({share:.3%} differ) device {ms * 1e3:.2f} us ({per_call:g} kernel a call), call "
+            f"rate {rows[label]['call_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
+            f"{moved / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP); plain device {plain_ms * 1e3:.2f} us; "
+            f"the route before (convs, upsample, adds, gate kernel) device {lib_ms * 1e3:.2f} us "
+            f"({lib_kernels:g} kernels)")
+
+    # float32 compute and state against float64 sums, at the main shape
+    B, H, W, C, C_above = NARROW_SHAPES["main"]
+    srcs, wks, b, _ = _narrow_inputs(gen, B, H, W, C, C_above, params)
+    c32 = torch.randn(B, H, W, C, device="cuda", generator=gen)
+    h, c = cn.narrow_convlstm_layer(srcs, wks, b, c32, compute_dtype=f32)
+    ref = cn.narrow_convlstm_layer_plain(srcs, wks, b, c32, compute_dtype=f32)
+    torch.cuda.synchronize()
+    eh, ec = ((x - y).abs().max().item() for x, y in zip((h, c), ref))
+    if not (eh <= C_TOL and ec <= C_TOL):
+        raise AssertionError(f"narrow_convlstm_layer float32: max abs err h {eh} c {ec}")
+    xs = [srcs[0], srcs[1], srcs[2].repeat_interleave(2, 1).repeat_interleave(2, 2)]
+    g64 = sum(F.conv2d(x.double().permute(0, 3, 1, 2), cf.unpack_gate_weight(wk).double(),
+                       padding=1) for x, wk in zip(xs, wks))
+    i, f, o, g = (g64.permute(0, 2, 3, 1) + b.double()).split(C, dim=-1)
+    c64 = torch.sigmoid(f) * c32.double() + torch.sigmoid(i) * torch.tanh(g)
+    drift, drift_p = ((t.double() - c64).abs().mean().item() for t in (c, ref[1]))
+    log(f"  narrow_convlstm_layer float32 compute and state: max abs err h {eh:.2e} c {ec:.2e}; "
+        f"mean |c - c_float64| kernel {drift:.3e} plain {drift_p:.3e}")
+    if not drift <= drift_p:
+        raise AssertionError(f"narrow_convlstm_layer: mean |c - c_float64| {drift:.3e} above the "
+                             f"plain version's {drift_p:.3e}")
+
+    # odd widths at every strip width the wrapper chooses from, and odd ones
+    for B, H, W, C, C_above in NARROW_ODD:
+        srcs, wks, b, c_prev = _narrow_inputs(gen, B, H, W, C, C_above)
+        ref = cn.narrow_convlstm_layer_plain(srcs, wks, b, c_prev, compute_dtype=bf16)
+        worst = 0.0
+        for tw in sorted(set(cf.tile_candidates(W)) | {3, 7}):
+            err, share, ok = _narrow_err(cn.launch(srcs, wks, b, c_prev, bf16, stream, tw=tw), ref)
+            if not ok:
+                raise AssertionError(f"narrow_convlstm_layer {(B, H, W, C, C_above)} tw={tw}: "
+                                     f"max abs err {err:.3e}, {share:.2%} differ")
+            worst = max(worst, err)
+        log(f"  narrow_convlstm_layer {B}x{H}x{W} C={C} R_above {C_above}: max abs err "
+            f"{worst:.2e} at tw {sorted(set(cf.tile_candidates(W)) | {3, 7})}")
+    return dict(route="cuda",
+                source="evolutionary_illusion_generator_tpu_torch/csrc/convlstm_narrow.cu",
+                replaces="evolutionary_illusion_generator_tpu/ops/convlstm_pallas.py:57",
+                **rows["main"], grayscale={k: v for k, v in rows.items() if k != "main"})
+
+
 @phase("kernels")
 def check_kernels(params):
     import torch
@@ -542,7 +720,8 @@ def check_kernels(params):
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {"fused_lstm_gates": check_gates(gen)}
+    results = {"fused_lstm_gates": check_gates(gen),
+               "narrow_convlstm_layer": check_narrow(gen, params)}
     stream = torch.cuda.current_stream().cuda_stream
 
     def check_out(label, out, ref):
@@ -727,9 +906,11 @@ def _wrappers():
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_bisect as cb
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_narrow as cn
 
     out = {
         "fused_lstm_gates": cg.fused_lstm_gates,
+        "narrow_convlstm_layer": cn.narrow_convlstm_layer,
         "fused_convlstm_layer_multi": cf.fused_convlstm_layer_multi,
         "fused_convlstm_layer": cf.fused_convlstm_layer,
     }
@@ -747,12 +928,15 @@ def _counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def _check_generations(label, generations, steps, records, out, kernels=True):
+def _check_generations(label, generations, steps, records, out, kernels=True,
+                       pixel="narrow_convlstm_layer"):
     """The generation count, finite fitness, and each generation's launch
     counts (of a run that wrote ``out``/metrics.jsonl, its generations in
-    ``records``): ``steps`` gate and 3 ``steps`` fused launches for each
-    chunk run eagerly, none for a chunk replayed as a CUDA graph (its
-    kernels run, but no wrapper launches them) or without ``kernels``."""
+    ``records``): ``steps`` launches of the pixel layer's wrapper (``pixel``:
+    the narrow kernel's, or the gate kernel's under s2d and subpixel) and 3
+    ``steps`` fused launches for each chunk run eagerly, none for a chunk
+    replayed as a CUDA graph (its kernels run, but no wrapper launches them)
+    or without ``kernels``."""
     with open(os.path.join(out, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     if not len(recs) == len(records) == generations:
@@ -760,8 +944,7 @@ def _check_generations(label, generations, steps, records, out, kernels=True):
     for gen, r in enumerate(records):
         eager = (r["chunks"] - r["replays"]) if kernels else 0
         want = dict.fromkeys(r["launches"], 0)
-        want.update({"fused_lstm_gates": eager * steps,
-                     "fused_convlstm_layer_multi": eager * steps * 3})
+        want.update({pixel: eager * steps, "fused_convlstm_layer_multi": eager * steps * 3})
         if r["launches"] != want:
             raise AssertionError(f"{label}: generation {gen} kernel launches {r['launches']}, "
                                  f"expected {want} ({r['chunks']} chunks, {r['replays']} "
@@ -777,7 +960,8 @@ def _check_generations(label, generations, steps, records, out, kernels=True):
     return recs
 
 
-def run_generations(label, generations, steps, kernels=True, **kwargs):
+def run_generations(label, generations, steps, kernels=True, pixel="narrow_convlstm_layer",
+                    **kwargs):
     """``neat_illusion`` on the card, without artifacts; checks the launch
     counts, finite fitness and the generation count.  Returns the launch
     counts, the metrics records and each generation's record
@@ -790,7 +974,7 @@ def run_generations(label, generations, steps, kernels=True, **kwargs):
         pop = neat_illusion(out, None, generations=generations, seed=0,
                             save_artifacts=False, quiet=True, device="cuda", **kwargs)
         counts = _counts()
-        recs = _check_generations(label, generations, steps, records, out, kernels)
+        recs = _check_generations(label, generations, steps, records, out, kernels, pixel)
     log(f"  {label} launches {counts}")
     if pop.generation != generations:
         raise AssertionError(f"{label}: ran {pop.generation} generations")
@@ -929,7 +1113,7 @@ def probe_run(png, card):
     counts = _counts()
     torch.cuda.synchronize()
     want = dict.fromkeys(counts, 0)
-    want.update({"fused_lstm_gates": PROBE_ROLLOUTS * STEPS,
+    want.update({"narrow_convlstm_layer": PROBE_ROLLOUTS * STEPS,
                  "fused_convlstm_layer_multi": PROBE_ROLLOUTS * STEPS * 3})
     if counts != want:
         raise AssertionError(f"probe: kernel launches {counts}, expected {want}")
@@ -1072,8 +1256,9 @@ def options_phase(params, png, card):
     params_cpu = load_or_init(None, PROBE_CHANNELS, device="cpu")
     for name, opt in OPTIONS:
         int8 = "prednet_int8" in opt
-        with _eval_options(**opt):
-            counts, recs, _ = run_generations(name, 2, STEPS, kernels=not int8, **main)
+        with _eval_options(**opt):  # s2d and subpixel keep the gate kernel at layer 0
+            counts, recs, _ = run_generations(name, 2, STEPS, kernels=not int8,
+                                              pixel="fused_lstm_gates", **main)
         add(counts)
         log(f"  {name} s/generation (generation 1): {recs[1]['eval_seconds']:.4f} ({card})")
         if int8:  # the codes quantised on the card equal the CPU's
@@ -1152,7 +1337,7 @@ def options_phase(params, png, card):
     add(_counts())
 
     # the probe's --int8 and --s2d on the cli phase's best.png
-    for flag, want in (("int8", 0), ("s2d", STEPS)):
+    for flag, want in (("int8", 0), ("s2d", STEPS)):  # s2d: the gate kernel at layer 0
         _reset_counts()
         out = io.StringIO()
         t0 = time.time()
@@ -1211,7 +1396,7 @@ def scorers(params, card):
         runs[name] = (scores, host, res["vectors"], dict(ev.last_timings))
     counts = _counts()
     want = dict.fromkeys(counts, 0)
-    want.update({"fused_lstm_gates": len(SCORER_BACKENDS) * SCORER_STEPS,
+    want.update({"narrow_convlstm_layer": len(SCORER_BACKENDS) * SCORER_STEPS,
                  "fused_convlstm_layer_multi": len(SCORER_BACKENDS) * SCORER_STEPS * 3})
     if counts != want:
         raise AssertionError(f"scorers: kernel launches {counts}, expected {want}")
@@ -1559,7 +1744,7 @@ def _sharded_generations(params, devices, label):
             row[name] = (matched, dv, df, exact and bool(np.array_equal(got, want)), launched)
             if name == "eager":
                 chunks = len(res["outputs"]._chunks)
-                expect = {"fused_lstm_gates": chunks * n * STEPS,
+                expect = {"narrow_convlstm_layer": chunks * n * STEPS,
                           "fused_convlstm_layer_multi": chunks * n * 3 * STEPS}
                 if launched != expect:
                     raise AssertionError(f"parallel ({label}): eager launches {launched}, "
@@ -1764,14 +1949,14 @@ def _recorded_sharded_generations(records):
     import torch
 
     from evolutionary_illusion_generator_tpu_torch import parallel
-    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_narrow as cn
 
     sharded = parallel.ShardedGenerationEvaluator
 
     class Recording(sharded):
         def __call__(self, *a, **kw):
             counts, replays = _counts(), self._programs.replays
-            captured = cg.fused_lstm_gates.captured
+            captured = cn.narrow_convlstm_layer.captured
             torch.cuda.synchronize()
             t0 = time.time()
             scores = super().__call__(*a, **kw)
@@ -1781,7 +1966,7 @@ def _recorded_sharded_generations(records):
                 seconds=time.time() - t0, fitness=list(map(float, scores)),
                 passes=sum(len(c) for c in res["outputs"]._chunks),
                 replays=self._programs.replays - replays,
-                captures=int(cg.fused_lstm_gates.captured != captured),
+                captures=int(cn.narrow_convlstm_layer.captured != captured),
                 launches={k: v - counts[k] for k, v in _counts().items() if v != counts[k]}))
             return scores
 
@@ -1800,7 +1985,8 @@ def composition_phase(card):
     kernel's strip width at each fused layer, s/generation with the shard
     passes run eagerly, captured and replayed, the peak device memory, the
     launches and the best fitness; fails on a non-finite fitness, a best
-    fitness of 0 or launches that are not 22 and 66 per eager pass."""
+    fitness of 0 or launches that are not 22 narrow and 66 fused per eager
+    pass."""
     import numpy as np
     import torch
 
@@ -1832,7 +2018,8 @@ def composition_phase(card):
                 and max(r["fitness"]) > 0.0):
             raise AssertionError(f"composition: generation {gen} fitness {r['fitness']}")
         eager = r["passes"] - r["replays"]
-        want = {"fused_lstm_gates": eager * STEPS, "fused_convlstm_layer_multi": eager * 3 * STEPS}
+        want = {"narrow_convlstm_layer": eager * STEPS,
+                "fused_convlstm_layer_multi": eager * 3 * STEPS}
         if r["launches"] != want:
             raise AssertionError(f"composition: generation {gen} launches {r['launches']}, "
                                  f"expected {want}")
@@ -1865,6 +2052,7 @@ def profile_generation(params):
     cfg = preset("circles")
     items = list(Population(cfg, seed=0).population.items())
     want = {name: n for name, (_, n) in TRACE_KERNELS.items()}
+    launched = {name: n for name, n in want.items() if n}  # what the wrappers count
     for label, on in (("CUDA graph replay", True), ("eager", False)):
         evaluator = GenerationEvaluator(EvalConfig(program_cache=on), params, cfg,
                                         device="cuda")
@@ -1895,14 +2083,31 @@ def profile_generation(params):
         if on:
             graphs = [g for g in evaluator._programs.graphs.values() if g is not None]
             if not (len(graphs) == 1 and evaluator._programs.replays == replays + 1
-                    and graphs[0].recorded == want and not counts):
+                    and graphs[0].recorded == launched and not counts):
                 raise AssertionError(
                     f"profile: {len(graphs)} captured graphs, "
                     f"{evaluator._programs.replays - replays} replays, recorded "
                     f"{[g.recorded for g in graphs]}, wrapper launches {counts}; expected one "
-                    f"replay of a graph that recorded {want} and no wrapper launch")
-        elif counts != want:
-            raise AssertionError(f"profile (eager): wrapper launches {counts}, expected {want}")
+                    f"replay of a graph that recorded {launched} and no wrapper launch")
+        elif counts != launched:
+            raise AssertionError(f"profile (eager): wrapper launches {counts}, expected "
+                                 f"{launched}")
+        else:
+            # the narrow kernel reads layer 1's R at half resolution: no op of
+            # the pass takes the upsample's expanded (B, H/2, 2, W/2, 2, C1)
+            # view of it (the replay runs the kernels its capture recorded)
+            B, (H, W) = MAIN_BATCH, (120, 160)
+            view = [B, H // 2, 2, W // 2, 2, 48]
+            with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as shapes:
+                evaluator(items)
+                torch.cuda.synchronize()
+            ups = [e.key for e in shapes.key_averages(group_by_input_shape=True)
+                   if view in list(e.input_shapes)]
+            if ups:
+                raise AssertionError(f"profile (eager): ops on the upsampled layer-1 R {view}: "
+                                     f"{ups}")
+            log(f"    no op takes the upsampled layer-1 R {view}; narrow kernels a chunk "
+                f"{ran['narrow_convlstm_layer']}, gate kernels {ran['fused_lstm_gates']}")
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
             log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
@@ -1922,7 +2127,7 @@ def bisect():
     kb.main(BISECT_ARGS)
     counts = _counts()
     want = dict.fromkeys(counts, 1 + kb.LOOP_OPS * (1 + kb.REPS))
-    want["fused_convlstm_layer_multi"] = 0
+    want["fused_convlstm_layer_multi"] = want["narrow_convlstm_layer"] = 0  # not on the ladder
     if counts != want:
         raise AssertionError(f"bisect: kernel launches {counts}, expected {want}")
     log(f"  bisect launches {counts}")

@@ -60,6 +60,236 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned* r, unsigned addr) {
                : "memory");
 }
 
+// ---- the implicit-GEMM 3x3 SAME conv of csrc/convlstm_fused.cu and
+// csrc/convlstm_narrow.cu (sm_80 and up; the design is set out in
+// convlstm_fused.cu).  M = output pixels, N = gate outputs, K = 9 taps x the
+// sources' channels.  A block owns TM pixels of the tile mapping and NOUT
+// outputs (n = 4 (c - c0) + gate), and walks K chunk by chunk, 16 input
+// channels of one source at a time, the sources one after another.
+
+namespace igemm {
+
+constexpr int TM = 128;               // output pixels per block
+constexpr int KC = 16;                // input channels per chunk: one k16 step per tap
+constexpr int KP = KC + 8;            // slab pixel row, padded to 48 bytes (bank spread)
+constexpr int KW = KC;                // weight rows: 32 bytes, 16-byte halves swizzled
+constexpr int WARPS_M = 4;            // warps across the pixels; the rest across N
+constexpr int MT = TM / 16 / WARPS_M; // m16 tiles per warp
+constexpr int STAGES = 2;             // chunks in flight
+constexpr int MAX_SOURCES = 3;
+
+struct Source {
+  const __nv_bfloat16* x;  // (B, H, W, cin); coarse: (B, H/2, W/2, cin)
+  const __nv_bfloat16* w;  // (9, C, 4, cin): [tap][channel][gate][input channel]
+  int cin;
+  int chunks;  // ceil(cin / KC)
+  int vec;     // cin % 8 == 0 and x, w 16-byte aligned: stage with cp.async
+  int coarse;  // read at (row / 2, column / 2): H and W even
+};
+
+// The tile mapping: the image columns cut into strips tw wide, each strip's
+// pixels taken in (image, row, column) order over the batch, TM at a time.
+struct Tiling {
+  int H, W, C;
+  int rows;             // B * H: the batch's rows, image after image
+  int tw;               // strip width
+  int tiles_per_strip;  // ceil(rows * tw / TM)
+  int slab_h, slab_w;   // halo slab: tile rows + 2, tw + 2
+};
+
+inline Tiling make_tiling(int B, int H, int W, int C, int tw) {
+  Tiling t;
+  t.H = H;
+  t.W = W;
+  t.C = C;
+  t.rows = B * H;
+  t.tw = tw;
+  t.tiles_per_strip = (int)(((long long)t.rows * tw + TM - 1) / TM);
+  // rows a tile spans: TM / tw when tiles start on a row, else up to one more
+  const int tile_rows = TM % tw == 0 ? TM / tw : (TM + tw - 2) / tw + 1;
+  t.slab_h = tile_rows + 2;
+  t.slab_w = tw + 2;
+  return t;
+}
+
+// blocks along the pixels: strips x tiles per strip
+inline int pixel_blocks(const Tiling& t) { return ((t.W + t.tw - 1) / t.tw) * t.tiles_per_strip; }
+
+// dynamic shared memory: the stages of NOUT outputs, or the epilogue's TM
+// rows of ep floats, whichever is larger (the epilogue reuses the stages)
+inline int smem_bytes(const Tiling& t, int nout, int ep) {
+  const int stages = 2 * (STAGES * (9 * nout * KW + t.slab_h * t.slab_w * KP) + KP);
+  return stages > TM * ep * 4 ? stages : TM * ep * 4;
+}
+
+inline bool aligned16(const void* ptr) { return reinterpret_cast<std::uintptr_t>(ptr) % 16 == 0; }
+
+// src[s] for s < n_src from the entry's arguments, source `coarse_src` read
+// at half resolution; adds their chunks to n_chunks.  False if a cin < 1.
+inline bool make_sources(Source (&src)[MAX_SOURCES], int& n_chunks, const void* const* xs,
+                         const void* const* ws, const int* cins, int n_src, int coarse_src) {
+  for (int s = 0; s < n_src; ++s) {
+    if (cins[s] < 1) return false;
+    const int chunks = (cins[s] + KC - 1) / KC;
+    src[s] = Source{(const __nv_bfloat16*)xs[s], (const __nv_bfloat16*)ws[s], cins[s], chunks,
+                    cins[s] % 8 == 0 && aligned16(xs[s]) && aligned16(ws[s]), s == coarse_src};
+    n_chunks += chunks;
+  }
+  return true;
+}
+
+// The block's tile: its first pixel in its strip, the strip's first
+// column, and the tile's first row (the slab starts one above).
+struct Block {
+  int q0, x0, r0;
+};
+__device__ __forceinline__ Block block_tile(const Tiling& t) {
+  const int strip = blockIdx.x / t.tiles_per_strip;
+  const int q0 = (blockIdx.x % t.tiles_per_strip) * TM;
+  return Block{q0, strip * t.tw, q0 / t.tw};
+}
+
+// acc (the warp's MT x NTW mma tiles; NT threads, warps WARPS_M across the
+// pixels) += the block's conv over chunks 0 .. n_chunks of the sources, for
+// the NOUT outputs of channels c0 .. c0 + NOUT / 4.  Per chunk, staged with
+// cp.async two chunks deep and one barrier a chunk:
+//   - the 9 x NOUT x 16 weight slice (a chunk of input channels of one
+//     output is 32 contiguous bytes), its two 16-byte halves swapped on
+//     every other group of four rows so that the 8 rows of an ldmatrix fall
+//     in distinct banks;
+//   - the halo slab of the block's pixels, read in place from the unpadded
+//     source (at (row / 2, column / 2) of a coarse one when kCoarse): the
+//     SAME padding and the ragged channel edge are the zero-filling form of
+//     cp.async, or element by element where a source is not `vec`.  Its
+//     rows are padded from 16 to 24 values (48 bytes): a tap's 8 pixels are
+//     neighbours in the slab.
+// A tap whose row lies outside the pixel's own image reads a zero row.
+// after_tap() runs after each tap's products, after_chunk(kc) after chunk
+// kc's.  The caller syncs before it reuses the shared memory.
+template <int NOUT, int NT, int NTW, bool kCoarse, typename AfterTap, typename AfterChunk>
+__device__ __forceinline__ void conv3x3(unsigned char* smem, const Source (&src)[MAX_SOURCES],
+                                        int n_chunks, const Tiling& t, const Block& blk, int c0,
+                                        float (&acc)[MT][NTW][4], AfterTap after_tap,
+                                        AfterChunk after_chunk) {
+  static_assert(NTW % 2 == 0, "B fragments load two n8 tiles at a time");
+  constexpr int WS_ELEMS = 9 * NOUT * KW;  // bfloat16 per weight stage
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][9][NOUT][KW]
+  __nv_bfloat16* xs = ws + STAGES * WS_ELEMS;                    // [STAGES][slab_h][slab_w][KP]
+  const int slab_px = t.slab_h * t.slab_w;
+  __nv_bfloat16* zero_px = xs + STAGES * slab_px * KP;           // one pixel of zeros
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+
+  if (tid < KP) zero_px[tid] = zero;
+
+  auto stage = [&](int s, int kc) {
+    // chunk kc -> (source, chunk of that source); selects, not an indexed
+    // read of the parameter struct
+    int si = 0;
+    if (kc >= src[0].chunks) kc -= src[0].chunks, si = 1;
+    if (si == 1 && kc >= src[1].chunks) kc -= src[1].chunks, si = 2;
+    const Source sr = si == 0 ? src[0] : (si == 1 ? src[1] : src[2]);
+    const int k0 = kc * KC;
+    // weights: row n of tap `tap` is w[tap][c0 + n / 4][n % 4][k0 .. k0 + 16),
+    // two 16-byte pieces, swapped in rows with n & 4
+    for (int i = tid; i < 9 * NOUT * 2; i += NT) {
+      const int half = i & 1, row = i >> 1;
+      const int n = row % NOUT, tap = row / NOUT;
+      const int c = c0 + n / 4, k = k0 + 8 * half;
+      __nv_bfloat16* dst = ws + ((s * 9 + tap) * NOUT + n) * KW + 8 * (half ^ ((n >> 2) & 1));
+      const __nv_bfloat16* g = sr.w + (((long long)tap * t.C + c) * 4 + n % 4) * sr.cin + k;
+      if (sr.vec) {
+        const bool valid = c < t.C && k < sr.cin;
+        cp_async16(dst, valid ? g : sr.w, valid);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dst[e] = (c < t.C && k + e < sr.cin) ? g[e] : zero;
+      }
+    }
+    // the halo slab: rows r0 - 1 .., columns x0 - 1 .. x0 + tw of the batch
+    for (int i = tid; i < slab_px * 2; i += NT) {
+      const int half = i & 1, px = i >> 1;
+      const int row = blk.r0 - 1 + px / t.slab_w, col = blk.x0 - 1 + px % t.slab_w;
+      const int k = k0 + 8 * half;
+      const bool inside = row >= 0 && row < t.rows && col >= 0 && col < t.W;
+      const long long pix = kCoarse && sr.coarse ? (long long)(row >> 1) * (t.W >> 1) + (col >> 1)
+                                                 : (long long)row * t.W + col;
+      const __nv_bfloat16* g = sr.x + pix * sr.cin + k;
+      __nv_bfloat16* dst = xs + (s * slab_px + px) * KP + 8 * half;
+      if (sr.vec) {
+        const bool valid = inside && k < sr.cin;
+        cp_async16(dst, valid ? g : sr.x, valid);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dst[e] = (inside && k + e < sr.cin) ? g[e] : zero;
+      }
+    }
+    cp_async_commit();
+  };
+
+  // A operand: lane 8 j + i gives row i of matrix j; matrices are (pixels
+  // 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) of an m16 tile.
+  // Per m16 tile: the slab pixel at the top-left of the lane's pixel's 3x3
+  // window, and whether the rows above / below it lie outside its image.
+  int a_win[MT];
+  bool a_top[MT], a_bot[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int m = (wm * MT + mt) * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+    const int q = blk.q0 + m;
+    const int row = q / t.tw, xin = q % t.tw;
+    a_win[mt] = (row - blk.r0) * t.slab_w + xin;
+    const int y = row % t.H;
+    a_top[mt] = y == 0;
+    a_bot[mt] = y == t.H - 1;
+  }
+  const unsigned a_khalf = 16u * (lane >> 4);  // bytes
+  const unsigned xs_addr = smem_addr(xs), zero_addr = smem_addr(zero_px) + a_khalf;
+  // B operand: matrices (n8 tile 2 j', k 0-7), (2 j', k 8-15), (2 j' + 1, k
+  // 0-7), (2 j' + 1, k 8-15) for the pair j' of the warp's n8 tiles
+  const int b_n = wn * NTW * 8 + 8 * (lane >> 4) + (lane & 7);
+  const int b_half = ((lane >> 3) ^ (lane >> 2)) & 1;  // the k half, swapped as staged
+  const unsigned b_addr = smem_addr(ws) + (b_n * KW + 8 * b_half) * 2;
+
+  stage(0, 0);  // every source has at least one chunk
+  for (int kc = 0; kc < n_chunks; ++kc) {
+    const int s = kc & 1;
+    cp_async_wait<0>();  // chunk kc has landed ...
+    __syncthreads();     // ... for every thread, and chunk kc - 1's slot is free
+    if (kc + 1 < n_chunks) stage(s ^ 1, kc + 1);  // lands while chunk kc is computed
+    const unsigned xs_s = xs_addr + (unsigned)(s * slab_px * KP * 2) + a_khalf;
+    const unsigned ws_s = b_addr + (unsigned)(s * WS_ELEMS * 2);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+      unsigned a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const bool off = (ky == 0 && a_top[mt]) || (ky == 2 && a_bot[mt]);
+        const unsigned addr = xs_s + (unsigned)((a_win[mt] + ky * t.slab_w + kx) * KP * 2);
+        ldmatrix_x4(a[mt], off ? zero_addr : addr);
+      }
+#pragma unroll
+      for (int j = 0; j < NTW / 2; ++j) {
+        unsigned b[4];
+        ldmatrix_x4(b, ws_s + (unsigned)((tap * NOUT + 16 * j) * KW * 2));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16816(acc[mt][2 * j], a[mt], b);
+          mma16816(acc[mt][2 * j + 1], a[mt], b + 2);
+        }
+      }
+      after_tap();
+    }
+    after_chunk(kc);
+  }
+}
+
+}  // namespace igemm
+
 // ---- the warpgroup tensor-core building blocks (sm_90a)
 
 // Shared memory written by threads (st.shared or cp.async) is read by wgmma

@@ -11,13 +11,17 @@
 // loop, reading each operand once and writing h and c once — no intermediate
 // touches device memory.  The four gate loads of a thread are C values apart;
 // neighbouring threads take neighbouring channels, so each of the five loads
-// and two stores is coalesced across the warp.  At the main path's shape
+// and two stores is coalesced across the warp.  At the pixel layer's shape
 // (8 x 120 x 160, C = 3) the float32 contract takes 4.6 us on the device
-// against a 3.6 us bound (PERF.md), so the body is kept as it was.
+// against a 3.6 us bound (PERF.md), so the body is kept as it was.  The main
+// path's narrow layers run csrc/convlstm_narrow.cu instead, which does this
+// math after their gate convolutions in the same kernel; this one serves
+// the routes whose gates arrive precomputed (s2d, subpixel_up,
+// use_pallas=True).
 //
 // Types are template parameters: gates float32 or bfloat16, c_prev float32
-// or bfloat16, h and c float32 (the JAX function's contract) or bfloat16 (the
-// main path's state: the kernel then reads the bfloat16 conv output as it is
+// or bfloat16, h and c float32 (the JAX function's contract) or bfloat16 (a
+// bfloat16 state: the kernel then reads the bfloat16 conv output as it is
 // and writes the state, which saves the float32 copy of the gates and the two
 // state casts that would surround it).  The math is float32 with expf and
 // tanhf, as the plain version; bfloat16 values are widened exactly, and h and

@@ -29,22 +29,28 @@ evaluator's route):
     over E, R and the upsampled R_above — the JAX ``use_pallas="fused"``
     math: bfloat16 sources and weights, float32 accumulation and gates,
     ``h`` in the state dtype, ``c`` float32 then cast to the state dtype;
-  - narrow layers (layer 0, C = 3 or 1): split ``F.conv2d`` gate convs in
-    the compute dtype, then :func:`..ops.convlstm_gates.fused_lstm_gates`
-    on their sum as it is, writing h and c in the state dtype — the JAX
-    ``use_pallas=True`` math (float32 gate math on the gates widened to
-    float32, h and c then cast to the state dtype), with the widening and
-    the casts inside the kernel;
+  - narrow layers (``C < 32``: layer 0, C = 3 or 1, and layer 1 of
+    ``1,16,32,64``) with bfloat16 weights, a float32 or bfloat16 compute
+    dtype, no s2d pixel layer and no ``subpixel_up``:
+    :func:`..ops.convlstm_narrow.narrow_convlstm_layer`, one kernel over E,
+    R and R_above read at half resolution — the JAX ``use_pallas=True``
+    math (each source's conv in the compute dtype, their sum in it, float32
+    gate math on the gates widened to float32, h and c cast to the state
+    dtype);
+  - other narrow layers: split ``F.conv2d`` gate convs in the compute
+    dtype, then :func:`..ops.convlstm_gates.fused_lstm_gates` on their sum
+    as it is, writing h and c in the state dtype — the same math, with the
+    widening and the casts inside the gate kernel;
 
-* ``True``: the narrow layers' route on every layer;
+* ``True``: split gate convs and the gate kernel on every layer;
 * ``False`` (the JAX default, which the trainer differentiates): split
   per-source ``F.conv2d`` gate convs in the compute dtype and the plain
   gate math (:func:`_lstm_gates`) in the gates' dtype, on every layer.
   It launches no kernel.
 
 A layer with peepholes takes the plain gate math on every route.  On CUDA
-tensors the two wrappers launch their kernels; on CPU tensors they run
-their plain versions.  Neither kernel has a backward (the JAX kernels have
+tensors the three wrappers launch their kernels; on CPU tensors they run
+their plain versions.  No kernel has a backward (the JAX kernels have
 no VJP either), so the wrappers refuse, on every device, inputs that
 require a gradient while grad mode is on: a loss differentiated through
 ``"fused"`` or ``True`` raises instead of silently leaving the weights of
@@ -72,6 +78,7 @@ The JAX package's layout options, off by default:
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -80,6 +87,8 @@ import torch.nn.functional as F
 
 from ...ops.convlstm_fused import fused_convlstm_layer_multi
 from ...ops.convlstm_gates import fused_lstm_gates
+from ...ops.convlstm_narrow import COMPUTE_DTYPES as NARROW_COMPUTE_DTYPES
+from ...ops.convlstm_narrow import narrow_convlstm_layer
 from ...utils import prng
 from .loader import DERIVED_PREFIXES, PredNetParams, params_from_numpy
 
@@ -263,19 +272,42 @@ def _conv_q(x, wq, ws, b, out_dtype):
 # ---- convs ----------------------------------------------------------------
 
 
-def _conv(x, w, b, out_dtype, pad=None):
+@contextlib.contextmanager
+def _without_cudnn():
+    """cuDNN off for the block, every other cuDNN setting left as it is
+    (``torch.backends.cudnn.flags`` would reset them)."""
+    cudnn = torch.backends.cudnn
+    saved, cudnn.enabled = cudnn.enabled, False
+    try:
+        yield
+    finally:
+        cudnn.enabled = saved
+
+
+def _conv(x, w, b, out_dtype, pad=None, cudnn=True):
     """NHWC conv of ``x`` rounded to the weight dtype, OIHW ``w``, output in
     ``out_dtype`` (the JAX ``_conv``: inputs in the weight dtype, result in
     ``preferred_element_type``).  Where either side is float32 the conv runs
     in float32, so bfloat16 weights with a float32 output keep float32 sums.
-    SAME padding for a 3x3 ``w``; ``pad`` is an ``F.pad`` tuple instead."""
+    SAME padding for a 3x3 ``w``; ``pad`` is an ``F.pad`` tuple instead.
+
+    ``cudnn=False`` (the plain route's convs): a float32 conv on the card
+    runs PyTorch's own CUDA conv, not cuDNN.  cuDNN's heuristics pick its FFT
+    algorithm for some float32 shapes of that route (layer 3's Ahat conv at
+    120x160, batch 2: an 18.4 GiB workspace and 0.25-0.42 s a call, against
+    0.96 ms and 0.18 GiB without cuDNN on an H100).  PyTorch's conv is
+    deterministic; the backward of a trained conv is chosen when it runs,
+    under the trainer's deterministic cuDNN mode.  The CPU and the bfloat16
+    convs are the same either way."""
     x = x.to(w.dtype)
     acc = torch.float32 if torch.float32 in (w.dtype, out_dtype) else w.dtype
     xn = x.permute(0, 3, 1, 2).to(acc)
-    if pad is None:
-        y = F.conv2d(xn, w.to(acc), padding=1)
-    else:
-        y = F.conv2d(F.pad(xn, pad), w.to(acc))
+    off = not cudnn and acc == torch.float32 and xn.is_cuda
+    with _without_cudnn() if off else contextlib.nullcontext():
+        if pad is None:
+            y = F.conv2d(xn, w.to(acc), padding=1)
+        else:
+            y = F.conv2d(F.pad(xn, pad), w.to(acc))
     y = y.permute(0, 2, 3, 1).to(out_dtype)
     return y if b is None else y + b.to(out_dtype)
 
@@ -309,13 +341,14 @@ def _subpixel_taps(w):
     return torch.stack(taps)
 
 
-def _upconv_subpixel(x, taps, out_dtype):
+def _upconv_subpixel(x, taps, out_dtype, cudnn=True):
     """conv3x3(upsample2(x)) without the upsampled copy (the JAX
     ``_upconv_subpixel``): four 2x2 convs of the coarse ``x`` with the tap
     pairs of :func:`_subpixel_taps`, interleaved by parity.  Zero SAME
     padding commutes with the upsample; the padding of parity (dy, dx) is
-    ``((1 - dy, dy), (1 - dx, dx))``."""
-    outs = [_conv(x, taps[2 * dy + dx], None, out_dtype, pad=(1 - dx, dx, 1 - dy, dy))
+    ``((1 - dy, dy), (1 - dx, dx))``.  ``cudnn`` as :func:`_conv`'s."""
+    outs = [_conv(x, taps[2 * dy + dx], None, out_dtype, pad=(1 - dx, dx, 1 - dy, dy),
+                  cudnn=cudnn)
             for dy in range(2) for dx in range(2)]
     b, h, w, c = outs[0].shape
     z = torch.stack(outs).reshape(2, 2, b, h, w, c).permute(2, 3, 0, 4, 1, 5)
@@ -494,22 +527,22 @@ def _lstm_gates(gates, c_prev, peephole=None):
     return o * torch.tanh(c), c
 
 
-def _gate_convs(p, s, r_above, cd, s2d_here, subpixel_up):
+def _gate_convs(p, s, r_above, cd, s2d_here, subpixel_up, cudnn=True):
     """The split gate convs of a layer off the fused kernel: E, R and
-    R_above, in the compute dtype."""
+    R_above, in the compute dtype; ``cudnn`` as :func:`_conv`'s."""
     if s2d_here:
-        gates = _conv(s["e"], p["s2d_w_e"], p["s2d_b"], cd)
-        gates = gates + _conv(s["r"], p["s2d_w_r"], None, cd)
+        gates = _conv(s["e"], p["s2d_w_e"], p["s2d_b"], cd, cudnn=cudnn)
+        gates = gates + _conv(s["r"], p["s2d_w_r"], None, cd, cudnn=cudnn)
         if r_above is not None:  # the upsample is folded into the tiled kernel
-            gates = gates + _conv(r_above, p["s2d_w_up"], None, cd)
+            gates = gates + _conv(r_above, p["s2d_w_up"], None, cd, cudnn=cudnn)
         return gates
-    gates = _conv(s["e"], p["lstm_w_e"], p["lstm_b"], cd)
-    gates = gates + _conv(s["r"], p["lstm_w_r"], None, cd)
+    gates = _conv(s["e"], p["lstm_w_e"], p["lstm_b"], cd, cudnn=cudnn)
+    gates = gates + _conv(s["r"], p["lstm_w_r"], None, cd, cudnn=cudnn)
     if r_above is not None:
         if subpixel_up:
-            gates = gates + _upconv_subpixel(r_above, p["sub_w_up"], cd)
+            gates = gates + _upconv_subpixel(r_above, p["sub_w_up"], cd, cudnn=cudnn)
         else:
-            gates = gates + _conv(_upsample2(r_above), p["lstm_w_up"], None, cd)
+            gates = gates + _conv(_upsample2(r_above), p["lstm_w_up"], None, cd, cudnn=cudnn)
     return gates
 
 
@@ -555,6 +588,7 @@ def prednet_step(params, state, frame, *, use_pallas: Union[bool, str] = "fused"
     L = len(params)
     dtype = state[0]["r"].dtype
     cd = compute_dtype
+    cudnn = use_pallas is not False  # the plain route's float32 convs run without it
 
     new_state = [dict(s) for s in state]
     r_above: Optional[torch.Tensor] = None
@@ -582,8 +616,18 @@ def prednet_step(params, state, frame, *, use_pallas: Union[bool, str] = "fused"
                 srcs.append(_upsample2(r_above).to(torch.bfloat16))
                 wks.append(p["lstm_k_up"])
             h, c = fused_convlstm_layer_multi(srcs, wks, p["lstm_b"], s["c"])
+        elif (use_pallas == "fused" and peephole is None and not s2d_here and not subpixel_up
+              and p["lstm_w_e"].dtype == torch.bfloat16 and cd in NARROW_COMPUTE_DTYPES
+              and s["c"].dtype == dtype):
+            # a narrow layer: the same math as the split convs + gate kernel
+            # below, in one kernel that reads R_above at half resolution
+            srcs, wks = [s["e"], s["r"]], [p["lstm_k_e"], p["lstm_k_r"]]
+            if r_above is not None:
+                srcs.append(r_above)
+                wks.append(p["lstm_k_up"])
+            h, c = narrow_convlstm_layer(srcs, wks, p["lstm_b"], s["c"], compute_dtype=cd)
         else:
-            gates = _gate_convs(p, s, r_above, cd, s2d_here, subpixel_up)
+            gates = _gate_convs(p, s, r_above, cd, s2d_here, subpixel_up, cudnn)
             if use_pallas is not False and peephole is None:
                 h, c = fused_lstm_gates(gates.contiguous(), s["c"], out_dtype=dtype)
             else:
@@ -599,11 +643,11 @@ def prednet_step(params, state, frame, *, use_pallas: Union[bool, str] = "fused"
         r = new_state[l]["r"]
         s2d_here = s2d_l0 and l == 0
         if s2d_here:
-            ahat = _conv(r, p["s2d_ahat_w"], p["s2d_ahat_b"], cd)
+            ahat = _conv(r, p["s2d_ahat_w"], p["s2d_ahat_b"], cd, cudnn=cudnn)
         elif quantized:
             ahat = _conv_q(r.to(cd), p["ahat_w"], p["ahat_w_s"], p["ahat_b"], cd)
         else:
-            ahat = _conv(r, p["ahat_w"], p["ahat_b"], cd)
+            ahat = _conv(r, p["ahat_w"], p["ahat_b"], cd, cudnn=cudnn)
         if l == 0:  # SatLU at the pixel layer
             if use_pallas is False:
                 # as jnp.clip: min(max(x, 0), 1), whose gradient splits in
@@ -623,13 +667,13 @@ def prednet_step(params, state, frame, *, use_pallas: Union[bool, str] = "fused"
                 # maxpool2(relu(conv(E0))) is the max over the four phase
                 # blocks of the lifted conv, in layer 1's own layout
                 c1 = p["a_w"].shape[0]
-                r1 = torch.relu(_conv(e.to(dtype), p["s2d_a_w"], p["s2d_a_b"], cd))
+                r1 = torch.relu(_conv(e.to(dtype), p["s2d_a_w"], p["s2d_a_b"], cd, cudnn=cudnn))
                 a = torch.maximum(torch.maximum(r1[..., :c1], r1[..., c1:2 * c1]),
                                   torch.maximum(r1[..., 2 * c1:3 * c1], r1[..., 3 * c1:]))
             elif quantized:
                 a = _maxpool2(torch.relu(_conv_q(e, p["a_w"], p["a_w_s"], p["a_b"], cd)))
             else:
-                a = _maxpool2(torch.relu(_conv(e.to(dtype), p["a_w"], p["a_b"], cd)))
+                a = _maxpool2(torch.relu(_conv(e.to(dtype), p["a_w"], p["a_b"], cd, cudnn=cudnn)))
     return new_state, prediction
 
 

@@ -11,10 +11,13 @@ one thread per (pixel, channel) reads each operand once and writes h and c
 once (see the note in the source).  Its public contract is the JAX
 function's: float32 gates in, float32 (h, c) out.  It also reads bfloat16
 gates and writes h and c in bfloat16 (``out_dtype``), rounded to nearest even
-from the same float32 values.  On the main path it is the epilogue of the
-narrow pixel layer (C = 3 or 1), after the split gate convolutions: it takes
-their bfloat16 sum as it is and writes the bfloat16 state, so no float32
-copy of the gates and no state cast runs around it.
+from the same float32 values.  It is the epilogue of the split gate
+convolutions on the routes whose gates arrive precomputed (the s2d pixel
+layer, ``subpixel_up``, ``use_pallas=True``): it takes their bfloat16 sum
+as it is and writes the bfloat16 state, so no float32 copy of the gates
+and no state cast runs around it.  On the main path's narrow layers
+:func:`.convlstm_narrow.narrow_convlstm_layer` does the same math in one
+kernel with the convolutions.
 """
 
 from __future__ import annotations

@@ -134,10 +134,10 @@ def pipelined_rollout_flow_frames(
     def down(l, m, r_above):
         """R and c of layer l for microbatch m (the top-down half-step)."""
         p = weights[l]
-        gates = _conv(e[l][m], p["lstm_w_e"], p["lstm_b"], cd)
-        gates = gates + _conv(r[l][m], p["lstm_w_r"], None, cd)
+        gates = _conv(e[l][m], p["lstm_w_e"], p["lstm_b"], cd, cudnn=False)
+        gates = gates + _conv(r[l][m], p["lstm_w_r"], None, cd, cudnn=False)
         if l + 1 < L:
-            gates = gates + _conv(_upsample2(r_above), p["lstm_w_up"], None, cd)
+            gates = gates + _conv(_upsample2(r_above), p["lstm_w_up"], None, cd, cudnn=False)
         h, c_new = _lstm_gates(gates, c[l][m])
         r[l][m], c[l][m] = h.to(dtype), c_new.to(dtype)
         return r[l][m]
@@ -146,7 +146,7 @@ def pipelined_rollout_flow_frames(
         """Ahat and E of layer l for microbatch m at step t (the bottom-up
         half-step); returns pooled A for the layer above."""
         p = weights[l]
-        ahat = _conv(r[l][m], p["ahat_w"], p["ahat_b"], cd)
+        ahat = _conv(r[l][m], p["ahat_w"], p["ahat_b"], cd, cudnn=False)
         if l == 0:
             ahat = torch.minimum(torch.maximum(ahat, _ZERO), _ONE)  # SatLU
             pred = ahat.float()
@@ -160,7 +160,7 @@ def pipelined_rollout_flow_frames(
         err = torch.cat([torch.relu(ahat - a), torch.relu(a - ahat)], dim=-1)
         e[l][m] = err.to(dtype)
         if l + 1 < L:
-            return _maxpool2(torch.relu(_conv(err.to(dtype), p["a_w"], p["a_b"], cd)))
+            return _maxpool2(torch.relu(_conv(err.to(dtype), p["a_w"], p["a_b"], cd, cudnn=False)))
         return None
 
     r_in = [None] * L  # R from the stage above, arrived this tick

@@ -87,7 +87,7 @@ def _halo_conv(xs: List[torch.Tensor], w_key: str, b_key: Optional[str], ps, dev
         p = ps[s]
         out.append(_conv(torch.cat(parts, dim=1) if len(parts) > 1 else x, p[w_key],
                          None if b_key is None else p[b_key], cd,
-                         pad=(1, 1, int(s == 0), int(s == last))))
+                         pad=(1, 1, int(s == 0), int(s == last)), cudnn=False))
     return out
 
 

@@ -13,7 +13,9 @@ that repeats the device), and reports for each:
   padding, its CUDA-event milliseconds and the device memory it takes
   beyond its inputs (the peak during the call over what was allocated
   before it: output plus cuDNN's workspace);
-- the ten kernels with the most device time under torch.profiler.
+- the ten kernels with the most device time under torch.profiler, and
+  how many of its kernels are cuDNN's FFT ones (``fft`` or a complex GEMM,
+  ``cf32``, in the name).
 
 ``--variants`` adds the unsharded step under other settings, each against
 the default in the same run: ``benchmark`` (``cudnn.benchmark=True``),
@@ -104,8 +106,9 @@ def profile_step(run, label: str) -> dict:
         by_shape[k][1] += 1
         by_shape[k][2] = max(by_shape[k][2], c["extra_gib"])
     slowest = max(convs, key=lambda c: c["ms"])
+    fft = sum(e.count for e in kernels if "fft" in e.key.lower() or "cf32" in e.key.lower())
     record = {
-        "run": label, "seconds": seconds, "peak_gib": peak / 2**30,
+        "run": label, "seconds": seconds, "peak_gib": peak / 2**30, "fft_kernels": fft,
         "slowest": [slowest["x"], slowest["w"]],
         "peak_reserved_gib": reserved / 2**30,
         "conv_ms": sum(c["ms"] for c in convs), "convs": len(convs),

@@ -74,14 +74,17 @@ def op_trace(calls: List[dict]):
             return res
         return call
 
-    saved = (F.conv2d, model.fused_lstm_gates, model.fused_convlstm_layer_multi)
+    saved = (F.conv2d, model.fused_lstm_gates, model.narrow_convlstm_layer,
+             model.fused_convlstm_layer_multi)
     F.conv2d = recorded("conv2d", saved[0])
     model.fused_lstm_gates = recorded("fused_lstm_gates", saved[1])
-    model.fused_convlstm_layer_multi = recorded("fused_convlstm_layer_multi", saved[2])
+    model.narrow_convlstm_layer = recorded("narrow_convlstm_layer", saved[2])
+    model.fused_convlstm_layer_multi = recorded("fused_convlstm_layer_multi", saved[3])
     try:
         yield calls
     finally:
-        F.conv2d, model.fused_lstm_gates, model.fused_convlstm_layer_multi = saved
+        (F.conv2d, model.fused_lstm_gates, model.narrow_convlstm_layer,
+         model.fused_convlstm_layer_multi) = saved
 
 
 def _rows_equal(whole: List[torch.Tensor], part: List[torch.Tensor], n: int):

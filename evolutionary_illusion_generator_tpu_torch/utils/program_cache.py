@@ -51,10 +51,11 @@ def program_cache_enabled() -> bool:
 def counted_wrappers() -> List[Callable]:
     """Every kernel wrapper of the port that counts its launches (and the
     kernels it records into a graph)."""
-    from ..ops import convlstm_bisect, convlstm_fused, convlstm_gates
+    from ..ops import convlstm_bisect, convlstm_fused, convlstm_gates, convlstm_narrow
 
-    return [convlstm_gates.fused_lstm_gates, convlstm_fused.fused_convlstm_layer_multi,
-            convlstm_fused.fused_convlstm_layer, *convlstm_bisect.RUNGS.values()]
+    return [convlstm_gates.fused_lstm_gates, convlstm_narrow.narrow_convlstm_layer,
+            convlstm_fused.fused_convlstm_layer_multi, convlstm_fused.fused_convlstm_layer,
+            *convlstm_bisect.RUNGS.values()]
 
 
 class CapturedPass:

@@ -19,12 +19,14 @@ import torch
 
 from evolutionary_illusion_generator_tpu_torch.ops import convlstm_bisect as cb
 from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused, convlstm_gates
+from evolutionary_illusion_generator_tpu_torch.ops import convlstm_narrow as cn
 from evolutionary_illusion_generator_tpu_torch.ops.convlstm_fused import (
     fused_convlstm_layer,
     fused_convlstm_layer_multi,
     pack_gate_weight,
 )
 from evolutionary_illusion_generator_tpu_torch.ops.convlstm_gates import fused_lstm_gates
+from evolutionary_illusion_generator_tpu_torch.ops.convlstm_narrow import narrow_convlstm_layer
 from evolutionary_illusion_generator_tpu_torch.scripts import kernel_bisect as kb
 
 # float32 elementwise gate math on both sides: last-ulp differences only.
@@ -144,6 +146,125 @@ def test_cuda_fused_kernel_matches_plain(case, state):
     torch.testing.assert_close(c, c_p, atol=1e-4, rtol=0)
 
 
+# (B, H, W, C, C_above, strip width or None for the wrapper's): the main
+# path's pixel layer at a chunk of 2, the grayscale pixel layer and its
+# layer 1 (C = 16: 64 gate outputs, two warps across them), a narrow top
+# layer (no R_above), and odd widths (a coarse width of 19, odd strips)
+NARROW_CASES = {
+    "pixel": (2, 120, 160, 3, 48, None),
+    "gray_pixel": (2, 120, 160, 1, 16, None),
+    "gray_layer1": (2, 60, 80, 16, 32, None),
+    "top": (2, 30, 40, 3, None, None),
+    "odd_width": (3, 26, 38, 3, 48, 7),
+    "wide_narrow": (2, 10, 14, 31, 12, 5),
+}
+# kernel against the plain version, one step: the same bfloat16 products
+# summed in another order, so where the compute dtype is bfloat16 a
+# source's conv may round the other way now and then, one ulp of a gate
+# (2**-8 relative), which moves h or c by about as much: held by the
+# one-step rule of the rollout tests below (STEP_ATOL, on at most
+# STEP_DIFF_SHARE of the elements; in a float32 state, the elements off by
+# more than float32 sums in another order give, NARROW_F32_ATOL).  In
+# float32 compute and state, within NARROW_F32_ATOL.
+NARROW_F32_ATOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", ["bf16_bf16", "f32_bf16", "f32_f32", "bf16_f32"])
+@pytest.mark.parametrize("case", sorted(NARROW_CASES))
+def test_cuda_narrow_kernel_matches_plain(case, types):
+    """One narrow layer step, kernel against plain version (compute dtype,
+    state dtype); sources in [-1, 1] as a rollout's are."""
+    _cuda_or_skip()
+    B, H, W, C, C_above, tw = NARROW_CASES[case]
+    cd, sd = (torch.bfloat16 if t == "bf16" else torch.float32 for t in types.split("_"))
+    rng = np.random.default_rng(11)
+    cins = [2 * C, C] + ([C_above] if C_above else [])
+    shapes = [(B, H, W, 2 * C), (B, H, W, C)] + ([(B, H // 2, W // 2, C_above)] if C_above
+                                                 else [])
+    srcs = [torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32)).cuda().bfloat16()
+            for s in shapes]
+    wks = [pack_gate_weight(torch.from_numpy(  # init_params' scale: over sqrt(fan-in)
+        rng.normal(0, 1 / np.sqrt(9 * sum(cins)), (3, 3, ci, 4 * C)).astype(np.float32))).cuda()
+        for ci in cins]
+    b = torch.from_numpy(rng.normal(0, 0.3, 4 * C).astype(np.float32)).cuda().bfloat16()
+    c_prev = torch.from_numpy(rng.normal(0, 1, (B, H, W, C)).astype(np.float32)).cuda().to(sd)
+    n = narrow_convlstm_layer.launches
+    if tw is None:
+        h, c = narrow_convlstm_layer(srcs, wks, b, c_prev, compute_dtype=cd)
+        assert narrow_convlstm_layer.launches == n + 1
+    else:
+        h, c = cn.launch(srcs, wks, b, c_prev, cd, torch.cuda.current_stream().cuda_stream, tw=tw)
+    torch.cuda.synchronize()
+    ref = cn.narrow_convlstm_layer_plain(srcs, wks, b, c_prev, compute_dtype=cd)
+    for got, want in zip((h, c), ref):
+        assert got.dtype == want.dtype == sd
+        d = (got.float() - want.float()).abs()
+        if cd == sd == torch.float32:
+            assert d.max().item() <= NARROW_F32_ATOL
+        else:
+            off = d > (0 if sd == torch.bfloat16 else NARROW_F32_ATOL)
+            assert d.max().item() <= STEP_ATOL
+            assert off.float().mean().item() <= STEP_DIFF_SHARE
+
+
+@pytest.mark.cuda
+def test_cuda_narrow_kernel_rows_do_not_follow_the_batch():
+    """A pixel's sums do not depend on the batch or the tile it falls in:
+    the kernel on three rows of a batch of 8, at another strip width, is
+    bit-equal to those rows of the whole batch (the sharded evaluator's
+    shards run fewer rows)."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(13)
+    B, H, W, C, C_above = 8, 120, 160, 3, 48
+    shapes = [(B, H, W, 2 * C), (B, H, W, C), (B, H // 2, W // 2, C_above)]
+    srcs = [torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32)).cuda().bfloat16()
+            for s in shapes]
+    wks = [pack_gate_weight(torch.from_numpy(rng.normal(0, 0.05, (3, 3, s[-1], 4 * C))
+                                             .astype(np.float32))).cuda() for s in shapes]
+    b = torch.zeros(4 * C, device="cuda", dtype=torch.bfloat16)
+    c_prev = torch.from_numpy(rng.normal(0, 1, (B, H, W, C)).astype(np.float32)).cuda().bfloat16()
+    stream = torch.cuda.current_stream().cuda_stream
+    whole = cn.launch(srcs, wks, b, c_prev, torch.bfloat16, stream)
+    part = cn.launch([x[2:5].contiguous() for x in srcs], wks, b, c_prev[2:5].contiguous(),
+                     torch.bfloat16, stream, tw=5)
+    torch.cuda.synchronize()
+    for a, p in zip(whole, part):
+        assert torch.equal(a[2:5], p)
+
+
+@pytest.mark.cuda
+def test_cuda_float32_convs_run_without_cudnn(monkeypatch):
+    """The plain route's float32 convs (``cudnn=False``) run with cuDNN off
+    on the card (its FFT algorithm took an 18.4 GiB workspace at
+    1280x960); its bfloat16 convs and the kernel routes' float32 convs
+    keep it."""
+    _cuda_or_skip()
+    import torch.nn.functional as F
+
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+
+    seen = []
+    conv2d = F.conv2d
+
+    def spy(x, *a, **k):
+        seen.append((x.dtype, torch.backends.cudnn.enabled))
+        return conv2d(x, *a, **k)
+
+    monkeypatch.setattr(F, "conv2d", spy)
+    x = torch.rand(1, 8, 10, 4, device="cuda")
+    w = torch.randn(6, 4, 3, 3, device="cuda")
+    y32 = model._conv(x, w, None, torch.float32, cudnn=False)
+    y16 = model._conv(x, w.bfloat16(), None, torch.bfloat16, cudnn=False)
+    kept = model._conv(x, w, None, torch.float32)
+    assert seen == [(torch.float32, False), (torch.bfloat16, True), (torch.float32, True)]
+    assert torch.backends.cudnn.enabled
+    ref = conv2d(x.cpu().permute(0, 3, 1, 2), w.cpu(), padding=1).permute(0, 2, 3, 1)
+    for y in (y32, kept):
+        torch.testing.assert_close(y.cpu(), ref, atol=1e-5, rtol=0)
+    assert torch.isfinite(y16.float()).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 @pytest.mark.parametrize("key", RUNG_KEYS)
@@ -260,11 +381,12 @@ def test_cuda_probe_matches_the_cpu(tmp_path):
 
     png = str(tmp_path / "in.png")
     save_image(img[0].numpy(), png)
-    n = {w.__name__: w.launches for w in (fused_lstm_gates, fused_convlstm_layer_multi)}
+    counted = (narrow_convlstm_layer, fused_lstm_gates, fused_convlstm_layer_multi)
+    n = {w.__name__: w.launches for w in counted}
     vectors = probe.get_vectors(png, None, PROBE_CHANNELS)
     torch.cuda.synchronize()
-    assert fused_lstm_gates.launches == n["fused_lstm_gates"] + 22
-    assert fused_convlstm_layer_multi.launches == n["fused_convlstm_layer_multi"] + 66
+    assert {w.__name__: w.launches - n[w.__name__] for w in counted} == {
+        "narrow_convlstm_layer": 22, "fused_lstm_gates": 0, "fused_convlstm_layer_multi": 66}
     assert vectors.ndim == 2 and vectors.shape[1] == 4 and np.isfinite(vectors).all()
 
 
@@ -329,12 +451,13 @@ def test_cuda_train_step_matches_the_cpu(recipe):
 
     kw = dict(batch=2, T=4, h=16, w=24, steps=1, seed=3, verbose=False,
               **TRAIN_RECIPES[recipe])
-    n = fused_lstm_gates.launches, fused_convlstm_layer_multi.launches
+    counted = (narrow_convlstm_layer, fused_lstm_gates, fused_convlstm_layer_multi)
+    n = [w.launches for w in counted]
     card, loss_card = pretrain((3, 32, 32), device="cuda", **kw)
     torch.cuda.synchronize()
     cpu, loss_cpu = pretrain((3, 32, 32), device="cpu", **kw)
     start, _ = pretrain((3, 32, 32), device="cpu", **dict(kw, steps=0))
-    assert (fused_lstm_gates.launches, fused_convlstm_layer_multi.launches) == n
+    assert [w.launches for w in counted] == n
     assert np.isfinite(loss_card)
     np.testing.assert_allclose(loss_card, loss_cpu, rtol=TRAIN_LOSS_RTOL)
     assert all(v.device.type == "cuda" for layer in card for v in layer.values())
@@ -347,7 +470,7 @@ def test_cuda_train_step_matches_the_cpu(recipe):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("wrapper", ["gates", "multi", "single"])
+@pytest.mark.parametrize("wrapper", ["gates", "multi", "single", "narrow"])
 def test_cuda_wrappers_refuse_gradients(wrapper):
     """On CUDA tensors, too, an input that requires a gradient raises
     before any launch; under no_grad the kernel runs."""
@@ -358,11 +481,14 @@ def test_cuda_wrappers_refuse_gradients(wrapper):
     bt = torch.as_tensor(b).cuda().requires_grad_(True)
     c = torch.as_tensor(c_prev).cuda()
     gates = torch.randn(1, 6, 10, 32, device="cuda", requires_grad=True)
+    # the narrow kernel on E = x (16 channels) and R = x's first 8
+    r, wr = x[..., :8].contiguous(), wk[..., :8].contiguous()
     fn = {"gates": lambda: fused_lstm_gates(gates, c),
           "multi": lambda: fused_convlstm_layer_multi([x], [wk], bt, c),
-          "single": lambda: fused_convlstm_layer(x, wk, bt, c)}[wrapper]
+          "single": lambda: fused_convlstm_layer(x, wk, bt, c),
+          "narrow": lambda: narrow_convlstm_layer([x, r], [wk, wr], bt, c)}[wrapper]
     count = {"gates": fused_lstm_gates, "multi": fused_convlstm_layer_multi,
-             "single": fused_convlstm_layer}[wrapper]
+             "single": fused_convlstm_layer, "narrow": narrow_convlstm_layer}[wrapper]
     n = count.launches
     with pytest.raises(RuntimeError, match="has no backward"):
         fn()
@@ -422,14 +548,15 @@ def test_cuda_int8_batch_composition_independence():
     params = model.quantize_params_int8(loader.load_or_init(None, PROBE_CHANNELS, device="cuda"))
     base = torch.from_numpy(_probe_image())[None].cuda()
     loud = torch.cat([base, torch.ones_like(base)])
-    n = (fused_lstm_gates.launches, fused_convlstm_layer_multi.launches)
+    counted = (narrow_convlstm_layer, fused_lstm_gates, fused_convlstm_layer_multi)
+    n = [w.launches for w in counted]
     with torch.inference_mode():
         a = model.rollout_flow_frames(params, base, repeat=4, extension=2,
                                       compute_dtype=torch.bfloat16)
         b = model.rollout_flow_frames(params, loud, repeat=4, extension=2,
                                       compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    assert (fused_lstm_gates.launches, fused_convlstm_layer_multi.launches) == n
+    assert [w.launches for w in counted] == n
     for u, v in zip(a, b):
         assert torch.isfinite(u).all() and torch.equal(u[0], v[0])
 
@@ -470,12 +597,13 @@ def test_cuda_graph_replay_equals_the_eager_pass(monkeypatch):
     chunk 2 is captured and replayed; then both replay.  Every output
     bit-equal to the eager pass and each chunk's outputs its own (no
     aliasing of the graph's buffers).  The wrappers count only what runs
-    eagerly; the graph records 22 gate and 66 fused kernels, and the
-    profiler sees them run once a chunk in a replayed generation."""
+    eagerly; the graph records 22 narrow and 66 fused kernels (no gate
+    kernel), and the profiler sees them run once a chunk in a replayed
+    generation."""
     _cuda_or_skip()
     monkeypatch.delenv("EIGEN_PROGRAM_CACHE", raising=False)
     (graph, eager), items = _graph_evaluators()
-    counted = (fused_lstm_gates, fused_convlstm_layer_multi)
+    counted = (narrow_convlstm_layer, fused_convlstm_layer_multi, fused_lstm_gates)
     for gen in range(3):
         launches = []
         replays = graph._programs.replays
@@ -484,8 +612,8 @@ def test_cuda_graph_replay_equals_the_eager_pass(monkeypatch):
             ev(list(items))
             torch.cuda.synchronize()
             launches.append([w.launches - m for w, m in zip(counted, n)])
-        assert launches[1] == [2 * 22, 2 * 66], (gen, launches)
-        assert launches[0] == ([22, 66] if gen == 0 else [0, 0]), (gen, launches)
+        assert launches[1] == [2 * 22, 2 * 66, 0], (gen, launches)
+        assert launches[0] == ([22, 66, 0] if gen == 0 else [0, 0, 0]), (gen, launches)
         assert graph._programs.replays - replays == (1 if gen == 0 else 2)
         a = graph.last_results["outputs"]
         ours = a.to_numpy()
@@ -496,10 +624,11 @@ def test_cuda_graph_replay_equals_the_eager_pass(monkeypatch):
         np.testing.assert_array_equal(graph.last_results["scores"], eager.last_results["scores"])
     assert len(graph._programs.graphs) == 1 and not eager._programs.graphs
     (key, captured), = graph._programs.graphs.items()
-    assert captured.recorded == {"fused_lstm_gates": 22, "fused_convlstm_layer_multi": 66}
+    assert captured.recorded == {"narrow_convlstm_layer": 22, "fused_convlstm_layer_multi": 66}
     n = [w.launches for w in counted]
-    ran = _trace_counts(lambda: graph(list(items)), ("lstm_gates_kernel", "convlstm_fused_kernel"))
-    assert ran == [2 * 22, 2 * 66] and [w.launches for w in counted] == n
+    ran = _trace_counts(lambda: graph(list(items)),
+                        ("convlstm_narrow_kernel", "convlstm_fused_kernel", "lstm_gates_kernel"))
+    assert ran == [2 * 22, 2 * 66, 0] and [w.launches for w in counted] == n
 
 
 @pytest.mark.cuda
@@ -602,7 +731,7 @@ def test_cuda_sharded_evaluator_on_a_repeated_device(n_shards):
     fused kernel's tiles and cuDNN's algorithms follow the batch)."""
     _cuda_or_skip()
     single, sharded, items = _parallel_evaluators(n_shards, program_cache=False)
-    counted = (fused_lstm_gates, fused_convlstm_layer_multi)
+    counted = (narrow_convlstm_layer, fused_convlstm_layer_multi)
     n = [w.launches for w in counted]
     want = single(list(items))
     torch.cuda.synchronize()
@@ -675,7 +804,7 @@ def test_cuda_dp_train_step_on_a_repeated_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("wrapper", ["gates", "multi"])
+@pytest.mark.parametrize("wrapper", ["gates", "multi", "narrow"])
 def test_cuda_wrappers_refuse_tensors_off_the_current_device(wrapper, monkeypatch):
     """A launch goes to the current device, so a wrapper given tensors of
     another device raises.  One card cannot hold tensors off the current
@@ -685,6 +814,10 @@ def test_cuda_wrappers_refuse_tensors_off_the_current_device(wrapper, monkeypatc
     c = torch.from_numpy(c_prev).cuda()
     if wrapper == "gates":
         call = lambda: fused_lstm_gates(torch.zeros(1, 6, 8, 32, device="cuda"), c)  # noqa: E731
+    elif wrapper == "narrow":
+        srcs = [torch.zeros(1, 6, 8, ci, device="cuda") for ci in (16, 8)]
+        wks = [torch.zeros(9, 8, 4, ci, device="cuda", dtype=torch.bfloat16) for ci in (16, 8)]
+        call = lambda: narrow_convlstm_layer(srcs, wks, torch.zeros(32, device="cuda"), c)  # noqa: E731
     else:
         x = torch.from_numpy(srcs[0]).cuda().bfloat16()
         wk = pack_gate_weight(torch.from_numpy(ws[0]).cuda())
@@ -696,14 +829,15 @@ def test_cuda_wrappers_refuse_tensors_off_the_current_device(wrapper, monkeypatc
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route,per_step", [("fused", (1, 2)), (True, (3, 0)), (False, (0, 0))])
+@pytest.mark.parametrize("route,per_step", [("fused", (1, 0, 2)), (True, (0, 3, 0)),
+                                            (False, (0, 0, 0))])
 def test_cuda_use_pallas_routes_launch_counts(route, per_step):
-    """``EvalConfig.use_pallas``: per step, "fused" launches the gate kernel
-    on the pixel layer and the fused kernel on the two wide layers, True
-    the gate kernel on all three, False none."""
+    """``EvalConfig.use_pallas``: per step, "fused" launches the narrow
+    kernel on the pixel layer and the fused kernel on the two wide layers,
+    True the gate kernel on all three, False none."""
     _cuda_or_skip()
     single, _, items = _parallel_evaluators(1, use_pallas=route, program_cache=False)
-    counted = (fused_lstm_gates, fused_convlstm_layer_multi)
+    counted = (narrow_convlstm_layer, fused_lstm_gates, fused_convlstm_layer_multi)
     n = [w.launches for w in counted]
     scores = single(list(items))
     torch.cuda.synchronize()

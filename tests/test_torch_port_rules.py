@@ -148,12 +148,27 @@ def test_kernel_stream_refuses_tensors_off_the_current_device(monkeypatch):
     """A launch goes to the current CUDA device whatever its tensors'
     device; the wrappers' stream lookup refuses tensors elsewhere (mocked
     here: no card; tests/test_torch_cuda.py shows it through a wrapper)."""
+    import inspect
+
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused, convlstm_narrow
+    from evolutionary_illusion_generator_tpu_torch.ops.convlstm_gates import fused_lstm_gates
+
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 1234})())
     with pytest.raises(RuntimeError, match="current CUDA device is cuda:0"):
         kernel_stream("fused_lstm_gates", torch.device("cuda", 1))
     assert kernel_stream("fused_lstm_gates", torch.device("cuda", 0)) == 1234
+    # every wrapper of the main path takes its stream from kernel_stream,
+    # under its own name
+    for wrapper, where in ((fused_lstm_gates, fused_lstm_gates),
+                           (convlstm_narrow.narrow_convlstm_layer,
+                            convlstm_narrow.narrow_convlstm_layer),
+                           (convlstm_fused.fused_convlstm_layer_multi, convlstm_fused._run)):
+        name = wrapper.__name__
+        assert "kernel_stream(" in inspect.getsource(where), name
+        with pytest.raises(RuntimeError, match=f"{name}: tensors on cuda:1"):
+            kernel_stream(name, torch.device("cuda", 1))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
     assert kernel_stream("fused_lstm_gates", torch.device("cuda", 1)) == 1234
 

@@ -184,18 +184,21 @@ def test_peephole_layer_keeps_plain_gate_math():
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_narrow_layers_step_equals_the_float32_gate_route(dtype, monkeypatch):
-    """The narrow layers hand the gates to ``fused_lstm_gates`` in the
-    compute dtype and take h and c in the state dtype.  One step is bit-equal
-    to the same step on the route before: float32 gates, float32 h and c,
-    then cast to the state dtype."""
+    """The split-conv layers (``use_pallas=True``; on ``"fused"`` the
+    narrow layers take ``narrow_convlstm_layer``, tests/test_torch_narrow.py)
+    hand the gates to ``fused_lstm_gates`` in the compute dtype and take h
+    and c in the state dtype.  One step is bit-equal to the same step on the
+    route before: float32 gates, float32 h and c, then cast to the state
+    dtype."""
     channels = (3, 8, 16)  # every layer narrow
     td = getattr(torch, dtype)
     tp = loader.params_from_numpy(_numpy_params(channels), dtype=td, device="cpu")
     img = torch.as_tensor(_images(3, seed=5))
     state = model.init_state(B, H, W, channels, dtype=td)
+    kw = dict(compute_dtype=td, use_pallas=True)
     for _ in range(2):  # nonzero c and e
-        state, _ = model.prednet_step(tp, state, img, compute_dtype=td)
-    new, pred = model.prednet_step(tp, state, img, compute_dtype=td)
+        state, _ = model.prednet_step(tp, state, img, **kw)
+    new, pred = model.prednet_step(tp, state, img, **kw)
     calls = []
 
     def float32_route(gates, c_prev, out_dtype):
@@ -203,7 +206,7 @@ def test_narrow_layers_step_equals_the_float32_gate_route(dtype, monkeypatch):
         return convlstm_gates.lstm_gates_plain(gates.float(), c_prev)
 
     monkeypatch.setattr(model, "fused_lstm_gates", float32_route)
-    old, pred_old = model.prednet_step(tp, state, img, compute_dtype=td)
+    old, pred_old = model.prednet_step(tp, state, img, **kw)
     assert calls == [td] * len(channels)
     assert torch.equal(pred, pred_old)
     for l in range(len(channels)):
@@ -217,3 +220,63 @@ def test_load_or_init_without_bundled_weights_is_seeded():
     b = loader.load_or_init(None, (1, 4, 8), seed=4, device="cpu")
     assert all(torch.equal(a[l][k], b[l][k]) for l in range(3) for k in a[l])
     assert tuple(a[0]["lstm_w_up"].shape) == (4, 4, 3, 3)
+
+
+def _conv_before(x, w, b, out_dtype, pad=None, cudnn=True):
+    """``model._conv`` as it was before the plain route's float32 convs on
+    the card were kept off cuDNN (``cudnn`` is taken and ignored)."""
+    x = x.to(w.dtype)
+    acc = torch.float32 if torch.float32 in (w.dtype, out_dtype) else w.dtype
+    xn = x.permute(0, 3, 1, 2).to(acc)
+    if pad is None:
+        y = torch.nn.functional.conv2d(xn, w.to(acc), padding=1)
+    else:
+        y = torch.nn.functional.conv2d(torch.nn.functional.pad(xn, pad), w.to(acc))
+    y = y.permute(0, 2, 3, 1).to(out_dtype)
+    return y if b is None else y + b.to(out_dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_plain_step_on_the_cpu_is_unchanged_by_the_cudnn_rule(dtype, monkeypatch):
+    """The plain route's step on the CPU (``use_pallas=False``, the
+    trainer's) is bit-equal to the step with the ``_conv`` from before, and
+    never turns cuDNN off: only a float32 conv on the card does."""
+    td = getattr(torch, dtype)
+    channels = (3, 48, 96)
+    tp = loader.params_from_numpy(_numpy_params(channels), dtype=td, device="cpu")
+    img = torch.as_tensor(_images(3, seed=6))
+    state = model.init_state(B, H, W, channels, dtype=td)
+    for _ in range(2):
+        state, _ = model.prednet_step(tp, state, img, use_pallas=False, compute_dtype=td)
+
+    def no_cudnn_switch():
+        raise AssertionError("cuDNN turned off on the CPU")
+
+    monkeypatch.setattr(model, "_without_cudnn", no_cudnn_switch)
+    new, pred = model.prednet_step(tp, state, img, use_pallas=False, compute_dtype=td)
+    monkeypatch.setattr(model, "_conv", _conv_before)
+    old, pred_old = model.prednet_step(tp, state, img, use_pallas=False, compute_dtype=td)
+    assert torch.equal(pred, pred_old)
+    for a, b in zip(new, old):
+        for k in "rce":
+            assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("route", [False, True, "fused"])
+def test_only_the_plain_route_takes_its_convs_off_cudnn(route, monkeypatch):
+    """``prednet_step`` asks ``_conv`` to leave cuDNN for its float32 convs
+    on the plain route (``use_pallas=False``) and on no other: the kernel
+    routes' convs are as they were."""
+    channels = (3, 48, 96)
+    tp = loader.params_from_numpy(_numpy_params(channels), dtype=torch.float32, device="cpu")
+    img = torch.as_tensor(_images(3, seed=6))
+    state = model.init_state(B, H, W, channels, dtype=torch.float32)
+    asked, conv = [], model._conv
+
+    def spy(*a, cudnn=True, **k):
+        asked.append(cudnn)
+        return conv(*a, cudnn=cudnn, **k)
+
+    monkeypatch.setattr(model, "_conv", spy)
+    model.prednet_step(tp, state, img, use_pallas=route)
+    assert asked and set(asked) == {route is not False}
