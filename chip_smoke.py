@@ -83,9 +83,16 @@ Phases, each printing its wall time and raising on failure:
    on two shards against one device (the train phase's rules); a spatial
    rollout at 1280x960 (sp 2) and a four-stage pipelined rollout at
    160x120 against the unsharded plain rollout (one step tightly, 22 in
-   the mean; no kernel launched), with seconds and peak memory; two
-   processes on cuda:0 over gloo, each evaluating half a population, whose
-   fitness must equal the single-process evaluator's on both ranks;
+   the mean; no kernel launched), with seconds and peak memory, and the
+   spatial rollout with int8 params against the unsharded int8 rollout
+   (one step bit-equal, 22 in the mean); two processes on cuda:0 over
+   gloo, each evaluating half a population, whose fitness must equal the
+   single-process evaluator's on both ranks; then two processes running the
+   data-parallel step, the spatial rollout (float and int8 params) and the
+   pipelined rollout over meshes that span both (``parallel_paths``),
+   against the one-process runs: the step and the float spatial rollout
+   bit-equal, int8 and the pipeline one step bit-equal and 22 steps in the
+   mean;
 13. composition: the ``pop256_v5e8`` run preset as it stands (pop 256,
    1280x960, 3,48,96,192, global chunks of 64) through
    ``graft_entry.composition`` on the fused route over a mesh of cuda:0 x
@@ -95,6 +102,14 @@ Phases, each printing its wall time and raising on failure:
    launches and the best fitness; fails on a non-finite fitness, a best
    fitness of 0 or launch counts that are not 22 narrow and 66 fused per
    eager pass;
+   north_star: the generation evaluator at the north star (pop 100,
+   640x480, Free, 3,48,96,192, chunks of 25) for four generations, with
+   s/generation, ``last_timings``, peak memory, the fused kernel's strip
+   widths and the launches; ``scripts/phase_bench.py`` (render / rollout /
+   flow / host parts of one chunk) and ``scripts/rollout_profile.py`` (the
+   rollout's kernels, dense and s2d pixel layer); one step at the chunk,
+   each layer's kernel against its plain version; fails on a non-finite
+   fitness, wrong launch counts or a kernel off its plain version;
 14. profile: device time by kernel and the number of kernel launches over
    one warm main-path generation, replayed as a CUDA graph (the default)
    and run eagerly (``program_cache=False``); in both the trace must hold
@@ -115,8 +130,8 @@ Phases, each printing its wall time and raising on failure:
    shapes; logs E's and J's times beside D's.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main path, cli, probe, options, scorers, train, parallel, composition
-and bisect phases), and as the last line
+the main path, cli, probe, options, scorers, train, parallel, composition,
+north_star and bisect phases), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a card or without the port beside it.
 """
@@ -330,6 +345,8 @@ def device_ms(fn, iters, warmup=3):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from evolutionary_illusion_generator_tpu_torch.utils.profiling import device_events
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -339,8 +356,7 @@ def device_ms(fn, iters, warmup=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_events(prof, torch.device("cuda"))
         if kernels:
             break
         log("  device_ms: torch.profiler recorded no device kernel; profiling once more")
@@ -349,8 +365,8 @@ def device_ms(fn, iters, warmup=3):
         log(f"  device_ms: torch.profiler recorded no device kernel again; {ms:.4f} ms from "
             f"CUDA events instead")
         return ms, math.nan
-    return (sum(e.self_device_time_total for e in kernels) / iters / 1e3,
-            sum(e.count for e in kernels) / iters)
+    return (sum(us for _, _, us in kernels) / iters / 1e3,
+            sum(n for _, n, _ in kernels) / iters)
 
 
 def bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
@@ -369,11 +385,9 @@ def check_device():
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    card = smi.stdout.strip().splitlines()[0]
+    from evolutionary_illusion_generator_tpu_torch.utils.profiling import card_line
+
+    card = card_line(torch.device("cuda"))
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()}")
@@ -1639,6 +1653,13 @@ SHARD_MATCHED_SHARE = 0.5
 SHARD_SHIFT_ATOL = 0.05
 SHARD_FITNESS_ATOL = 0.05
 TWO_PROCESS_TIMEOUT_S = 150
+# the rollouts' (repeat, extension): one step, then the flow pair's 22
+PARALLEL_STEPS = ((1, 1), (20, 2))
+# the two-process run of the train step, the spatial rollout (float and
+# int8 params) and the pipelined rollout on cuda:0 over gloo: each process
+# holds one entry of the two-entry meshes (the pipeline: two of its four
+# stages)
+TWO_PROCESS_PATHS_TIMEOUT_S = 300
 
 _TWO_PROCESS_CHILD = """
 import hashlib, json, sys
@@ -1668,6 +1689,148 @@ dist.destroy_process_group()
 """
 
 
+_PATHS_CHILD = """
+import json, sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+print(json.dumps(chip_smoke.parallel_paths({out_dir!r})))
+"""
+
+
+def _dp_train_kwargs():
+    """``pretrain``'s keywords for one data-parallel step of the train
+    phase's recipe, warm-started from the bundled colour weights."""
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import pretrain as pre
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import (
+        bundled_weights_path,
+    )
+
+    warm = bundled_weights_path((3, 48, 96, 192))
+    return dict(pre.pretrain_kwargs(pre._parser().parse_args(
+        TRAIN_RECIPE + ["--init_weights", warm])), steps=1, verbose=False)
+
+
+def _parallel_inputs():
+    """The spatial and the pipelined rollouts' images on the card, 8-bit
+    noise from a fixed seed."""
+    import torch
+
+    gen = torch.Generator().manual_seed(7)
+    return [(torch.rand(shape, generator=gen) * 255).to(torch.uint8).float().div(255).cuda()
+            for shape in (SPATIAL_SHAPE, PIPELINE_SHAPE)]
+
+
+def _digest(tensors):
+    """sha1 of the tensors' bytes, in order: equal digests, equal bits."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def parallel_paths(out_dir):
+    """One process of the two-process run (``_PATHS_CHILD``; the
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
+    environment): the data-parallel train step, the spatial rollout with
+    float and int8 params and the four-stage pipelined rollout, each over
+    meshes that span both processes on cuda:0.  Returns the loss, sha1
+    digests of the params and frames, seconds and launches; rank 0 also
+    writes the frames to ``out_dir``/frames.npz."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import pretrain as pre
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import (
+        load_or_init,
+        params_to_numpy,
+    )
+    from evolutionary_illusion_generator_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        make_mesh_2d,
+        make_spatial_rollout,
+    )
+    from evolutionary_illusion_generator_tpu_torch.parallel.pipeline import (
+        make_pp_mesh,
+        pipelined_rollout_flow_frames,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not initialize_distributed():
+        raise RuntimeError("parallel_paths: no JAX_COORDINATOR_ADDRESS")
+    rank = dist.get_rank()
+    _reset_counts()
+    seconds = {}
+    t0 = time.time()
+    pt, loss = pre.pretrain(**dict(_dp_train_kwargs(), mesh=make_mesh(devices=["cuda:0"])))
+    seconds["train"] = time.time() - t0
+    out = {"rank": rank, "loss": repr(loss), "params": _digest(
+        torch.from_numpy(a) for layer in params_to_numpy(pt) for _, a in sorted(layer.items()))}
+    params = load_or_init(None, (3, 48, 96, 192), device="cuda")
+    quantized = model.quantize_params_int8(params)
+    spatial_imgs, pipe_imgs = _parallel_inputs()
+    mesh2 = make_mesh_2d(1, PARALLEL_SHARDS, devices=["cuda:0"])
+    pp = make_pp_mesh(4, devices=["cuda:0"] * 2)
+    frames = {}
+    for repeat, extension in PARALLEL_STEPS:
+        n = repeat + extension
+        runs = {
+            f"spatial {n}": lambda: make_spatial_rollout(
+                mesh2, repeat=repeat, extension=extension)(params, spatial_imgs),
+            f"int8 spatial {n}": lambda: make_spatial_rollout(
+                mesh2, repeat=repeat, extension=extension)(quantized, spatial_imgs),
+            f"pipeline {n}": lambda: pipelined_rollout_flow_frames(
+                params, pipe_imgs, pp, repeat=repeat, extension=extension, n_micro=4)}
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with torch.inference_mode():
+                frames[name] = [f.cpu() for f in run()]
+            seconds[name] = time.time() - t0
+    out.update(frames={k: _digest(v) for k, v in frames.items()}, seconds=seconds,
+               launches={k: v for k, v in _counts().items() if v})
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "frames.npz"),
+                 **{f"{k}/{i}": f.numpy() for k, v in frames.items() for i, f in enumerate(v)})
+    dist.destroy_process_group()
+    return out
+
+
+def _run_two_processes(code, timeout):
+    """``python -c code`` as ranks 0 and 1 of a gloo group on this machine,
+    both on cuda:0; returns each rank's last line, parsed as JSON.  A rank
+    that fails or outlives ``timeout`` seconds fails the phase; both are
+    killed either way."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+                 JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank),
+                 OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2))))
+        for rank in range(2)]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"parallel: a two-process rank failed: {err[-3000:]}")
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return results
+
+
 def _held_like_a_step(label, got, want):
     """``got`` against ``want`` by the reference phase's one-step rule;
     returns (max abs, share of entries that differ)."""
@@ -1678,6 +1841,16 @@ def _held_like_a_step(label, got, want):
     if not (worst <= STEP_ATOL and share <= STEP_DIFF_SHARE):
         raise AssertionError(f"parallel: {label} max {worst:.3e}, {share:.2%} differ")
     return worst, share
+
+
+def _held_bit_equal(label, got, want):
+    """``got`` equal to ``want`` bit for bit; returns (0.0, 0.0) as the
+    other rules return (max abs, share or mean)."""
+    import torch
+
+    if not (got.shape == want.shape and bool(got.isfinite().all()) and torch.equal(got, want)):
+        raise AssertionError(f"parallel: {label} not bit-equal")
+    return 0.0, 0.0
 
 
 def _held_in_the_mean(label, got, want):
@@ -1776,11 +1949,12 @@ def _sharded_generations(params, devices, label):
 @phase("parallel")
 def parallel_phase(params, card):
     """``parallel/`` on the card, on a mesh that repeats cuda:0: the sharded
-    evaluator (counted), the data-parallel train step, the spatial and
-    pipelined rollouts (the plain route: no kernel), and two processes over
-    gloo; on real devices too where the machine has two."""
+    evaluator (counted), the data-parallel train step, the spatial rollout
+    (float and int8 params) and the pipelined rollout (the plain route and
+    the int8 route: no kernel), and two processes over gloo: the sharded
+    evaluator, then the train step and the three rollouts over meshes that
+    span both; on real devices too where the machine has two."""
     import hashlib
-    import socket
 
     import numpy as np
     import torch
@@ -1791,10 +1965,7 @@ def parallel_phase(params, card):
     )
     from evolutionary_illusion_generator_tpu_torch.models.prednet import model
     from evolutionary_illusion_generator_tpu_torch.models.prednet import pretrain as pre
-    from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import (
-        bundled_weights_path,
-        params_to_numpy,
-    )
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import params_to_numpy
     from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
     from evolutionary_illusion_generator_tpu_torch.parallel import (
         make_mesh,
@@ -1817,9 +1988,7 @@ def parallel_phase(params, card):
 
     _reset_counts()
     # the data-parallel train step: the colour recipe, one step
-    warm = bundled_weights_path((3, 48, 96, 192))
-    kw = dict(pre.pretrain_kwargs(pre._parser().parse_args(
-        TRAIN_RECIPE + ["--init_weights", warm])), steps=1, verbose=False)
+    kw = _dp_train_kwargs()
     t0 = time.time()
     p1, l1 = pre.pretrain(**dict(kw, device="cuda"))
     t1 = time.time()
@@ -1842,52 +2011,58 @@ def parallel_phase(params, card):
         f"{t1 - t0:.3f}, sharded {t2 - t1:.3f}")
     if not (gap <= TRAIN_LOSS_RTOL and excess <= 0):
         raise AssertionError("parallel: the data-parallel step disagrees with one device")
+    one = {"loss": repr(ld), "params": _digest(
+        torch.from_numpy(a) for layer in params_to_numpy(pd) for _, a in sorted(layer.items()))}
 
-    # the spatial rollout at the pop256_v5e8 frame: one step, then 22
-    gen = torch.Generator().manual_seed(7)
-    B, H, W, C = SPATIAL_SHAPE
-    imgs = (torch.rand(B, H, W, C, generator=gen) * 255).to(torch.uint8).float().div(255).cuda()
+    # the spatial rollout at the pop256_v5e8 frame, float and int8 params:
+    # one step, then 22, against the unsharded rollout of the same route
+    spatial_imgs, pipe_imgs = _parallel_inputs()
     mesh2 = make_mesh_2d(1, PARALLEL_SHARDS, devices=["cuda:0"] * PARALLEL_SHARDS)
-    for repeat, extension, held in ((1, 1, _held_like_a_step), (20, 2, _held_in_the_mean)):
-        peaks, frames, secs = {}, {}, {}
-        for name, run in (
-                ("unsharded", lambda: model.rollout_flow_frames(
-                    params, imgs, repeat=repeat, extension=extension, use_pallas=False)),
-                ("spatial", lambda: make_spatial_rollout(
-                    mesh2, repeat=repeat, extension=extension)(params, imgs))):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            with torch.inference_mode():
-                frames[name] = run()
-            torch.cuda.synchronize()
-            secs[name] = time.time() - t0
-            peaks[name] = torch.cuda.max_memory_allocated()
-        stats = [held(f"spatial {repeat + extension} steps, frame {i}", a, b)
-                 for i, (a, b) in enumerate(zip(frames["spatial"], frames["unsharded"]))]
-        log(f"  spatial (pop 1, sp {PARALLEL_SHARDS}) at {SPATIAL_SHAPE}, {repeat}+{extension} "
-            f"steps: frames against the unsharded {stats}; s {secs}; peak device memory GiB "
-            f"{ {k: round(v / 2**30, 3) for k, v in peaks.items()} }")
-        del frames
-    del imgs
+    quantized = model.quantize_params_int8(params)
+    for label, p in (("spatial", params), ("int8 spatial", quantized)):
+        for (repeat, extension), held in zip(PARALLEL_STEPS, (None, _held_in_the_mean)):
+            n = repeat + extension
+            if held is None:  # one step: float params as a step is held, int8 bit-equal
+                held = _held_like_a_step if p is params else _held_bit_equal
+            peaks, frames, secs = {}, {}, {}
+            for name, run in (
+                    ("unsharded", lambda: model.rollout_flow_frames(
+                        p, spatial_imgs, repeat=repeat, extension=extension, use_pallas=False)),
+                    (label, lambda: make_spatial_rollout(
+                        mesh2, repeat=repeat, extension=extension)(p, spatial_imgs))):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                with torch.inference_mode():
+                    frames[name] = run()
+                torch.cuda.synchronize()
+                secs[name] = time.time() - t0
+                peaks[name] = torch.cuda.max_memory_allocated()
+            stats = [held(f"{label} {n} steps, frame {i}", a, b)
+                     for i, (a, b) in enumerate(zip(frames[label], frames["unsharded"]))]
+            exact = all(torch.equal(a, b) for a, b in zip(frames[label], frames["unsharded"]))
+            one[f"{label} {n}"] = [f.cpu() for f in frames[label]]
+            log(f"  {label} (pop 1, sp {PARALLEL_SHARDS}) at {SPATIAL_SHAPE}, {repeat}+{extension} "
+                f"steps: frames against the unsharded {stats}, bit-equal {exact}; s {secs}; peak "
+                f"device memory GiB { {k: round(v / 2**30, 3) for k, v in peaks.items()} }")
+            del frames
 
     # the pipelined rollout: four stages, four microbatches
-    B, H, W, C = PIPELINE_SHAPE
-    imgs = (torch.rand(B, H, W, C, generator=gen) * 255).to(torch.uint8).float().div(255).cuda()
     pp = make_pp_mesh(4, devices=["cuda:0"] * 4)
-    for repeat, extension, held in ((1, 1, _held_like_a_step), (20, 2, _held_in_the_mean)):
+    for (repeat, extension), held in zip(PARALLEL_STEPS, (_held_like_a_step, _held_in_the_mean)):
         torch.cuda.synchronize()
         t0 = time.time()
         with torch.inference_mode():
-            got = pipelined_rollout_flow_frames(params, imgs, pp, repeat=repeat,
+            got = pipelined_rollout_flow_frames(params, pipe_imgs, pp, repeat=repeat,
                                                 extension=extension, n_micro=4)
             torch.cuda.synchronize()
             t1 = time.time()
-            want = model.rollout_flow_frames(params, imgs, repeat=repeat, extension=extension,
-                                             use_pallas=False)
+            want = model.rollout_flow_frames(params, pipe_imgs, repeat=repeat,
+                                             extension=extension, use_pallas=False)
             torch.cuda.synchronize()
         stats = [held(f"pipeline {repeat + extension} steps, frame {i}", a, b)
                  for i, (a, b) in enumerate(zip(got, want))]
+        one[f"pipeline {repeat + extension}"] = [f.cpu() for f in got]
         log(f"  pipeline (4 stages, 4 microbatches) at {PIPELINE_SHAPE}, {repeat}+{extension} "
             f"steps: frames against the unpipelined {stats}; s pipelined {t1 - t0:.3f}, "
             f"unpipelined {time.time() - t1:.3f}")
@@ -1902,28 +2077,9 @@ def parallel_phase(params, card):
     want = single(list(items))
     hashes = {str(i): hashlib.sha1(single.last_results["outputs"].fetch("images_u8", i)
                                    .tobytes()).hexdigest() for i in range(len(items))}
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    code = _TWO_PROCESS_CHILD.format(repo=os.path.dirname(os.path.abspath(__file__)))
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=dict(os.environ, JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
-                 JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank),
-                 OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2))))
-        for rank in range(2)]
+    repo = os.path.dirname(os.path.abspath(__file__))
     t0 = time.time()
-    results = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=TWO_PROCESS_TIMEOUT_S)
-            if p.returncode != 0:
-                raise AssertionError(f"parallel: a two-process rank failed: {err[-2000:]}")
-            results.append(json.loads(out.strip().splitlines()[-1]))
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
+    results = _run_two_processes(_TWO_PROCESS_CHILD.format(repo=repo), TWO_PROCESS_TIMEOUT_S)
     fitness = {r["rank"]: r["scores"] for r in results}
     log(f"  two processes on cuda:0 (gloo), {len(items)} genomes: fitness by rank {fitness}, "
         f"single process {want.tolist()}; {time.time() - t0:.1f} s with start-up")
@@ -1937,6 +2093,43 @@ def parallel_phase(params, card):
         raise AssertionError("parallel: the two ranks assigned different fitness")
     # the sharded runs' launches and the single-process reference's
     counts = {k: counts[k] + v for k, v in _counts().items()}
+
+    # two processes on cuda:0 over gloo: the train step, the spatial rollout
+    # (float and int8 params) and the pipelined rollout over meshes that span
+    # both, against the one-process runs above: the train step and the float
+    # spatial rollout bit-equal; int8 and the pipeline one step bit-equal,
+    # 22 steps in the mean
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.time()
+        results = _run_two_processes(_PATHS_CHILD.format(repo=repo, out_dir=out_dir),
+                                     TWO_PROCESS_PATHS_TIMEOUT_S)
+        with np.load(os.path.join(out_dir, "frames.npz")) as z:
+            theirs = {k: [torch.from_numpy(z[f"{k}/{i}"]) for i in range(2)]
+                      for k in results[0]["frames"]}
+    log(f"  two processes on cuda:0 (gloo), train step and rollouts: {time.time() - t0:.1f} s "
+        f"with start-up; seconds by rank {[r['seconds'] for r in results]}")
+    for r in results:
+        if r["launches"]:
+            raise AssertionError(f"parallel: rank {r['rank']} launched {r['launches']}")
+        if (r["loss"], r["params"]) != (one["loss"], one["params"]):
+            raise AssertionError(f"parallel: rank {r['rank']} train step loss {r['loss']} "
+                                 f"params {r['params']}, one process {one['loss']} "
+                                 f"{one['params']}")
+        if r["frames"] != results[0]["frames"]:
+            raise AssertionError(f"parallel: rank {r['rank']}'s frames are not rank 0's")
+    log(f"  two-process train step: loss {results[0]['loss']} and params bit-equal to one "
+        f"process's two-shard step on both ranks")
+    for name, got in theirs.items():
+        exact = all(torch.equal(a, b) for a, b in zip(got, one[name]))
+        if name.startswith("spatial") or name.endswith(" 2"):
+            if not exact:
+                raise AssertionError(f"parallel: two-process {name} is not bit-equal to one "
+                                     f"process's")
+            stats = "bit-equal"
+        else:
+            stats = [_held_in_the_mean(f"two-process {name}, frame {i}", a, b)
+                     for i, (a, b) in enumerate(zip(got, one[name]))]
+        log(f"  two-process {name} steps against one process: {stats}, bit-equal {exact}")
     log(f"  parallel kernel launches {counts} ({card})")
     return counts
 
@@ -2034,6 +2227,163 @@ def composition_phase(card):
     return counts
 
 
+# the north star (bench.py:38-47, BASELINE.json "free.txt"): pop 100,
+# 640x480 colour, the Free structure, chunks of 25 candidates; four
+# generations, so that whole generations replay the captured chunk pass
+NORTH_STAR_POP, NORTH_STAR_W, NORTH_STAR_H, NORTH_STAR_CHUNK = 100, 640, 480, 25
+NORTH_STAR_GENERATIONS = 4
+# the one-step check at the north-star chunk starts from the state after
+# this many steps of the rollout on the generation's renders
+NORTH_STAR_WARM_STEPS = 3
+
+
+def _north_star_step(params, imgs):
+    """One ConvLSTM step at the north-star chunk, layer by layer as
+    ``prednet_step`` runs it on the default route, from the state after
+    ``NORTH_STAR_WARM_STEPS`` steps on ``imgs``: each layer's kernel (the
+    fused kernel on layers 1-3 at 240x320, 120x160 and 60x80, the narrow
+    kernel on layer 0 at 480x640) against its plain version on the card on
+    the same inputs, under the kernels phase's rules (the fused kernel's h
+    within H_TOL and c within C_TOL, the narrow kernel's by the one-step
+    rule); each layer's R_above is the kernel's new R of the layer above."""
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_narrow as cn
+
+    bf16 = torch.bfloat16
+    B, H, W, _ = imgs.shape
+    channels = [p["ahat_w"].shape[0] for p in params]
+    state = model.init_state(B, H, W, channels, dtype=bf16, device="cuda")
+    with torch.inference_mode():
+        for _ in range(NORTH_STAR_WARM_STEPS):
+            state, _ = model.prednet_step(params, state, imgs, compute_dtype=bf16)
+        r_above, rows = None, []
+        for l in reversed(range(len(params))):
+            p, s = params[l], state[l]
+            wks = [p["lstm_k_e"], p["lstm_k_r"]] + ([p["lstm_k_up"]] if r_above is not None
+                                                    else [])
+            if channels[l] >= model.FUSED_MIN_CHANNELS:
+                srcs = [s["e"].to(bf16), s["r"].to(bf16)] + (
+                    [model._upsample2(r_above).to(bf16)] if r_above is not None else [])
+                out = cf.fused_convlstm_layer_multi(srcs, wks, p["lstm_b"], s["c"])
+                ref = cf.convlstm_layer_plain(srcs, wks, p["lstm_b"], s["c"])
+                eh = (out[0].float() - ref[0].float()).abs().max().item()
+                ec = (out[1].float() - ref[1].float()).abs().max().item()
+                ok = out[0].dtype == ref[0].dtype and eh <= H_TOL and ec <= C_TOL
+                name, err = "fused_convlstm_layer_multi", f"h {eh:.3e} c {ec:.3e}"
+            else:
+                srcs = [s["e"], s["r"]] + ([r_above] if r_above is not None else [])
+                out = cn.narrow_convlstm_layer(srcs, wks, p["lstm_b"], s["c"],
+                                               compute_dtype=bf16)
+                ref = cn.narrow_convlstm_layer_plain(srcs, wks, p["lstm_b"], s["c"],
+                                                     compute_dtype=bf16)
+                e, share, ok = _narrow_err(out, ref)
+                name, err = "narrow_convlstm_layer", f"{e:.3e} ({share:.3%} differ)"
+            torch.cuda.synchronize()
+            finite = all(bool(torch.isfinite(t.float()).all()) for t in out)
+            shape = tuple(s["r"].shape)
+            rows.append(f"layer {l} {name} {shape}: max abs err {err}")
+            if not (ok and finite):
+                raise AssertionError(f"north_star: one step, layer {l} {name} at {shape} "
+                                     f"against its plain version: {err}, finite {finite}")
+            r_above = out[0].to(bf16)
+    for row in rows:
+        log(f"  one step at the chunk ({B}, {H}, {W}), kernel against its plain version: {row}")
+
+
+@phase("north_star")
+def north_star_phase(params, card):
+    """The north star on the card: ``GenerationEvaluator`` at pop 100,
+    640x480, Free, colour ``3,48,96,192`` (the bundled weights), chunks of
+    25, on the default route, for four generations (the first chunk of a
+    key runs eagerly, the next is captured as a CUDA graph, the rest
+    replay); logs each generation's seconds (CUDA-synchronised),
+    ``last_timings``, peak device memory, chunks replayed and launches, and
+    the fused kernel's strip width per layer.  Then
+    ``scripts/phase_bench.py``'s split and ``scripts/rollout_profile.py``'s
+    kernel table at one chunk (dense and s2d pixel layer).  Holds finite
+    fitness, 22 narrow and 66 fused launches per eager chunk, and one step
+    at the chunk, kernels against their plain versions
+    (:func:`_north_star_step`).  Returns the launches of the driven paths
+    (the generations and the two scripts), not those of the check."""
+    import numpy as np
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.evolution import (
+        EvalConfig,
+        GenerationEvaluator,
+    )
+    from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
+    from evolutionary_illusion_generator_tpu_torch.ops.convlstm_fused import tile_width
+    from evolutionary_illusion_generator_tpu_torch.ops.convlstm_narrow import (
+        narrow_convlstm_layer,
+    )
+    from evolutionary_illusion_generator_tpu_torch.scripts import phase_bench, rollout_profile
+    from evolutionary_illusion_generator_tpu_torch.structure import StructureType
+
+    B, H, W = NORTH_STAR_CHUNK, NORTH_STAR_H, NORTH_STAR_W
+    widths = {f"layer {l} ({B}, {H >> l}, {W >> l})": tile_width(B, H >> l, W >> l)
+              for l in (1, 2, 3)}
+    log(f"  fused kernel strip widths {widths}")
+    cfg = preset("free").replace(pop_size=NORTH_STAR_POP)
+    ev = GenerationEvaluator(EvalConfig(structure=StructureType.Free, w=W, h=H, c_dim=3,
+                                        microbatch=B), params, cfg, device="cuda")
+    records = []
+
+    def evaluate(items, _cfg):
+        before, replays = _counts(), ev._programs.replays
+        captured = narrow_convlstm_layer.captured
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        scores = ev(list(items))
+        torch.cuda.synchronize()
+        records.append(dict(
+            seconds=time.time() - t0, timings=dict(ev.last_timings),
+            peak=torch.cuda.max_memory_allocated(), reserved=torch.cuda.max_memory_reserved(),
+            fitness=np.asarray(scores),
+            chunks=len(ev.last_results["outputs"]._chunks),
+            replays=ev._programs.replays - replays,
+            captures=int(narrow_convlstm_layer.captured != captured),
+            launches={k: v - before[k] for k, v in _counts().items() if v != before[k]}))
+
+    _reset_counts()
+    Population(cfg, seed=0).run(evaluate, NORTH_STAR_GENERATIONS)
+    for gen, r in enumerate(records):
+        eager = r["chunks"] - r["replays"]
+        want = {"narrow_convlstm_layer": eager * STEPS,
+                "fused_convlstm_layer_multi": eager * 3 * STEPS}
+        if not (len(r["fitness"]) == NORTH_STAR_POP and np.isfinite(r["fitness"]).all()):
+            raise AssertionError(f"north_star: generation {gen} fitness {r['fitness']}")
+        if {k: v for k, v in r["launches"].items()} != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"north_star: generation {gen} launches {r['launches']}, "
+                                 f"expected {want}")
+        log(f"  north_star generation {gen}: {r['seconds']:.4f} s (last_timings "
+            f"{ {k: round(v, 4) for k, v in r['timings'].items()} }); {r['chunks']} chunks: "
+            f"{eager} eager, {r['replays']} replayed ({r['captures']} of them its capture); "
+            f"peak device memory {r['peak'] / 2**30:.3f} GiB allocated, "
+            f"{r['reserved'] / 2**30:.3f} GiB reserved (a replay works in the graph's pool, "
+            f"which only the reserved memory counts); launches {r['launches']}; "
+            f"fitness max {r['fitness'].max():.5f} mean {r['fitness'].mean():.5f}")
+    if not any(r["replays"] == r["chunks"] for r in records):
+        raise AssertionError("north_star: no generation was replayed whole")
+    bench = phase_bench.main([])
+    log(f"  phase_bench: {json.dumps(bench)}")
+    for s2d in ("0", "1"):
+        prof = rollout_profile.main(["--s2d", s2d])
+        log(f"  rollout_profile --s2d {s2d}: steady {prof['steady_s']:.4f} s, busy share "
+            f"{prof['busy_share']:.3f}, {prof['launches']} launches; top "
+            f"{[(k['name'][:60], k['count'], round(k['ms'], 3)) for k in prof['kernels'][:6]]}")
+    counts = _counts()
+    imgs = torch.stack([torch.from_numpy(ev.last_results["outputs"].fetch("images_u8", i))
+                        for i in range(B)]).cuda().float().div(255)
+    _north_star_step(params, imgs)
+    log(f"  north_star launches {counts} ({card})")
+    return counts
+
+
 @phase("profile")
 def profile_generation(params):
     """Device time by kernel over one warm main-path generation (the first
@@ -2048,6 +2398,10 @@ def profile_generation(params):
         GenerationEvaluator,
     )
     from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
+    from evolutionary_illusion_generator_tpu_torch.utils.profiling import (
+        device_events,
+        kernel_table,
+    )
 
     cfg = preset("circles")
     items = list(Population(cfg, seed=0).population.items())
@@ -2067,17 +2421,16 @@ def profile_generation(params):
             torch.cuda.synchronize()
             wall = time.time() - t0
         counts = {k: v for k, v in _counts().items() if v}
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in kernels)
+        kernels = device_events(prof, torch.device("cuda"))
+        lines, totals = kernel_table(kernels, wall, top=12)
         # the path's kernels as the trace saw them run: in the replay they
         # run from the graph, and no wrapper launched them
-        ran = {name: sum(e.count for e in kernels if key in e.key)
+        ran = {name: sum(n for k, n, _ in kernels if key in k)
                for name, (key, _) in TRACE_KERNELS.items()}
         log(f"  profiled generation ({label}): wall {wall * 1e3:.1f} ms (profiler on), device "
-            f"kernels {busy_us / 1e3:.1f} ms, busy share {busy_us / 1e6 / wall:.3f}, "
-            f"{sum(e.count for e in kernels)} kernel launches; in the trace {ran}, counted by "
-            f"the wrappers {counts}")
+            f"kernels {totals['busy_s'] * 1e3:.1f} ms, busy share {totals['busy_share']:.3f}, "
+            f"{totals['launches']} kernel launches; in the trace {ran}, counted by the "
+            f"wrappers {counts}")
         if ran != want:
             raise AssertionError(f"profile ({label}): the trace holds {ran}, expected {want}")
         if on:
@@ -2108,8 +2461,8 @@ def profile_generation(params):
                                      f"{ups}")
             log(f"    no op takes the upsampled layer-1 R {view}; narrow kernels a chunk "
                 f"{ran['narrow_convlstm_layer']}, gate kernels {ran['fused_lstm_gates']}")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-            log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+        for line in lines:
+            log("    " + line)
 
 
 @phase("bisect")
@@ -2343,15 +2696,16 @@ def main():
     train_counts = train_phase(card)
     parallel_counts = parallel_phase(params, card)
     composition_counts = composition_phase(card)
+    north_star_counts = north_star_phase(params, card)
     profile_generation(params)
     bisect_kernels, bisect_counts = bisect()
     kernels.update(bisect_kernels)
     log(f"[total] {time.time() - t0:.1f} s")
     # launches over the driven paths: main_path, cli, probe, options, scorers,
     # train (none: the trainer runs the plain route), parallel, composition,
-    # then the bisection ladder
+    # north_star, then the bisection ladder
     paths = (counts, cli_counts, probe_counts, options_counts, scorer_counts, train_counts,
-             parallel_counts, composition_counts, bisect_counts)
+             parallel_counts, composition_counts, north_star_counts, bisect_counts)
     rows = [dict(name=name, launches=sum(c[name] for c in paths), **r)
             for name, r in kernels.items()]
     print(json.dumps({"kernels": rows}))

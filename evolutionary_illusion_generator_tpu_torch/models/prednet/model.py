@@ -229,14 +229,16 @@ def _ceil8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def _int8_conv(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+def _int8_conv(xq: torch.Tensor, wq: torch.Tensor, pad_h=(1, 1)) -> torch.Tensor:
     """Exact SAME 3x3 conv of int8 NHWC ``xq`` with int8 OIHW ``wq``, int32
     sums: ``torch._int_mm`` on a 9-tap im2col.  K and N are padded with
     zeros to multiples of 8 and M past 16, as the CUDA ``_int_mm`` needs;
-    the zeros leave the sums exact."""
-    B, H, W, cin = xq.shape
+    the zeros leave the sums exact.  ``pad_h`` (top, bottom) pads the
+    height instead of SAME's one row each (a band with its neighbours' halo
+    rows takes 0 where a halo row stands)."""
     cout = wq.shape[0]
-    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    xp = F.pad(xq, (0, 0, 1, 1, *pad_h))
+    B, H, W, cin = xp.shape[0], xp.shape[1] - 2, xq.shape[2], xq.shape[3]
     cols = torch.stack([xp[:, ky:ky + H, kx:kx + W] for ky in range(3) for kx in range(3)],
                        dim=3)  # (B, H, W, 9, Cin)
     M, K = B * H * W, 9 * cin
@@ -245,25 +247,33 @@ def _int8_conv(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, w.t())[:M, :cout].reshape(B, H, W, cout)
 
 
-def _activation_codes(x):
+def _activation_max(x):
+    """max |x| over H, W and C, one per batch row: (N, 1, 1, 1)."""
+    return x.abs().amax(dim=(1, 2, 3), keepdim=True)
+
+
+def _activation_codes(x, amax=None):
     """The int8 codes of ``x`` and their scale, one per batch row (max |x|
     over H, W, C / 127, so a candidate's codes do not depend on its chunk's
     other rows).  XLA compiles the JAX ``max|x| / 127.0`` into a product
     with the float32 constant 1/127, so the compiled JAX program (the
     evaluator's, the probe's) quantises with that scale; the true quotient
-    moves it by an ulp and rounds a few percent of E's codes the other way."""
-    amax = x.abs().amax(dim=(1, 2, 3), keepdim=True)
+    moves it by an ulp and rounds a few percent of E's codes the other way.
+    ``amax`` (:func:`_activation_max` of a larger tensor ``x`` is part of:
+    a band's, the whole frame's) replaces ``x``'s own."""
+    if amax is None:
+        amax = _activation_max(x)
     ascale = torch.clamp_min(amax * torch.full_like(amax, 1 / 127), 1e-12)  # (N, 1, 1, 1)
     return torch.clamp(torch.round(x / ascale), -127, 127).to(torch.int8), ascale
 
 
-def _conv_q(x, wq, ws, b, out_dtype):
+def _conv_q(x, wq, ws, b, out_dtype, amax=None, pad_h=(1, 1)):
     """int8 NHWC conv, the JAX ``_conv_q``: the activations quantised per
-    batch row (:func:`_activation_codes`), exact int8 x int8 -> int32 sums,
-    dequantised with the per-output-channel weight scales ``ws``; ``b`` may
-    be ``None``."""
-    xq, ascale = _activation_codes(x)
-    y = _int8_conv(xq, wq).float() * (ascale.float() * ws)
+    batch row (:func:`_activation_codes`; ``amax`` as there), exact int8 x
+    int8 -> int32 sums, dequantised with the per-output-channel weight
+    scales ``ws``; ``b`` may be ``None``; ``pad_h`` as :func:`_int8_conv`'s."""
+    xq, ascale = _activation_codes(x, amax)
+    y = _int8_conv(xq, wq, pad_h).float() * (ascale.float() * ws)
     if b is not None:
         y = y + b.float()
     return y.to(out_dtype)

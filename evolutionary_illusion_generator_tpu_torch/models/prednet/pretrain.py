@@ -161,16 +161,19 @@ def pretrain(
     function).  ``init_weights`` warm-starts from a ``save_params`` NPZ
     (the optimizer starts fresh; the data still follow ``seed``).
     ``checkpoint`` / ``save_every`` write a resumable checkpoint every
-    ``save_every`` steps and resume from it.  ``mesh`` (a mesh of this
-    process, :func:`..parallel.mesh.make_mesh`) trains data-parallel, the
-    batch split over its entries (:func:`.train.make_train_step`); the params
-    live on ``device``, by default the mesh's first device.  On the card it
+    ``save_every`` steps and resume from it.  ``mesh``
+    (:func:`..parallel.mesh.make_mesh`, over one process or several)
+    trains data-parallel, the batch split over its entries
+    (:func:`.train.make_train_step`); the params live on ``device``, by
+    default this process's first device of the mesh.  Over several
+    processes every process draws the same batches and takes the same
+    step.  On the card it
     turns TF32 off for float32
     convolutions and matmuls, as the evolution driver does, and leaves it
     off.
     """
     if device is None and mesh is not None:
-        device = mesh.devices.flat[0]
+        device = mesh.local_devices()[0]
     device = resolve_device(device)
     if device.type == "cuda":
         # float32 convolutions and matmuls in full float32 (cuDNN would

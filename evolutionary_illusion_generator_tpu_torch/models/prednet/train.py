@@ -33,6 +33,7 @@ import torch
 
 from ..._device import device_context
 from ...ops.convlstm_fused import pack_gate_weight
+from ...parallel.distributed import gather_entries, process_count, sum_in_order
 from ...parallel.mesh import replicate, shard_leading
 from .model import init_state, prednet_step
 
@@ -298,6 +299,20 @@ def _repack(layer: dict) -> dict:
     return layer
 
 
+def _gather_parts(parts, mesh, leaves, home):
+    """Every entry's float32 loss and gradients (``parts``: this process's
+    entries', ``None`` for the others') on every process, on ``home``: each
+    entry's flattened into one vector, gathered, and cut back."""
+    sizes = [1] + [v.numel() for v in leaves]
+    flat = [None if p is None else torch.cat([x.reshape(-1) for x in p]) for p in parts]
+    out = []
+    for vec in gather_entries(flat, mesh.processes.flat, (sum(sizes),), torch.float32):
+        pieces = vec.to(home).split(sizes)
+        out.append([pieces[0].reshape(())]
+                   + [x.reshape(v.shape) for x, v in zip(pieces[1:], leaves)])
+    return out
+
+
 def make_train_step(tx: Adam, *, mesh=None, t_open: Optional[int] = None,
                     closed_weight: float = 0.0, edge_weight: float = 0.0,
                     masked_closed: bool = False, motion_weight: float = 0.0,
@@ -314,22 +329,26 @@ def make_train_step(tx: Adam, *, mesh=None, t_open: Optional[int] = None,
     * ``cue_motion_weight > 0`` adds a final (B,) cue-regime indicator for
       the pixelwise hinge.
 
-    ``mesh`` (a :class:`..parallel.mesh.Mesh` of this process; the JAX
-    data-parallel step) splits the batch axis of ``frames`` and the masks
-    over its entries and runs each shard's loss and gradients on its
-    entry's device, from float32 params placed on each device: each
-    shard's loss is its part of the whole batch's (:func:`whole_batch`
-    normalises it), so the shards' float32 gradients add up, on the
-    params' device, to the whole batch's, and one Adam step on the float32
-    master gives the update of the whole batch.  A mesh that spans
-    processes raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 13).
-    The step runs in deterministic cuDNN mode, so a resumed run repeats an
-    uninterrupted one bit for bit on the card as well.
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`; the JAX data-parallel
+    step) splits the batch axis of ``frames`` and the masks over its
+    entries and runs each shard's loss and gradients on its entry's
+    device, from float32 params placed on each device: each shard's loss
+    is its part of the whole batch's (:func:`whole_batch` normalises it),
+    so the shards' float32 gradients add up, in entry order on the params'
+    device, to the whole batch's, and one Adam step on the float32 master
+    gives the update of the whole batch.  A mesh that spans processes
+    (:func:`..parallel.distributed.initialize_distributed`) takes the whole
+    batch on every process, as the sharded evaluator takes every genome;
+    each process runs its own entries' shards, gathers every entry's
+    gradients and loss (:func:`..parallel.distributed.gather_entries`) and
+    adds them in entry order, so every process takes the same step, bit
+    for bit that of one process running all the entries.  The step runs in
+    deterministic cuDNN mode, so a resumed run repeats an uninterrupted one
+    bit for bit on the card as well.
     """
-    if mesh is not None and mesh.spans_processes:
-        raise NotImplementedError(
-            "make_train_step(mesh=...) over several processes: the data-parallel step runs "
-            "within one process (ROADMAP.md Queue 1 item 13)")
+    if mesh is not None and mesh.spans_processes and process_count() == 1:
+        raise ValueError(f"{mesh} spans processes, but no process group is initialized "
+                         f"(parallel.initialize_distributed)")
     if closed_weight > 0.0:
         if t_open is None:
             raise ValueError("closed_weight > 0 requires t_open")
@@ -372,15 +391,20 @@ def make_train_step(tx: Adam, *, mesh=None, t_open: Optional[int] = None,
             shards = [shard_leading(x, mesh) if x is not None else [None] * mesh.size
                       for x in (frames, mask, open_mask, cue_mask)]
             placed = replicate(params32, mesh)  # differentiable copies
-            loss, grads = None, None
+            parts = []  # per entry: its loss, then its gradients
             for i, dev in enumerate(mesh.devices.flat):
+                if not mesh.is_local(i):
+                    parts.append(None)
+                    continue
                 with device_context(dev):
                     part = _loss(placed[dev], *(x[i] for x in shards),
                                  whole={k: v.to(dev) for k, v in whole.items()})
                     g = torch.autograd.grad(part, leaves)
-                part = part.to(home)
-                loss = part if loss is None else loss + part
-                grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+                parts.append([part.to(home), *g])
+            if mesh.spans_processes:
+                parts = _gather_parts(parts, mesh, leaves, home)
+            loss = sum_in_order([p[0] for p in parts])
+            grads = [sum_in_order([p[j] for p in parts]) for j in range(1, len(leaves) + 1)]
             return loss, grads
 
     def _update(params, opt_state, frames, mask, open_mask, cue_mask):

@@ -28,8 +28,12 @@ implementation of the strategy, so that it exists and can be measured.
   plain gate math, the JAX pipeline's ``_conv`` and ``_lstm_gates_jnp``):
   no kernel is launched, as the JAX pipeline reaches no Pallas kernel.
 
-The stages run one after another in this process, tick by tick; a mesh
-that spans processes is refused (ROADMAP.md Queue 1 item 13).
+The stages run one after another in this process, tick by tick.  A mesh
+that spans processes (:func:`.distributed.initialize_distributed`) runs
+each stage on its entry's process: a tick's message to a stage of another
+process goes as a host copy (:func:`.distributed.exchange`), and stage 0's
+frames are gathered to every process, so every process returns them.
+Every process passes the same params and images.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from ..models.prednet.model import (
     _maxpool2,
     _upsample2,
 )
+from .distributed import exchange, gather_entries, process_count, process_index
 from .mesh import Mesh, _all_devices, _object_array
 
 __all__ = ["make_pp_mesh", "pipelined_rollout_flow_frames"]
@@ -98,9 +103,9 @@ def pipelined_rollout_flow_frames(
     S = mesh.shape.get(PP_AXIS)
     if S != L:
         raise ValueError(f"mesh 'pp' axis size {S} != {L} layers")
-    if mesh.spans_processes:
-        raise NotImplementedError(
-            "pipelined rollout over several processes (ROADMAP.md Queue 1 item 13)")
+    if mesh.spans_processes and process_count() == 1:
+        raise ValueError(f"{mesh} spans processes, but no process group is initialized "
+                         f"(parallel.initialize_distributed)")
     B, H, W, C0 = images.shape
     if channels[0] != C0:
         raise ValueError(f"images have {C0} channels, the predictor {channels[0]}")
@@ -117,17 +122,24 @@ def pipelined_rollout_flow_frames(
     dtype = params[0]["lstm_w_e"].dtype
     T = repeat + extension
     devs = list(mesh.devices.flat)
-    weights = [{k: v.to(devs[l]) for k, v in params[l].items()} for l in range(L)]
+    owners = [int(o) for o in mesh.processes.flat]
+    local = [o == process_index() for o in owners]
+    weights = [{k: v.to(devs[l]) for k, v in params[l].items()} if local[l] else None
+               for l in range(L)]
     frames32 = images.float()
-    frames = [frames32[m * mb:(m + 1) * mb].to(devs[0]) for m in range(M)]
+    frames = [frames32[m * mb:(m + 1) * mb].to(devs[0]) for m in range(M)] if local[0] else []
 
     def zeros(l, c):
-        return torch.zeros(mb, H >> l, W >> l, c, dtype=dtype, device=devs[l])
+        """Stage l's zero state per microbatch, in its layer's true shape;
+        only on the stage's own process."""
+        if not local[l]:
+            return None
+        return [torch.zeros(mb, H >> l, W >> l, c, dtype=dtype, device=devs[l])
+                for _ in range(M)]
 
-    # stage l's state per microbatch, in its layer's true shapes
-    r = [[zeros(l, channels[l]) for _ in range(M)] for l in range(L)]
-    c = [[zeros(l, channels[l]) for _ in range(M)] for l in range(L)]
-    e = [[zeros(l, 2 * channels[l]) for _ in range(M)] for l in range(L)]
+    r = [zeros(l, channels[l]) for l in range(L)]
+    c = [zeros(l, channels[l]) for l in range(L)]
+    e = [zeros(l, 2 * channels[l]) for l in range(L)]
     prev_pred = list(frames)  # stage 0: the last prediction per microbatch
     preds = {t: [None] * M for t in collect}
 
@@ -163,26 +175,53 @@ def pipelined_rollout_flow_frames(
             return _maxpool2(torch.relu(_conv(err.to(dtype), p["a_w"], p["a_b"], cd, cudnn=False)))
         return None
 
+    def runs(phase):
+        return phase >= 0 and phase % 2 == 0 and phase // 2 < T * M
+
+    # the messages a stage sends: R (stage s's, to s - 1) and pooled A
+    # (stage s's, to s + 1), with their shapes and dtypes
+    r_msg = [((mb, H >> s, W >> s, channels[s]), dtype) for s in range(L)]
+    a_msg = [((mb, H >> (s + 1), W >> (s + 1), channels[s + 1]), cd) for s in range(L - 1)]
     r_in = [None] * L  # R from the stage above, arrived this tick
     a_in = [None] * L  # pooled A from the stage below, arrived this tick
     for k in range(2 * T * M + 2 * L - 2):
         r_out = [None] * L
         a_out = [None] * L
         for s in range(L):
+            if not local[s]:
+                continue
             dphase = k - (L - 1 - s)
-            if dphase >= 0 and dphase % 2 == 0 and dphase // 2 < T * M:
+            if runs(dphase):
                 r_out[s] = down(s, (dphase // 2) % M, r_in[s])
             uphase = k - (L + s)
-            if uphase >= 0 and uphase % 2 == 0 and uphase // 2 < T * M:
+            if runs(uphase):
                 idx = uphase // 2
                 a_out[s] = up(s, idx % M, idx // M, a_in[s])
-        # boundary hops: R one stage down, pooled A one stage up
-        r_in = [r_out[s + 1].to(devs[s]) if s + 1 < L and r_out[s + 1] is not None else None
-                for s in range(L)]
-        a_in = [a_out[s - 1].to(devs[s]) if s > 0 and a_out[s - 1] is not None else None
-                for s in range(L)]
+        # boundary hops: R one stage down (tag 2 s), pooled A one stage up
+        # (tag 2 s + 1), to the receiving stage s; across processes as host
+        # copies.  Whether a stage sent this tick is known to every process
+        r_in, a_in = [None] * L, [None] * L
+        sends, recvs, into = [], [], []
+        for s in range(L):
+            for src, sent, outs, box, msg, tag in (
+                    (s + 1, s + 1 < L and runs(k - (L - 2 - s)), r_out, r_in, r_msg, 2 * s),
+                    (s - 1, s > 0 and runs(k - (L + s - 1)), a_out, a_in, a_msg, 2 * s + 1)):
+                if not sent or not (local[s] or local[src]):
+                    continue
+                if local[s] and local[src]:
+                    box[s] = outs[src].to(devs[s])
+                elif local[src]:
+                    sends.append((outs[src], owners[s], tag))
+                else:
+                    recvs.append((*msg[src], owners[src], tag))
+                    into.append((box, s))
+        for (box, s), got in zip(into, exchange(sends, recvs)):
+            box[s] = got.to(devs[s])
 
-    out = [torch.cat(preds[t]).to(images.device) for t in collect]
+    out = [torch.cat(preds[t]) if local[0] else None for t in collect]
+    if mesh.spans_processes:
+        out = [gather_entries([x], owners[:1], (B, H, W, C0), torch.float32)[0] for x in out]
+    out = [x.to(images.device) for x in out]
     if pair == "population":
         return out[0], out[1]
     return frames32, out[0]

@@ -2,20 +2,23 @@
 
 The port of the JAX package's ``utils/profiling.py``: named phase timers
 aggregated per generation, plus a ``torch.profiler`` trace context that
-writes a Chrome trace JSON (host ops and, on the card, its kernels).
+writes a Chrome trace JSON (host ops and, on the card, its kernels), and
+the aggregation of a finished profile into time per kernel name
+(:func:`device_events`, :func:`kernel_table`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-__all__ = ["PhaseTimers", "trace", "TRACE_FILE"]
+__all__ = ["PhaseTimers", "card_line", "device_events", "kernel_table", "trace", "TRACE_FILE"]
 
 TRACE_FILE = "trace.json"
 
@@ -62,3 +65,44 @@ def trace(log_dir: Optional[str]) -> Iterator[None]:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def device_events(prof, device: torch.device) -> List[Tuple[str, int, float]]:
+    """(name, count, microseconds) per name of what ran on ``device`` in a
+    finished ``torch.profiler`` run, longest first: the card's kernels and
+    their device time, or on the CPU its operators and their self time (so
+    an operator nested in another is not counted twice)."""
+    cuda = torch.device(device).type == "cuda"
+    kind = torch.autograd.DeviceType.CUDA if cuda else torch.autograd.DeviceType.CPU
+    rows = [(e.key, e.count, e.self_device_time_total if cuda else e.self_cpu_time_total)
+            for e in prof.key_averages() if e.device_type == kind]
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def kernel_table(events: List[Tuple[str, int, float]], wall_s: float,
+                 top: Optional[int] = None) -> Tuple[List[str], Dict[str, float]]:
+    """Printable lines of :func:`device_events` (count, ms and share of the
+    device time per name, the ``top`` longest), and the totals: the device's
+    busy time in the profiled window of ``wall_s`` seconds, its busy share
+    and the number of launches."""
+    busy_us = sum(us for _, _, us in events)
+    lines = [f"{'name':70s} {'count':>7s} {'ms':>10s} {'share':>7s}"]
+    for name, count, us in events[:top]:
+        lines.append(f"{name[:70]:70s} {count:7d} {us / 1e3:10.3f} "
+                     f"{us / max(busy_us, 1e-9):7.2%}")
+    totals = {"busy_s": busy_us / 1e6, "wall_s": wall_s,
+              "busy_share": busy_us / 1e6 / wall_s if wall_s > 0 else float("nan"),
+              "launches": sum(count for _, count, _ in events)}
+    return lines, totals
+
+
+def card_line(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (the first card's), for
+    a CUDA ``device``; ``"cpu"`` for the CPU."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]

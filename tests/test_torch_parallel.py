@@ -66,7 +66,6 @@ from evolutionary_illusion_generator_tpu_torch.parallel import (
     replicated_sharding,
 )
 from evolutionary_illusion_generator_tpu_torch.parallel.mesh import (
-    Mesh,
     replicate,
     shard_leading,
 )
@@ -317,13 +316,6 @@ def test_pretrain_on_a_mesh_matches_one_device():
     _flip_rule(pm, p1, 2e-3 * 2)
 
 
-def test_train_step_refuses_a_mesh_across_processes():
-    mesh = Mesh(np.array([torch.device("cpu")] * 2, dtype=object), ("pop",),
-                np.array([0, 1]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        train.make_train_step(train.adam(1e-3), mesh=mesh)
-
-
 # ---- the spatial rollout ------------------------------------------------------
 
 
@@ -528,29 +520,39 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_two_processes_assign_the_single_process_fitness(neat_cfg, layers):
-    """Two ``gloo`` processes, each holding one entry of a two-entry CPU
-    mesh, evaluate half the population each; both assign the fitness of
-    the single-process evaluator, and each fetches the winner-style rows
-    of the other rank's shard."""
+def run_two_processes(code, timeout=CHILD_TIMEOUT_S, env=None):
+    """``python -c code`` as ranks 0 and 1 of a ``gloo`` group on this
+    host (the JAX_* environment of :func:`initialize_distributed`); each
+    child must print one JSON object as its last line, and fails the
+    caller (never hangs it) when it exits non-zero or outlives
+    ``timeout`` seconds.  Returns the two objects in rank order."""
     port = _free_port()
     procs = []
     for rank in range(2):
-        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
-                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank))
-        procs.append(subprocess.Popen([sys.executable, "-c", _CHILD.format(repo=str(REPO))],
-                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                      text=True, env=env, cwd=str(REPO)))
+        child_env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+                         JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank), **(env or {}))
+        procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True, env=child_env,
+                                      cwd=str(REPO)))
     results = []
     try:
         for p in procs:
-            out, err = p.communicate(timeout=CHILD_TIMEOUT_S)
+            out, err = p.communicate(timeout=timeout)
             assert p.returncode == 0, err
             results.append(json.loads(out.strip().splitlines()[-1]))
     finally:
         for p in procs:
             p.kill()
             p.wait()
+    return results
+
+
+def test_two_processes_assign_the_single_process_fitness(neat_cfg, layers):
+    """Two ``gloo`` processes, each holding one entry of a two-entry CPU
+    mesh, evaluate half the population each; both assign the fitness of
+    the single-process evaluator, and each fetches the winner-style rows
+    of the other rank's shard."""
+    results = run_two_processes(_CHILD.format(repo=str(REPO)))
 
     params = params_from_numpy(layers, torch.bfloat16, "cpu")
     genomes = _genomes(16, neat_cfg, Genome)

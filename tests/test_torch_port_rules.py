@@ -24,6 +24,7 @@ from evolutionary_illusion_generator_tpu_torch.neat import preset
 from evolutionary_illusion_generator_tpu_torch.ops.convlstm_gates import kernel_stream
 from evolutionary_illusion_generator_tpu_torch.parallel import make_mesh, make_mesh_2d
 from evolutionary_illusion_generator_tpu_torch.parallel.pipeline import make_pp_mesh
+from evolutionary_illusion_generator_tpu_torch.scripts import phase_bench, rollout_profile
 from evolutionary_illusion_generator_tpu_torch.structure import StructureType
 from evolutionary_illusion_generator_tpu_torch.utils.image_io import save_image
 
@@ -117,6 +118,11 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         quickstart.main([str(tmp_path / "qs")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pretrain.main(["--channels", "1,4,8", "--steps", "1", "--out", str(tmp_path / "w.npz")])
+    tiny = ["--pop", "2", "--width", "32", "--height", "24", "--channels", "3,4,8"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        phase_bench.main(tiny)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rollout_profile.main(tiny)
     assert not (tmp_path / "p").exists() and not (tmp_path / "qs").exists()
     assert not (tmp_path / "w.npz").exists()
     params = loader.load_or_init(None, (1, 4, 8), device="cpu")

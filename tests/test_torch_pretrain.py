@@ -27,7 +27,6 @@ from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import (
     params_to_numpy,
     save_params,
 )
-from evolutionary_illusion_generator_tpu_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(1)
 
@@ -169,19 +168,11 @@ def test_init_weights_warm_start_matches_jax(tmp_path, monkeypatch):
         pre.pretrain(CH, device="cpu", **kw)
 
 
-_PROCESS_MESH = Mesh(np.array([torch.device("cpu")] * 2, dtype=object), ("pop",),
-                     np.array([0, 1]))
-
-
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(data="v2", closed_frames=2, closed_exclude_rings=True), ValueError, "need the v3"),
     (dict(ring_mask_prefix=True), ValueError, "ring_mask_prefix needs"),
     (dict(tang_radial=True, tang_uniform=True), ValueError, "pick one"),
     (dict(data="v4"), ValueError, "unknown data set"),
-    # a mesh across processes (the data-parallel step within one process
-    # is ported: tests/test_torch_parallel.py)
-    pytest.param(dict(mesh=_PROCESS_MESH), NotImplementedError, "Queue 1 item 13",
-                 id="kw4-NotImplementedError-Queue 1 item 9"),
 ])
 def test_pretrain_errors(kw, exc, match):
     with pytest.raises(exc, match=match):

@@ -1,0 +1,122 @@
+"""The port's scripts (``evolutionary_illusion_generator_tpu_torch/scripts/``)
+on the CPU: ``phase_bench`` and ``rollout_profile`` at a tiny chunk (pop 2,
+32x24, ``3,4,8``), whose JSON line must parse and hold every named field;
+``ckpt_to_weights`` and ``swa_weights`` against the JAX package's scripts of
+the same name on the same files, array for array.
+"""
+
+import importlib.util
+import json
+import math
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from evolutionary_illusion_generator_tpu_torch.models.prednet import pretrain
+from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import (
+    init_params_numpy,
+    params_from_numpy,
+    save_params,
+)
+from evolutionary_illusion_generator_tpu_torch.scripts import (
+    ckpt_to_weights,
+    phase_bench,
+    rollout_profile,
+    swa_weights,
+)
+from test_torch_parallel import REPO
+
+torch.set_num_threads(1)
+
+TINY = ["--pop", "2", "--width", "32", "--height", "24", "--channels", "3,4,8",
+        "--device", "cpu"]
+
+
+def _jax_script(name):
+    """The JAX package's ``scripts/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(f"jax_script_{name}",
+                                                  REPO / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _json_line(capsys):
+    lines = capsys.readouterr().out.strip().splitlines()
+    return json.loads(lines[-1])
+
+
+def test_phase_bench_prints_every_phase(capsys):
+    got = phase_bench.main(TINY + ["--reps", "1"])
+    line = _json_line(capsys)
+    assert line == json.loads(json.dumps(got))
+    assert line["script"] == "phase_bench" and line["card"] == "cpu"
+    assert (line["pop"], line["width"], line["height"]) == (2, 32, 24)
+    assert line["graph"] is False  # no CUDA graph on the CPU
+    for k in phase_bench.FIELDS:
+        assert isinstance(line[k], float) and math.isfinite(line[k]), k
+        assert k == "other_s" or line[k] >= 0.0, k
+    parts = ("pack_s", "copy_in_s", "replay_s", "copy_out_s", "score_s", "other_s")
+    assert math.isclose(sum(line[k] for k in parts), line["full_replay_s"], rel_tol=1e-9)
+
+
+@pytest.mark.parametrize("s2d", ["0", "1"])
+def test_rollout_profile_prints_its_table(s2d, capsys):
+    got = rollout_profile.main(TINY + ["--s2d", s2d, "--repeat", "4"])
+    line = _json_line(capsys)
+    assert line == json.loads(json.dumps(got))
+    assert line["script"] == "rollout_profile" and line["s2d"] == (s2d == "1")
+    for k in ("first_s", "steady_s", "busy_s", "wall_s", "busy_share"):
+        assert isinstance(line[k], float) and line[k] > 0.0, k
+    assert len(line["all_s"]) == 3 and line["steady_s"] == sorted(line["all_s"])[1]
+    assert 0.0 < line["busy_share"] <= 1.0 and line["launches"] > 0
+    rows = line["kernels"]
+    assert 0 < len(rows) <= rollout_profile.TOP
+    assert all(set(r) == {"name", "count", "ms", "share"} for r in rows)
+    assert [r["ms"] for r in rows] == sorted((r["ms"] for r in rows), reverse=True)
+    assert sum(r["share"] for r in rows) <= 1.0 + 1e-9
+
+
+def _npz(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _assert_same_npz(a, b):
+    a, b = _npz(a), _npz(b)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+
+
+def test_ckpt_to_weights_matches_the_jax_script(tmp_path):
+    """A checkpoint that the port's ``pretrain`` writes (a tiny CPU run),
+    converted by both scripts: the same ``save_params`` file."""
+    ckpt = str(tmp_path / "run.part-a.npz")
+    pretrain.pretrain((3, 4, 8), steps=3, batch=2, T=3, h=16, w=16, verbose=False,
+                      checkpoint=ckpt, save_every=2, device="cpu")
+    ours, theirs = str(tmp_path / "ours.npz"), str(tmp_path / "theirs.npz")
+    ckpt_to_weights.main([ckpt, ours])
+    _jax_script("ckpt_to_weights").main(["ckpt_to_weights.py", ckpt, theirs])
+    _assert_same_npz(ours, theirs)
+    assert len(_npz(ours)) == 16  # lstm_w, lstm_b, ahat_w, ahat_b (, a_w, a_b) a layer
+    with pytest.raises(SystemExit, match="not a pretrain checkpoint"):
+        ckpt_to_weights.main([ours, str(tmp_path / "again.npz")])
+
+
+def test_swa_weights_matches_the_jax_script(tmp_path, monkeypatch):
+    ins = []
+    for seed in range(3):
+        path = str(tmp_path / f"snap{seed}.npz")
+        save_params(params_from_numpy(init_params_numpy((3, 4, 8), seed=seed), torch.float32,
+                                      "cpu"), path, dtype=np.float16)
+        ins.append(path)
+    ours, theirs = str(tmp_path / "ours.npz"), str(tmp_path / "theirs.npz")
+    swa_weights.main([ours] + ins)
+    monkeypatch.setattr(sys, "argv", ["swa_weights.py", theirs] + ins)
+    _jax_script("swa_weights").main()
+    _assert_same_npz(ours, theirs)
+    with pytest.raises(SystemExit, match="at least two"):
+        swa_weights.main([ours, ins[0]])

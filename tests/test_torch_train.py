@@ -252,16 +252,6 @@ def test_make_train_step_errors_match_jax(kw, match):
         train.make_train_step(train.adam(1e-3), **kw)
 
 
-def test_make_train_step_mesh_is_not_ported():
-    """The data-parallel step is ported within one process
-    (tests/test_torch_parallel.py); a mesh across processes is not."""
-    from evolutionary_illusion_generator_tpu_torch.parallel.mesh import Mesh
-
-    mesh = Mesh(np.array([torch.device("cpu")] * 2, dtype=object), ("pop",), np.array([0, 1]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        train.make_train_step(train.adam(1e-3), mesh=mesh)
-
-
 @pytest.mark.parametrize("use_pallas", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("channels", STACKS)
