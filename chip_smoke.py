@@ -20,8 +20,13 @@ Phases, each printing its wall time and raising on failure:
    both its contracts (the main path's bfloat16 one and the JAX function's
    float32 one), timed on the device (``device_ms``) beside the host's call
    rate (``call_ms``), at the s2d pixel layer's shape (8, 60, 80, 12), and
-   at every type and an odd pixel count on views off alignment; the fused kernel per layer with its TFLOP/s (CUDA events),
-   at every tile mapping the wrapper chooses from, and at ragged shapes;
+   at every type and an odd pixel count on views off alignment; the fused
+   kernel per layer at the main path's and the north star's shapes: its
+   wgmma body (asserted by the wrapper's launches by body) against the plain
+   version and float64 sums, with its TFLOP/s (CUDA events) beside its
+   mma_sync body's, the library's and the plain version's times, each
+   channel group timed at the main path; and at ragged shapes at every
+   plan of both bodies and a source off its alignment;
 5. reference: the port's rollout on the card against the same rollout on
    the CPU (plain versions) on a small input with the bundled weights;
 6. main path: ``neat_illusion`` for two generations at the full width of the
@@ -97,15 +102,15 @@ Phases, each printing its wall time and raising on failure:
    1280x960, 3,48,96,192, global chunks of 64) through
    ``graft_entry.composition`` on the fused route over a mesh of cuda:0 x
    8: one generation, its checkpoint and the resumed generation; logs the
-   fused kernel's strip width at each fused layer, s/generation with its
+   fused kernel's plan at each fused layer, s/generation with its
    eager, captured and replayed shard passes, the peak device memory, the
    launches and the best fitness; fails on a non-finite fitness, a best
    fitness of 0 or launch counts that are not 22 narrow and 66 fused per
    eager pass;
    north_star: the generation evaluator at the north star (pop 100,
    640x480, Free, 3,48,96,192, chunks of 25) for four generations, with
-   s/generation, ``last_timings``, peak memory, the fused kernel's strip
-   widths and the launches; ``scripts/phase_bench.py`` (render / rollout /
+   s/generation, ``last_timings``, peak memory, the fused kernel's plans
+   and the launches; ``scripts/phase_bench.py`` (render / rollout /
    flow / host parts of one chunk) and ``scripts/rollout_profile.py`` (the
    rollout's kernels, dense and s2d pixel layer); one step at the chunk,
    each layer's kernel against its plain version; fails on a non-finite
@@ -113,7 +118,8 @@ Phases, each printing its wall time and raising on failure:
 14. profile: device time by kernel and the number of kernel launches over
    one warm main-path generation, replayed as a CUDA graph (the default)
    and run eagerly (``program_cache=False``); in both the trace must hold
-   22 narrow and 66 fused kernels and no gate kernel, which in the replay
+   22 narrow and 66 fused kernels of the wgmma body, and no gate kernel
+   and no fused kernel of the mma_sync body, which in the replay
    no wrapper launched (the graph recorded them at its capture), and the
    eager pass no upsampled copy of layer 1's R (the narrow kernel reads it
    at half resolution);
@@ -128,6 +134,9 @@ Phases, each printing its wall time and raising on failure:
    wgmma kernel) against float64 sums on two images, and against their
    plain versions at the tests' ragged, wide, odd-rows and cp.async-windows
    shapes; logs E's and J's times beside D's.
+
+Every phase that reads the wrappers' launch counts fails if a fused layer
+took the fused kernel's mma_sync body (``_counts``).
 
 Then one JSON line with every kernel's numbers (its launches summed over
 the main path, cli, probe, options, scorers, train, parallel, composition,
@@ -166,14 +175,33 @@ MULTI_LAYERS = (  # (H, W, C, source channels [E, R, up(R_above)])
     (15, 20, 192, (384, 192)),
 )
 SINGLE_LAYER = (60, 80, 48, (240,))  # layer 1's concatenated input
+# the north star's fused layers at its chunk of 25 (640x480): (H, W, C, sources)
+NORTH_STAR_LAYERS = (
+    (240, 320, 48, (96, 48, 96)),
+    (120, 160, 96, (192, 96, 192)),
+    (60, 80, 192, (384, 192)),
+)
+# the fused kernel's c against float64 sums: on the main path's whole chunk,
+# and on this many images of a north-star layer (a float64 conv of its chunk
+# of 25 takes seconds)
+DRIFT_IMAGES = 2
 # (B, H, W, source channels, C, state dtype name) held against the plain
-# version at every tile mapping
+# version at every plan: the wgmma body where every source's channels are a
+# multiple of 8, else the mma_sync body
 RAGGED_CASES = (
     (2, 13, 21, (40,), 24, "float32"),
     (2, 13, 21, (40, 12), 24, "bfloat16"),
     (2, 13, 21, (40, 12, 24), 24, "float32"),
     (2, 13, 21, (12, 40, 24), 24, "bfloat16"),
+    (2, 13, 21, (40, 8, 24), 24, "float32"),
+    (2, 13, 21, (40, 8, 24), 24, "bfloat16"),
 )
+# the wgmma plans (cg, (tile_h, tile_w, wg_stride)) the ragged cases are
+# held at beside the plan's own: every channel group (C 24 masks 8 or 24 of
+# 32 or 48), a row of 64 a warpgroup, and run-on tiles 2, 7 and 21 wide (an
+# odd tile count: a cluster's padding block)
+RAGGED_PLANS = tuple((cg, tile) for cg in (16, 32, 48)
+                     for tile in ((2, 64, 66), (32, 2, 64), (14, 7, 64), (5, 21, 64)))
 STEPS = 22  # 20 open-loop + 2 closed-loop steps per chunk
 # the s2d pixel layer's gate step: C' = 4C = 12 at half the resolution
 S2D_GATES_SHAPE = (MAIN_BATCH, 60, 80, 12)
@@ -217,8 +245,9 @@ CLI_ARGS = ["-s", "1", "--generations", "2"]
 CLI_SHAPE = (120, 160, 3)
 OVERLAY_RED = (255, 0, 0)
 TRACE_KERNELS = {"narrow_convlstm_layer": ("convlstm_narrow_kernel", STEPS),
-                 "fused_convlstm_layer_multi": ("convlstm_fused_kernel", STEPS * 3),
-                 "fused_lstm_gates": ("lstm_gates_kernel", 0)}
+                 "fused_convlstm_layer_multi": ("convlstm_fused_wgmma_kernel", STEPS * 3),
+                 "fused_lstm_gates": ("lstm_gates_kernel", 0),
+                 "convlstm_fused (mma_sync body)": ("convlstm_fused_kernel", 0)}
 # the probe phase: the color predictor at full width on the cli phase's
 # best.png, two probe rollouts and one file-bus rollout
 PROBE_CHANNELS = (3, 48, 96, 192)
@@ -432,24 +461,31 @@ def cuda_tests():
     return counts["passed"]
 
 
-def _layer_inputs(gen, params, layer, H, W, cins):
+def _layer_inputs(gen, params, layer, H, W, cins, B=MAIN_BATCH):
     """Sources, kernel weights, bias and c_prev at one layer's shape, with
     the bundled weights of that layer."""
     import torch
 
     p = params[layer]
     C = p["ahat_w"].shape[0]
-    srcs = [torch.rand(MAIN_BATCH, H, W, ci, device="cuda", generator=gen)
+    srcs = [torch.rand(B, H, W, ci, device="cuda", generator=gen)
             .mul_(2).sub_(1).bfloat16() for ci in cins]
     wks = [p[k] for k in ("lstm_k_e", "lstm_k_r", "lstm_k_up") if k in p]
     if len(cins) == 1:  # the single-source kernel takes the whole gate kernel
         wks = [torch.cat(wks, dim=3).contiguous()]
-    c_prev = torch.randn(MAIN_BATCH, H, W, C, device="cuda", generator=gen).bfloat16()
+    c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).bfloat16()
     return srcs, wks, p["lstm_b"], c_prev
 
 
-def _gate_flops(H, W, cins, C):
-    return 2.0 * MAIN_BATCH * H * W * 9 * sum(cins) * 4 * C
+def _gate_flops(H, W, cins, C, B=MAIN_BATCH):
+    return 2.0 * B * H * W * 9 * sum(cins) * 4 * C
+
+
+def _plan_str(p):
+    """A fused-kernel plan in a log line."""
+    if p.body == "wgmma":
+        return f"wgmma cg {p.cg} tile {p.tile_h}x{p.tile_w}"
+    return f"mma_sync tw {p.tile_w}"
 
 
 def _gates_err(out, ref):
@@ -745,17 +781,29 @@ def check_kernels(params):
             raise AssertionError(f"{label}: max abs err h {eh} c {ec}")
         return max(eh, ec)
 
-    def conv_case(name, wrapper, shapes, source, replaces):
+    def conv_case(wrapper, shapes, B=MAIN_BATCH, sweep=True):
+        """The fused kernel per layer at batch B: its wgmma body against the
+        plain version and float64 sums; times of the wgmma body, of the
+        mma_sync body (the kernel before the wgmma body) at its strip
+        width, of the plain version and of the library yardstick; with
+        ``sweep``, every channel group at the plan's tile and at a row of 64
+        a warpgroup."""
         err = 0.0
-        ms = plain_ms = lib_ms = b_total = ops_total = bytes_total = 0.0
+        layers = []
         for layer, (H, W, C, cins) in shapes:
-            srcs, wks, b, c_prev = _layer_inputs(gen, params, layer, H, W, cins)
+            srcs, wks, b, c_prev = _layer_inputs(gen, params, layer, H, W, cins, B)
             call = (lambda: wrapper(srcs, wks, b, c_prev)) if len(cins) > 1 else (
                 lambda: wrapper(srcs[0], wks[0], b, c_prev))
+            before = dict(wrapper.body_launches)
             h, c = call()
             ref = cf.convlstm_layer_plain(srcs, wks, b, c_prev)
             torch.cuda.synchronize()
-            e = check_out(f"{name} layer {layer}", (h, c), ref)
+            plan = cf.plan_for(srcs, wks, c_prev)
+            if not (plan.body == "wgmma"
+                    and wrapper.body_launches["wgmma"] == before["wgmma"] + 1):
+                raise AssertionError(f"{wrapper.__name__} layer {layer}: took {plan}, "
+                                     f"launches by body {wrapper.body_launches}")
+            e = check_out(f"{wrapper.__name__} layer {layer}", (h, c), ref)
             err = max(err, e)
             w_oihw = torch.cat([cf.unpack_gate_weight(wk) for wk in wks], dim=1).contiguous()
             w_cl = w_oihw.to(memory_format=torch.channels_last)
@@ -769,47 +817,69 @@ def check_kernels(params):
 
             # the float32 sums against float64 ones: the kernel's c may drift no
             # further than the plain version's
-            g64 = sum(F.conv2d(x.double().permute(0, 3, 1, 2), cf.unpack_gate_weight(wk).double(),
-                               padding=1) for x, wk in zip(srcs, wks))
+            k = B if B <= MAIN_BATCH else DRIFT_IMAGES
+            g64 = sum(F.conv2d(x[:k].double().permute(0, 3, 1, 2),
+                               cf.unpack_gate_weight(wk).double(), padding=1)
+                      for x, wk in zip(srcs, wks))
             i, f, o, g = (g64.permute(0, 2, 3, 1) + b.double()).split(C, dim=-1)
-            c64 = torch.sigmoid(f) * c_prev.double() + torch.sigmoid(i) * torch.tanh(g)
-            drift, drift_p = ((t.double() - c64).abs().mean().item() for t in (c, ref[1]))
+            c64 = torch.sigmoid(f) * c_prev[:k].double() + torch.sigmoid(i) * torch.tanh(g)
+            drift, drift_p = ((t[:k].double() - c64).abs().mean().item() for t in (c, ref[1]))
+            del g64, i, f, o, g, c64
             if not drift <= drift_p:
-                raise AssertionError(f"{name} layer {layer}: mean |c - c_float64| {drift:.3e} "
-                                     f"above the plain version's {drift_p:.3e}")
-            flops = _gate_flops(H, W, cins, C)
-            layer_ms, layer_lib = cuda_ms(call, 50), cuda_ms(library, 50)
-            ms += layer_ms
-            plain_ms += cuda_ms(lambda: cf.convlstm_layer_plain(srcs, wks, b, c_prev), 20)
-            lib_ms += layer_lib
+                raise AssertionError(f"{wrapper.__name__} layer {layer} at batch {B}: mean "
+                                     f"|c - c_float64| {drift:.3e} above the plain version's "
+                                     f"{drift_p:.3e}")
+            flops = _gate_flops(H, W, cins, C, B)
             moved = nbytes(*srcs, *wks, b, c_prev, h, c)
-            ops_total += flops / PEAK_BF16_FLOPS * 1e3
-            bytes_total += moved / PEAK_BYTES_PER_S * 1e3
-            b_total += bound_ms(flops, moved)[0]
-            log(f"  {name} layer {layer} {MAIN_BATCH}x{H}x{W} C={C} sources {cins}: "
-                f"err {e:.2e} kernel {layer_ms:.4f} ms ({flops / layer_ms / 1e9:.1f} TFLOP/s) "
-                f"library {layer_lib:.4f} ms; mean |c - c_float64| kernel {drift:.2e} "
-                f"plain {drift_p:.2e}")
-            # the tile mappings the wrapper chooses from, each checked and timed
-            chosen = cf.tile_width(MAIN_BATCH, H, W)
-            sweep = []
-            for tw in cf.tile_candidates(W):
-                check_out(f"{name} layer {layer} tw={tw}",
-                          cf.launch(srcs, wks, b, c_prev, stream, tw=tw), ref)
-                t = cuda_ms(lambda: cf.launch(srcs, wks, b, c_prev, stream, tw=tw), 50)
-                sweep.append(f"tw={tw}{'*' if tw == chosen else ''} {t:.4f} ms "
-                             f"({flops / t / 1e9:.1f} TFLOP/s)")
-            log("    tiles (* the wrapper's choice): " + ", ".join(sweep))
-        results[name] = dict(
-            route="cuda", source=source, replaces=replaces, max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=b_total,
-            bound_by="operations" if ops_total >= bytes_total else "bytes",
-            library_ms=lib_ms,
-        )
+            iters = 50 if B <= MAIN_BATCH else 10
+            tw = cf.tile_width(B, H, W)
+            old = cf.Plan("mma_sync", 16, 0, tw, 0)
+            mma_sync = lambda: cf.launch(srcs, wks, b, c_prev, stream, plan=old)  # noqa: E731
+            check_out(f"{wrapper.__name__} layer {layer} mma_sync body", mma_sync(), ref)
+            # in turns: mma_sync, wgmma, wgmma, mma_sync
+            t_old = cuda_ms(mma_sync, iters)
+            t_new = min(cuda_ms(call, iters), cuda_ms(call, iters))
+            t_old = min(t_old, cuda_ms(mma_sync, iters))
+            row = dict(shape=[B, H, W, C], sources=list(cins), plan=_plan_str(plan), ms=t_new,
+                       tflops=flops / t_new / 1e9, mma_sync_ms=t_old,
+                       library_ms=cuda_ms(library, iters),
+                       plain_ms=cuda_ms(lambda: cf.convlstm_layer_plain(srcs, wks, b, c_prev),
+                                        max(3, iters // 3)),
+                       bound_ms=bound_ms(flops, moved)[0],
+                       ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
+                       bytes_ms=moved / PEAK_BYTES_PER_S * 1e3, drift=drift, plain_drift=drift_p)
+            layers.append(row)
+            log(f"  {wrapper.__name__} layer {layer} {B}x{H}x{W} C={C} sources {cins} "
+                f"({row['plan']}): err {e:.2e} kernel {t_new:.4f} ms ({row['tflops']:.1f} "
+                f"TFLOP/s, {row['bound_ms'] / t_new:.1%} of its {row['bound_ms']:.4f} ms bound); "
+                f"mma_sync body {t_old:.4f} ms ({flops / t_old / 1e9:.1f} TFLOP/s); library "
+                f"{row['library_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms; mean |c - "
+                f"c_float64| on {k} images kernel {drift:.2e} plain {drift_p:.2e}")
+            if sweep:  # every channel group at the plan's tile and at a row a warpgroup
+                times = []
+                for cg in cf.CHANNEL_GROUPS:
+                    for tile in {(plan.tile_h, plan.tile_w, plan.wg_stride), (2, 64, 66)}:
+                        q = cf.Plan("wgmma", cg, *tile)
+                        check_out(f"{wrapper.__name__} layer {layer} {_plan_str(q)}",
+                                  cf.launch(srcs, wks, b, c_prev, stream, plan=q), ref)
+                        ms = cuda_ms(lambda: cf.launch(srcs, wks, b, c_prev, stream, plan=q),
+                                     iters)
+                        times.append(f"{_plan_str(q)}{'*' if q == plan else ''} {ms:.4f} ms")
+                log("    plans (* the wrapper's): " + ", ".join(times))
+            del srcs, c_prev, h, c, ref
+        total = {key: sum(r[key] for r in layers)
+                 for key in ("ms", "mma_sync_ms", "library_ms", "plain_ms", "bound_ms", "ops_ms",
+                             "bytes_ms")}
+        return dict(
+            max_abs_err=err, ms=total["ms"], plain_ms=total["plain_ms"],
+            bound_ms=total["bound_ms"],
+            bound_by="operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes",
+            library_ms=total["library_ms"], mma_sync_ms=total["mma_sync_ms"], layers=layers)
 
     # ragged shapes: image edges inside a tile, channel counts not a multiple
-    # of 16 (40) or of 8 (12, staged without cp.async), C not a multiple of
-    # 16; every tile mapping, both state types, one to three sources
+    # of 16 (40) or of 8 (12: the mma_sync body, staged without cp.async), C
+    # not a multiple of 16; every plan, both state types, one to three
+    # sources; and a source 2 bytes off its alignment (the mma_sync body)
     for B, H, W, cins, C, state in RAGGED_CASES:
         srcs = [torch.randn(B, H, W, ci, device="cuda", generator=gen).bfloat16() for ci in cins]
         wks = [cf.pack_gate_weight(torch.randn(3, 3, ci, 4 * C, device="cuda", generator=gen)
@@ -817,22 +887,51 @@ def check_kernels(params):
         b = torch.randn(4 * C, device="cuda", generator=gen).mul_(0.1)
         c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).to(getattr(torch, state))
         ref = cf.convlstm_layer_plain(srcs, wks, b, c_prev)
-        out = (cf.fused_convlstm_layer_multi(srcs, wks, b, c_prev) if len(cins) > 1
-               else cf.fused_convlstm_layer(srcs[0], wks[0], b, c_prev))
+        wrapper = cf.fused_convlstm_layer_multi if len(cins) > 1 else cf.fused_convlstm_layer
+        before = dict(wrapper.body_launches)
+        out = (wrapper(srcs, wks, b, c_prev) if len(cins) > 1
+               else wrapper(srcs[0], wks[0], b, c_prev))
         torch.cuda.synchronize()
-        e = check_out(f"ragged {B}x{H}x{W} {cins} C={C} {state}", out, ref)
-        for tw in cf.tile_candidates(W):
-            e = max(e, check_out(f"ragged {B}x{H}x{W} {cins} C={C} {state} tw={tw}",
-                                 cf.launch(srcs, wks, b, c_prev, stream, tw=tw), ref))
-        log(f"  ragged {B}x{H}x{W} sources {cins} C={C} {state}: err {e:.2e} "
-            f"at tw {cf.tile_candidates(W)}")
+        label = f"ragged {B}x{H}x{W} {cins} C={C} {state}"
+        e = check_out(label, out, ref)
+        plan = cf.plan_for(srcs, wks, c_prev)
+        want = "wgmma" if all(ci % 8 == 0 for ci in cins) else "mma_sync"
+        if not (plan.body == want
+                and wrapper.body_launches[want] == before[want] + 1):
+            raise AssertionError(f"{label}: took {plan}, by body {wrapper.body_launches}")
+        plans = [cf.Plan("mma_sync", 16, 0, tw, 0) for tw in cf.tile_candidates(W)]
+        if want == "wgmma":
+            plans += [cf.Plan("wgmma", cg, *tile) for cg, tile in RAGGED_PLANS]
+            off = torch.empty(srcs[0].numel() + 1, dtype=srcs[0].dtype,
+                              device="cuda")[1:].view(srcs[0].shape).copy_(srcs[0])
+            if cf.plan_for([off, *srcs[1:]], wks, c_prev).body != "mma_sync":
+                raise AssertionError(f"{label}: a source 2 bytes off its alignment took the "
+                                     f"wgmma body")
+            e = max(e, check_out(f"{label} unaligned", wrapper([off, *srcs[1:]], wks, b, c_prev)
+                                 if len(cins) > 1 else wrapper(off, wks[0], b, c_prev), ref))
+        for q in plans:
+            e = max(e, check_out(f"{label} {_plan_str(q)}",
+                                 cf.launch(srcs, wks, b, c_prev, stream, plan=q), ref))
+        log(f"  {label}: err {e:.2e}, {_plan_str(plan)}, at {len(plans)} plans")
 
     fused_src = "evolutionary_illusion_generator_tpu_torch/csrc/convlstm_fused.cu"
-    conv_case("fused_convlstm_layer_multi", cf.fused_convlstm_layer_multi,
-              [(l + 1, s) for l, s in enumerate(MULTI_LAYERS)], fused_src,
-              "evolutionary_illusion_generator_tpu/ops/convlstm_fused_pallas.py:188")
-    conv_case("fused_convlstm_layer", cf.fused_convlstm_layer, [(1, SINGLE_LAYER)],
-              fused_src, "evolutionary_illusion_generator_tpu/ops/convlstm_fused_pallas.py:74")
+    multi = conv_case(cf.fused_convlstm_layer_multi,
+                      [(l + 1, s) for l, s in enumerate(MULTI_LAYERS)])
+    multi["north_star"] = conv_case(cf.fused_convlstm_layer_multi,
+                                    [(l + 1, s) for l, s in enumerate(NORTH_STAR_LAYERS)],
+                                    B=NORTH_STAR_CHUNK, sweep=False)
+    results["fused_convlstm_layer_multi"] = dict(
+        route="cuda", source=fused_src,
+        replaces="evolutionary_illusion_generator_tpu/ops/convlstm_fused_pallas.py:188", **multi)
+    results["fused_convlstm_layer"] = dict(
+        route="cuda", source=fused_src,
+        replaces="evolutionary_illusion_generator_tpu/ops/convlstm_fused_pallas.py:74",
+        **conv_case(cf.fused_convlstm_layer, [(1, SINGLE_LAYER)]))
+    ns = multi["north_star"]
+    log(f"  fused_convlstm_layer_multi at the north star ({NORTH_STAR_CHUNK} x 480x640), a step "
+        f"of layers 1-3: kernel {ns['ms']:.4f} ms, mma_sync body {ns['mma_sync_ms']:.4f} ms, "
+        f"library {ns['library_ms']:.4f} ms, plain {ns['plain_ms']:.4f} ms, bound "
+        f"{ns['bound_ms']:.4f} ms ({ns['bound_by']})")
     for name, r in results.items():
         log(f"  {name}: err {r['max_abs_err']:.2e} kernel {r['ms']:.4f} ms "
             f"plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
@@ -936,10 +1035,22 @@ def _wrappers():
 def _reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "body_launches"):
+            fn.body_launches = dict.fromkeys(fn.body_launches, 0)
 
 
 def _counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """The launches of each wrapper since the last reset; raises if a fused
+    layer took the mma_sync body: every fused layer of the driven paths
+    (sources of channels a multiple of 8, 16-byte aligned) must take the
+    wgmma body, launch for launch."""
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    for name, fn in _wrappers().items():
+        bodies = getattr(fn, "body_launches", None)
+        if bodies is not None and bodies != {"wgmma": fn.launches, "mma_sync": 0}:
+            raise AssertionError(f"{name}: {fn.launches} launches, by body {bodies}; every "
+                                 f"fused layer of the driven paths must take the wgmma body")
+    return counts
 
 
 def _check_generations(label, generations, steps, records, out, kernels=True,
@@ -2170,12 +2281,21 @@ def _recorded_sharded_generations(records):
         parallel.ShardedGenerationEvaluator = sharded
 
 
+def _log_plans(B, H, W, channels=(48, 96, 192)):
+    """The fused kernel's plan at each fused layer of a (B, H, W) frame."""
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
+
+    log("  fused kernel plans " + ", ".join(
+        f"layer {l} ({B}, {H >> l}, {W >> l}, {C}): {_plan_str(cf.plan(B, H >> l, W >> l, C))}"
+        for l, C in enumerate(channels, 1)))
+
+
 @phase("composition")
 def composition_phase(card):
     """``graft_entry.composition`` at the ``pop256_v5e8`` preset's own
     geometry on the card (the fused route, a mesh of cuda:0 x 8): one
     generation, its checkpoint, the resumed generation.  Logs the fused
-    kernel's strip width at each fused layer, s/generation with the shard
+    kernel's plan at each fused layer, s/generation with the shard
     passes run eagerly, captured and replayed, the peak device memory, the
     launches and the best fitness; fails on a non-finite fitness, a best
     fitness of 0 or launches that are not 22 narrow and 66 fused per eager
@@ -2185,13 +2305,10 @@ def composition_phase(card):
 
     from evolutionary_illusion_generator_tpu_torch.configs import run_preset
     from evolutionary_illusion_generator_tpu_torch.graft_entry import composition
-    from evolutionary_illusion_generator_tpu_torch.ops.convlstm_fused import tile_width
 
     rp = run_preset("pop256_v5e8")
     n, B, H, W = rp.n_devices, rp.microbatch // rp.n_devices, rp.h, rp.w
-    widths = {f"layer {l} ({B}, {H >> l}, {W >> l})": tile_width(B, H >> l, W >> l)
-              for l in (1, 2, 3)}
-    log(f"  fused kernel strip widths {widths}")
+    _log_plans(B, H, W)
     records = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2301,7 +2418,7 @@ def north_star_phase(params, card):
     key runs eagerly, the next is captured as a CUDA graph, the rest
     replay); logs each generation's seconds (CUDA-synchronised),
     ``last_timings``, peak device memory, chunks replayed and launches, and
-    the fused kernel's strip width per layer.  Then
+    the fused kernel's plan per layer.  Then
     ``scripts/phase_bench.py``'s split and ``scripts/rollout_profile.py``'s
     kernel table at one chunk (dense and s2d pixel layer).  Holds finite
     fitness, 22 narrow and 66 fused launches per eager chunk, and one step
@@ -2316,7 +2433,6 @@ def north_star_phase(params, card):
         GenerationEvaluator,
     )
     from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
-    from evolutionary_illusion_generator_tpu_torch.ops.convlstm_fused import tile_width
     from evolutionary_illusion_generator_tpu_torch.ops.convlstm_narrow import (
         narrow_convlstm_layer,
     )
@@ -2324,9 +2440,7 @@ def north_star_phase(params, card):
     from evolutionary_illusion_generator_tpu_torch.structure import StructureType
 
     B, H, W = NORTH_STAR_CHUNK, NORTH_STAR_H, NORTH_STAR_W
-    widths = {f"layer {l} ({B}, {H >> l}, {W >> l})": tile_width(B, H >> l, W >> l)
-              for l in (1, 2, 3)}
-    log(f"  fused kernel strip widths {widths}")
+    _log_plans(B, H, W)
     cfg = preset("free").replace(pop_size=NORTH_STAR_POP)
     ev = GenerationEvaluator(EvalConfig(structure=StructureType.Free, w=W, h=H, c_dim=3,
                                         microbatch=B), params, cfg, device="cuda")
@@ -2601,8 +2715,12 @@ def bisect():
     torch.cuda.synchronize()
     err = max((out[0].float() - h_p.float()).abs().max().item(), (out[1] - c_p).abs().max().item())
     ms = cuda_ms(lambda: cf.launch([x], [wk], b, c_prev, stream), 5, warmup=1)
+    tw = cf.tile_width(B, H, W)
+    old = cf.Plan("mma_sync", 16, 0, tw, 0)
+    ms_old = cuda_ms(lambda: cf.launch([x], [wk], b, c_prev, stream, plan=old), 5, warmup=1)
     log(f"  fused kernel (F) at --big: err {err:.2e} kernel {ms:.4f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s), tw={cf.tile_width(B, H, W)}")
+        f"({flops / ms / 1e9:.1f} TFLOP/s), {_plan_str(cf.plan(B, H, W, C))}; its mma_sync body "
+        f"{ms_old:.4f} ms ({flops / ms_old / 1e9:.1f} TFLOP/s), tw={tw}")
     return results, counts
 
 
@@ -2708,6 +2826,9 @@ def main():
              parallel_counts, composition_counts, north_star_counts, bisect_counts)
     rows = [dict(name=name, launches=sum(c[name] for c in paths), **r)
             for name, r in kernels.items()]
+    for row in rows:  # every path's fused launches took the wgmma body (_counts checks it)
+        if row["name"] in ("fused_convlstm_layer_multi", "fused_convlstm_layer"):
+            row["bodies"] = {"wgmma": row["launches"], "mma_sync": 0}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

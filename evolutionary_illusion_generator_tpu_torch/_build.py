@@ -42,6 +42,10 @@ _SIGNATURES = {
         _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
         _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
     ),
+    "eigen_convlstm_fused_wgmma": (
+        _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
+        _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
     "eigen_convlstm_narrow": (
         _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
         _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,

@@ -82,8 +82,6 @@
 // in D's order and with D's sums: their outputs equal D's bit for bit, only
 // the addresses of their slabs differ.
 
-#include <cuda.h>
-
 #include <cstdint>
 
 #include "common.cuh"
@@ -384,39 +382,6 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime: the
-// library links no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bfloat16 tensor map: dims and box innermost first, byte strides of dims
-// 1 .. rank - 1; zeros outside.
-bool tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(ptr),
-                dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int N, bool FUSE, typename ST>
 int launch_n(const void* xin, const void* wt, const void* bias, Cell<ST> cell, void* out,
              Geometry g, void* stream) {
@@ -433,8 +398,8 @@ int launch_n(const void* xin, const void* wt, const void* bias, Cell<ST> cell, v
     const cuuint64_t dw[3] = {(cuuint64_t)g.cin, 4 * (cuuint64_t)g.C, 9};
     const cuuint64_t sw[2] = {pix, pix * 4 * g.C};
     const cuuint32_t bw[3] = {KC, (cuuint32_t)N, 1};
-    if (!tensor_map(&map_x, xin, 4, dx, sx, bx, CU_TENSOR_MAP_SWIZZLE_32B) ||
-        !tensor_map(&map_w, wt, 3, dw, sw, bw, CU_TENSOR_MAP_SWIZZLE_32B))
+    if (!eigen::tensor_map(&map_x, xin, 4, dx, sx, bx, CU_TENSOR_MAP_SWIZZLE_32B) ||
+        !eigen::tensor_map(&map_w, wt, 3, dw, sw, bw, CU_TENSOR_MAP_SWIZZLE_32B))
       return (int)cudaErrorInvalidValue;
   }
   const int cluster = tma ? CLUSTER : 1;

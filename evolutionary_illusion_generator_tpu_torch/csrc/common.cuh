@@ -1,6 +1,7 @@
 // Helpers shared by the port's CUDA kernels.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -325,6 +326,25 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
       : "memory");
 }
 
+// mbar_wait for the fused kernel's ring: a phase that is still open after
+// about 2^32 cycles (two seconds; the copies of a chunk take microseconds)
+// traps, which fails the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_or_trap(unsigned bar, unsigned parity) {
+  const long long start = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 32)) __trap();
+  }
+}
+
 // TMA: the box at coordinates (innermost first) of the tensor map `map` (a
 // __grid_constant__ kernel parameter) into shared memory at `dst`, complete
 // on the mbarrier `bar`; the multicast form writes the same offset in every
@@ -475,6 +495,42 @@ __device__ __forceinline__ void wgmma_bf16<192>(float* d, uint64_t da, uint64_t 
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ---- tensor maps (host)
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime: the
+// library links no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bfloat16 tensor map: dims and box innermost first, byte strides of dims
+// 1 .. rank - 1; zeros outside (negative coordinates included).
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(ptr),
+                dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace eigen

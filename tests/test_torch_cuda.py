@@ -38,16 +38,23 @@ BF16_RTOL = 2.0**-7
 H_ATOL = 1e-2
 
 # (B, H, W, source channels, C): the main path's three layers at a chunk of
-# 2, then ragged shapes — image edges inside a tile, channel counts not a
-# multiple of 16 (40) or of 8 (12), C not a multiple of 16
+# 2, the north star's at one image, then ragged shapes — image edges inside
+# a tile, channel counts not a multiple of 16 (40) or of 8 (12: the mma_sync
+# body), C not a multiple of 16 — and a first source 2 bytes off its
+# alignment ("unaligned": the mma_sync body)
 FUSED_CASES = {
     "layer1": (2, 60, 80, (96, 48, 96), 48),
     "layer2": (2, 30, 40, (192, 96, 192), 96),
     "layer3": (2, 15, 20, (384, 192), 192),
+    "north1": (1, 240, 320, (96, 48, 96), 48),
+    "north2": (1, 120, 160, (192, 96, 192), 96),
+    "north3": (1, 60, 80, (384, 192), 192),
     "single": (2, 60, 80, (240,), 48),
     "ragged1": (2, 13, 21, (40,), 24),
     "ragged2": (2, 13, 21, (40, 12), 24),
     "ragged3": (2, 13, 21, (12, 40, 24), 24),
+    "ragged4": (2, 13, 21, (40, 8, 24), 24),
+    "unaligned": (2, 13, 21, (40, 8, 24), 24),
 }
 
 # the ladder's shapes, (B, H, W, Cin, C), rows (test_torch_bisect.py uses them too)
@@ -130,15 +137,22 @@ def test_cuda_fused_kernel_matches_plain(case, state):
     B, H, W, cins, C = FUSED_CASES[case]
     srcs, ws, b, c_prev = _layer_inputs(7, B, H, W, cins, C)
     srcs = [torch.as_tensor(s).cuda().bfloat16() for s in srcs]
+    if case == "unaligned":
+        srcs[0] = _at_odd_offset(srcs[0])
     wks = [pack_gate_weight(torch.as_tensor(w)).cuda() for w in ws]
     b = torch.as_tensor(b).cuda()
     c_prev = torch.as_tensor(c_prev).cuda().to(getattr(torch, state))
     wrapper = fused_convlstm_layer_multi if len(cins) > 1 else fused_convlstm_layer
-    n = wrapper.launches
+    n, bodies = wrapper.launches, dict(wrapper.body_launches)
     h, c = (wrapper(srcs, wks, b, c_prev) if len(cins) > 1
             else wrapper(srcs[0], wks[0], b, c_prev))
     torch.cuda.synchronize()
     assert wrapper.launches == n + 1
+    # the TMA needs 16-byte rows and 16-byte aligned data, else the mma_sync body
+    body = ("wgmma" if case != "unaligned" and all(ci % 8 == 0 for ci in cins)
+            else "mma_sync")
+    bodies[body] += 1
+    assert wrapper.body_launches == bodies
     h_p, c_p = convlstm_fused.convlstm_layer_plain(srcs, wks, b, c_prev)
     assert h.dtype == h_p.dtype
     # h in bfloat16 state: one rounding flip is 2**-8 at |h| < 1
@@ -231,6 +245,34 @@ def test_cuda_narrow_kernel_rows_do_not_follow_the_batch():
     torch.cuda.synchronize()
     for a, p in zip(whole, part):
         assert torch.equal(a[2:5], p)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernel_rows_do_not_follow_the_batch():
+    """A pixel's sums do not depend on the batch, the tile it falls in or
+    its channel group: the fused kernel on three rows of a batch of 8, at
+    other tiles and channel groups of the wgmma body, is bit-equal to those
+    rows of the whole batch (the sharded evaluator's shards run fewer
+    rows)."""
+    _cuda_or_skip()
+    B, H, W, cins, C = 8, 30, 40, (192, 96, 192), 96
+    srcs, ws, b, c_prev = _layer_inputs(19, B, H, W, cins, C)
+    srcs = [torch.as_tensor(s).cuda().bfloat16() for s in srcs]
+    wks = [pack_gate_weight(torch.as_tensor(w)).cuda() for w in ws]
+    b = torch.as_tensor(b).cuda()
+    c_prev = torch.as_tensor(c_prev).cuda().bfloat16()
+    stream = torch.cuda.current_stream().cuda_stream
+    whole = fused_convlstm_layer_multi(srcs, wks, b, c_prev)
+    own = convlstm_fused.plan_for(srcs, wks, c_prev)
+    rows = [x[2:5].contiguous() for x in srcs]
+    for tile in ((2, 64, 66), (5, 20, 64), (14, 7, 64)):
+        for cg in convlstm_fused.CHANNEL_GROUPS:
+            p = convlstm_fused.Plan("wgmma", cg, *tile)
+            assert p != own
+            part = convlstm_fused.launch(rows, wks, b, c_prev[2:5].contiguous(), stream, plan=p)
+            torch.cuda.synchronize()
+            for a, q in zip(whole, part):
+                assert torch.equal(a[2:5], q), p
 
 
 @pytest.mark.cuda
@@ -627,7 +669,8 @@ def test_cuda_graph_replay_equals_the_eager_pass(monkeypatch):
     assert captured.recorded == {"narrow_convlstm_layer": 22, "fused_convlstm_layer_multi": 66}
     n = [w.launches for w in counted]
     ran = _trace_counts(lambda: graph(list(items)),
-                        ("convlstm_narrow_kernel", "convlstm_fused_kernel", "lstm_gates_kernel"))
+                        ("convlstm_narrow_kernel", "convlstm_fused_wgmma_kernel",
+                         "lstm_gates_kernel"))
     assert ran == [2 * 22, 2 * 66, 0] and [w.launches for w in counted] == n
 
 

@@ -145,9 +145,10 @@ def test_launch_rejects_a_bad_tile_width():
     srcs, ws, b, c_prev = _layer_inputs(8, 1, 4, 6, (8,), 4)
     args = ([torch.as_tensor(srcs[0]).bfloat16()], [pack_gate_weight(torch.as_tensor(ws[0]))],
             torch.as_tensor(b), torch.as_tensor(c_prev))
-    for tw in (0, 7):
+    for tw in (0, 7):  # the mma_sync body's strip width
+        bad = convlstm_fused.Plan("mma_sync", 16, 0, tw, 0)
         with pytest.raises(ValueError, match="strip width"):
-            convlstm_fused.launch(*args, stream=0, tw=tw)
+            convlstm_fused.launch(*args, stream=0, plan=bad)
 
 
 def test_cpu_calls_are_not_launches():

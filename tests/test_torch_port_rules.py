@@ -48,7 +48,7 @@ RENAMED = {
 #: Public names of the JAX package the port leaves out on purpose, each
 #: with the (file, name) of what stands in its place in the port.
 DELIBERATE_GAPS = {
-    ("ops/convlstm_fused_pallas.py", "pick_rows"): ("ops/convlstm_fused.py", "tile_width"),
+    ("ops/convlstm_fused_pallas.py", "pick_rows"): ("ops/convlstm_fused.py", "plan"),
     ("ops/fitness/metrics_jax.py", "score_vectors_jax"):
         ("ops/fitness/metrics_torch.py", "score_vectors_torch"),
     # the compiled-program cache: the evaluator's CUDA graphs
