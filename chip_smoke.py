@@ -26,12 +26,21 @@ Phases, each printing its wall time and raising on failure:
    version and float64 sums, with its TFLOP/s (CUDA events) beside its
    mma_sync body's, the library's and the plain version's times, each
    channel group timed at the main path; and at ragged shapes at every
-   plan of both bodies and a source off its alignment;
+   plan of both bodies and a source off its alignment; the A and Ahat
+   units' kernels (``csrc/prednet_units.cu``) at the main path's and the
+   north star's four layers, the grayscale pixel layer and an odd shape,
+   against their plain versions (and float64 sums: in float32 compute no
+   further from them than the plain version, in bfloat16 compute within one
+   ulp of the rounded float64 chain), with the times of the kernel, the
+   plain version (the cuDNN conv and eager ops they replaced), cuDNN's conv
+   with its bias and the eager ops (each call replayed as a CUDA graph),
+   and the bound;
 5. reference: the port's rollout on the card against the same rollout on
    the CPU (plain versions) on a small input with the bundled weights;
 6. main path: ``neat_illusion`` for two generations at the full width of the
    bundled color predictor (3,48,96,192), 160x120, the ``circles`` preset;
-   asserts the kernel launch counts, finite fitness, two generations;
+   asserts the kernel launch counts (a step: the narrow kernel, three fused
+   launches, four Ahat and three A units), finite fitness, two generations;
 7. load: two generations at the ``default_color`` run preset's shape
    (CirclesFree, 320x240, pop 40, repeat 5);
 8. cli: the port's CLI (``cli.main``) for two generations at the main
@@ -51,7 +60,9 @@ Phases, each printing its wall time and raising on failure:
    bundled weights: ``s2d_l0``, ``subpixel_up`` and ``prednet_int8`` each
    through ``neat_illusion`` for two generations (22 gate and 66 fused
    launches a generation under s2d and subpixel, whose pixel layer keeps the
-   gate kernel, none under int8; finite fitness; s/generation)
+   gate kernel, with 66 Ahat and 44 A units under s2d, whose pixel layer
+   keeps its lifted convs, 88 and 66 under subpixel; none under int8;
+   finite fitness; s/generation)
    and one step of each on the card against the port on the CPU (the
    reference phase's rules); the main path with the program cache (CUDA
    graph replay, the default) and without it for four generations each,
@@ -81,8 +92,10 @@ Phases, each printing its wall time and raising on failure:
    and the peak device memory; asserts that no kernel was launched;
 12. parallel: ``parallel/`` on a mesh that repeats cuda:0 (one logical
    shard per entry): the sharded evaluator at the main path's shape for
-   three generations (program cache on and off) against the unsharded
-   evaluator, with 22 narrow and 66 fused launches per shard's eager pass
+   three generations (program cache on and off), bit-equal to the unsharded
+   evaluator (images, flow frames, vectors, masks, fitness), with 22
+   narrow, 66 fused, 88 Ahat-unit and 66 A-unit launches per shard's eager
+   pass
    (on two real devices too where the machine has them, else one line
    says it could not); one data-parallel step of the train phase's recipe
    on two shards against one device (the train phase's rules); a spatial
@@ -92,7 +105,8 @@ Phases, each printing its wall time and raising on failure:
    spatial rollout with int8 params against the unsharded int8 rollout
    (one step bit-equal, 22 in the mean); two processes on cuda:0 over
    gloo, each evaluating half a population, whose fitness must equal the
-   single-process evaluator's on both ranks; then two processes running the
+   single-process evaluator's bit for bit on both ranks; then two processes
+   running the
    data-parallel step, the spatial rollout (float and int8 params) and the
    pipelined rollout over meshes that span both (``parallel_paths``),
    against the one-process runs: the step and the float spatial rollout
@@ -105,21 +119,25 @@ Phases, each printing its wall time and raising on failure:
    fused kernel's plan at each fused layer, s/generation with its
    eager, captured and replayed shard passes, the peak device memory, the
    launches and the best fitness; fails on a non-finite fitness, a best
-   fitness of 0 or launch counts that are not 22 narrow and 66 fused per
-   eager pass;
+   fitness of 0 or launch counts that are not 22 narrow, 66 fused, 88
+   Ahat-unit and 66 A-unit per eager pass;
    north_star: the generation evaluator at the north star (pop 100,
    640x480, Free, 3,48,96,192, chunks of 25) for four generations, with
    s/generation, ``last_timings``, peak memory, the fused kernel's plans
    and the launches; ``scripts/phase_bench.py`` (render / rollout /
    flow / host parts of one chunk) and ``scripts/rollout_profile.py`` (the
-   rollout's kernels, dense and s2d pixel layer); one step at the chunk,
-   each layer's kernel against its plain version; fails on a non-finite
-   fitness, wrong launch counts or a kernel off its plain version;
+   rollout's kernels, dense and s2d pixel layer, and their device time by
+   wrapper; the dense rollout may run no library conv); one step at the
+   chunk, each layer's kernels (ConvLSTM, Ahat and A units) against their
+   plain versions; fails on a non-finite fitness, wrong launch counts or a
+   kernel off its plain version;
 14. profile: device time by kernel and the number of kernel launches over
    one warm main-path generation, replayed as a CUDA graph (the default)
-   and run eagerly (``program_cache=False``); in both the trace must hold
-   22 narrow and 66 fused kernels of the wgmma body, and no gate kernel
-   and no fused kernel of the mma_sync body, which in the replay
+   and run eagerly (``program_cache=False``), with the device time by
+   wrapper; in both the trace must hold 22 narrow and 66 fused kernels of
+   the wgmma body, 88 Ahat-unit and 66 A-unit kernels, no library conv
+   (cuDNN's A and Ahat convs are gone), and no gate kernel and no fused
+   kernel of the mma_sync body, which in the replay
    no wrapper launched (the graph recorded them at its capture), and the
    eager pass no upsampled copy of layer 1's R (the narrow kernel reads it
    at half resolution);
@@ -136,7 +154,9 @@ Phases, each printing its wall time and raising on failure:
    shapes; logs E's and J's times beside D's.
 
 Every phase that reads the wrappers' launch counts fails if a fused layer
-took the fused kernel's mma_sync body (``_counts``).
+took the fused kernel's mma_sync body (``_counts``), and if a dense
+"fused" step ran a cuDNN A or Ahat conv in place of a unit's kernel (its
+counts fall short, ``_path_launches``).
 
 Then one JSON line with every kernel's numbers (its launches summed over
 the main path, cli, probe, options, scorers, train, parallel, composition,
@@ -217,6 +237,31 @@ NARROW_SHAPES = {
 }
 NARROW_ODD = ((3, 26, 38, 3, 48), (2, 14, 22, 16, 12), (2, 9, 13, 1, None))
 
+# the A and Ahat units' kernels, (H, W, C, C_above or None) per layer: the
+# main path's at its chunk of 8 and the north star's at its chunk of 25;
+# then the grayscale stack's pixel layer and an odd shape (odd H and W, C
+# not a multiple of 4), each at a chunk of 8
+UNIT_LAYERS = ((120, 160, 3, 48), (60, 80, 48, 96), (30, 40, 96, 192), (15, 20, 192, None))
+NORTH_STAR_UNIT_LAYERS = ((480, 640, 3, 48), (240, 320, 48, 96), (120, 160, 96, 192),
+                          (60, 80, 192, None))
+UNIT_ODD = ((120, 160, 1, 16), (13, 21, 12, 20))
+# per step at 3,48,96,192: an Ahat unit on every layer, an A unit below the top
+UNITS_PER_STEP = (4, 3)
+UNIT_SOURCES = {
+    "ahat_error_unit": "evolutionary_illusion_generator_tpu/models/prednet/model.py:729",
+    "a_unit": "evolutionary_illusion_generator_tpu/models/prednet/model.py:748",
+}
+
+# The units' kernels against their plain versions (cuDNN's bfloat16 conv
+# and eager ops): the same products summed in another order, so a sum may
+# round the other way, one bfloat16 ulp at a rounding point.  cuDNN's
+# bfloat16 conv is itself more than one ulp off the rounded float64 conv on
+# a few elements in 100,000 (3.7e-5 of the north star's layer 3 on the
+# H100, against 4.6e-6 for the kernel): there the two may part by two.
+# The kernel itself is held within one ulp at each rounding point of the
+# rounded float64 chain on all but this share of the elements.
+UNIT_BEYOND_SHARE = 1e-4
+
 # kernel vs plain version, both at bf16 inputs with float32 sums:
 GATES_TOL = 1e-5  # float32 elementwise math, last-ulp differences
 # bfloat16 h and c: those differences flip a rounding now and then, by one
@@ -240,12 +285,15 @@ ROLLOUT_MEAN_TOL = 2e-2
 CUDA_TESTS = "tests/test_torch_cuda.py"
 CUDA_TESTS_TIMEOUT_S = 300
 # the cli phase's run: the main path's shape, artifacts and a profiled
-# generation 1 (one chunk of 8, so 22 narrow and 66 fused launches)
+# generation 1 (one chunk of 8, so 22 narrow, 66 fused, 88 Ahat-unit and 66
+# A-unit launches)
 CLI_ARGS = ["-s", "1", "--generations", "2"]
 CLI_SHAPE = (120, 160, 3)
 OVERLAY_RED = (255, 0, 0)
 TRACE_KERNELS = {"narrow_convlstm_layer": ("convlstm_narrow_kernel", STEPS),
                  "fused_convlstm_layer_multi": ("convlstm_fused_wgmma_kernel", STEPS * 3),
+                 "ahat_error_unit": ("ahat_error_unit_kernel", STEPS * UNITS_PER_STEP[0]),
+                 "a_unit": ("a_unit_kernel", STEPS * UNITS_PER_STEP[1]),
                  "fused_lstm_gates": ("lstm_gates_kernel", 0),
                  "convlstm_fused (mma_sync body)": ("convlstm_fused_kernel", 0)}
 # the probe phase: the color predictor at full width on the cli phase's
@@ -396,6 +444,29 @@ def device_ms(fn, iters, warmup=3):
         return ms, math.nan
     return (sum(us for _, _, us in kernels) / iters / 1e3,
             sum(n for _, n, _ in kernels) / iters)
+
+
+def graph_ms(fn, iters, warmup=3):
+    """The device time of one call of ``fn``, for calls of several kernels
+    (torch.profiler dropped some of them: it kept 5 of 20 single-kernel
+    calls in one window on an H100, and scaling the kept ones biased the
+    yardsticks): after ``warmup`` eager calls (cuDNN chooses its algorithms
+    there), ``fn`` is captured once into a CUDA graph, which is replayed
+    ``iters`` times between CUDA events.  The host launches one graph a
+    call, so the time is the device's: the call's kernels back to back,
+    with the graph's short gaps between them.  A call that cannot be
+    captured raises."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, iters)
+    del graph
+    return ms
 
 
 def bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
@@ -762,6 +833,301 @@ def check_narrow(gen, params):
                 **rows["main"], grayscale={k: v for k, v in rows.items() if k != "main"})
 
 
+def _unit_err(got, want, cd, *points):
+    """Max abs error of a unit kernel's output against its plain version's,
+    the share of elements that differ, and whether they are held.  In
+    bfloat16 compute: within one bfloat16 ulp at each rounding point (2**-7
+    of each point's magnitude: the conv, + b, the difference) but on at
+    most UNIT_BEYOND_SHARE of the elements, there within two; on at most
+    STEP_DIFF_SHARE of the elements in all.  In float32 compute within
+    C_TOL, or one bfloat16 ulp more where E is bfloat16 (then on at most
+    STEP_DIFF_SHARE of them).  A failure names its worst elements."""
+    import torch
+
+    d = (got.float() - want.float()).abs()
+    if cd == torch.float32:
+        tol = C_TOL + (2.0**-7 * want.float().abs() if want.dtype == torch.bfloat16 else 0.0)
+        beyond = d > tol
+        ok = not bool(beyond.any())
+    else:
+        tol = sum(2.0**-7 * p.float().abs() for p in points) + 1e-6
+        beyond = d > tol
+        ok = (beyond.float().mean().item() <= UNIT_BEYOND_SHARE
+              and bool((d <= 2 * tol).all()))
+    share = (d > 0).float().mean().item()
+    ok = (ok and got.dtype == want.dtype and got.shape == want.shape
+          and not bool(torch.isnan(got.float()).any()))
+    if not cd == want.dtype == torch.float32:
+        ok = ok and share <= STEP_DIFF_SHARE
+    if not ok:
+        worst = torch.argsort((d / tol).flatten(), descending=True)[:5]
+        at = [(tuple(torch.unravel_index(i, d.shape)[k].item() for k in range(d.dim())),
+               got.float().flatten()[i].item(), want.float().flatten()[i].item(),
+               [p.float().flatten()[i].item() for p in points]) for i in worst]
+        log(f"    worst elements (index, kernel, plain, rounding points): {at}; beyond one ulp "
+            f"{beyond.float().mean().item():.3e} of the elements")
+    return d.max().item(), share, ok
+
+
+def _unit_inputs(gen, B, H, W, C, C_above, params=None, layer=None, cd=None, sd=None):
+    """R in [-1, 1] and E in [0, 1] in the state dtype, A in [0, 1] in the
+    compute dtype (bfloat16 both by default), and the packed weights and
+    biases of one layer's units: the bundled ones of ``layer`` where
+    ``params`` is given, else drawn as ``init_params`` draws them (normal
+    over the square root of the fan-in)."""
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.ops import prednet_units as pu
+
+    cd, sd = cd or torch.bfloat16, sd or torch.bfloat16
+
+    def rand(*shape):
+        return torch.rand(*shape, device="cuda", generator=gen)
+
+    r = rand(B, H, W, C).mul_(2).sub_(1).to(sd)
+    a = rand(B, H, W, C).to(cd)
+    e = rand(B, H, W, 2 * C).to(sd)
+    if params is not None:
+        p = params[layer]
+        return r, a, p["ahat_k"], p["ahat_b"], e, p.get("a_k"), p.get("a_b")
+
+    def weight(cin, cout):
+        return pu.pack_unit_weight(torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
+                                   .div_(math.sqrt(9 * cin)))
+
+    cout = C_above or 8
+    return (r, a, weight(C, C), torch.randn(C, device="cuda", generator=gen).mul_(0.1).bfloat16(),
+            e, weight(2 * C, cout),
+            torch.randn(cout, device="cuda", generator=gen).mul_(0.1).bfloat16())
+
+
+def check_units(gen, params):
+    """The A and Ahat units' kernels (``csrc/prednet_units.cu``) against
+    their plain versions: at the main path's four layers (the bundled
+    weights, a chunk of 8) and the north star's (a chunk of 25) in the main
+    path's types, both Ahat activations, with the device times of the
+    kernel, the plain version (``model._conv`` and the eager ops: the route
+    the kernels replaced), the library yardstick (cuDNN's bfloat16 conv
+    with its bias in one call and the eager ops; the conv alone logged
+    beside it) and the bound; at the main path's layers in float32 compute
+    and state, each output's mean distance to float64 sums beside the plain
+    version's (it may be no larger); then the grayscale stack's pixel layer
+    and an odd shape in every type.  Returns the two kernels' rows: ms,
+    plain_ms, library_ms and bound_ms summed over a main-path step's
+    launches, with each layer's and the north star's beside them."""
+    import torch
+    import torch.nn.functional as F
+
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+    from evolutionary_illusion_generator_tpu_torch.ops import prednet_units as pu
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    layers = {name: {"main": [], "north_star": []} for name in UNIT_SOURCES}
+    worst = dict.fromkeys(UNIT_SOURCES, 0.0)
+
+    def nhwc_conv(x, w, b, dtype):  # cuDNN's conv of the library yardstick (OIHW w)
+        return F.conv2d(x.to(dtype).permute(0, 3, 1, 2), w.to(dtype),
+                        None if b is None else b.to(dtype),
+                        padding=1).permute(0, 2, 3, 1)
+
+    def held(name, label, *args):
+        err, share, ok = _unit_err(*args)
+        if not ok:
+            raise AssertionError(f"{name} {label}: max abs err {err:.3e}, {share:.3%} differ")
+        worst[name] = max(worst[name], err)
+        return err, share
+
+    def check_ahat(label, r, a, k, b, cd, sd):
+        C = r.shape[-1]
+        conv = model._conv(r, pu.unpack_unit_weight(k, C), None, cd)
+        v = model._conv(r, pu.unpack_unit_weight(k, C), b, cd)
+        for layer0 in (True, False):
+            e, pred = pu.ahat_error_unit(r, k, b, a, layer0=layer0, compute_dtype=cd,
+                                         state_dtype=sd)
+            want_e, want_p = pu.ahat_error_unit_plain(r, pu.unpack_unit_weight(k, C), b, a,
+                                                      layer0=layer0,
+                                                      compute_dtype=cd, state_dtype=sd)
+            torch.cuda.synchronize()
+            ahat = v.clamp(0.0, 1.0) if layer0 else torch.relu(v)
+            pts = [torch.cat([t.float()] * 2, -1) for t in (conv, ahat, a)]
+            err = held("ahat_error_unit", f"{label} layer0={layer0}", e, want_e, cd, *pts)
+            if layer0:
+                held("ahat_error_unit", f"{label} prediction", pred, want_p, cd, conv, ahat)
+        return err
+
+    def check_a(label, e, k, b, cd):
+        cout = b.shape[0]
+        got = pu.a_unit(e, k, b, compute_dtype=cd)
+        want = pu.a_unit_plain(e, pu.unpack_unit_weight(k, cout), b, compute_dtype=cd)
+        torch.cuda.synchronize()
+        conv = model._conv(e, pu.unpack_unit_weight(k, cout), None, cd).float().abs()
+        pooled = F.max_pool2d(conv.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+        return held("a_unit", label, got, want, cd, pooled, want)
+
+    def timed(name, where, label, B, H, W, cin, cout, call, plain, library, conv, moved, iters):
+        flops = 2.0 * B * H * W * 9 * cin * cout
+        b_ms, b_by = bound_ms(flops, moved)
+        ms = graph_ms(call, iters)
+        row = dict(shape=[B, H, W, cin, cout], ms=ms, plain_ms=graph_ms(plain, iters),
+                   library_ms=graph_ms(library, iters), conv_ms=graph_ms(conv, iters),
+                   bound_ms=b_ms, bound_by=b_by, ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
+                   bytes_ms=moved / PEAK_BYTES_PER_S * 1e3)
+        layers[name][where].append(row)
+        log(f"  {name} {label} {B}x{H}x{W} {cin} -> {cout} (CUDA graph replays): kernel "
+            f"{ms * 1e3:.2f} us, {b_ms / ms:.1%} of its {b_ms * 1e3:.2f} us bound "
+            f"({b_by}; {moved / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP); plain "
+            f"{row['plain_ms'] * 1e3:.2f} us; library (cuDNN conv + bias, eager ops) "
+            f"{row['library_ms'] * 1e3:.2f} us, its conv alone {row['conv_ms'] * 1e3:.2f} us")
+
+    for where, shapes, B, iters in (("main", UNIT_LAYERS, MAIN_BATCH, 50),
+                                    ("north_star", NORTH_STAR_UNIT_LAYERS, NORTH_STAR_CHUNK, 10)):
+        for l, (H, W, C, C_above) in enumerate(shapes):
+            r, a, k, b, e, k2, b2 = _unit_inputs(gen, B, H, W, C, C_above, params, l)
+            label = f"{where} layer {l}"
+            err = check_ahat(label, r, a, k, b, bf16, bf16)
+            layer0 = l == 0
+            w, w2 = pu.unpack_unit_weight(k, C), C_above and pu.unpack_unit_weight(k2, C_above)
+
+            def call():
+                return pu.ahat_error_unit(r, k, b, a, layer0=layer0)
+
+            def plain():
+                return pu.ahat_error_unit_plain(r, w, b, a, layer0=layer0, compute_dtype=bf16,
+                                                state_dtype=bf16)
+
+            def library():
+                ahat = nhwc_conv(r, w, b, bf16)
+                ahat = ahat.clamp(0.0, 1.0) if layer0 else torch.relu(ahat)
+                return torch.cat([torch.relu(ahat - a), torch.relu(a - ahat)], dim=-1)
+
+            e_out, pred = call()
+            moved = nbytes(r, k, b, a, e_out, *(() if pred is None else (pred,)))
+            timed("ahat_error_unit", where, label, B, H, W, C, C, call, plain, library,
+                  lambda: nhwc_conv(r, w, b, bf16), moved, iters)
+            if C_above is None:
+                continue
+            err = check_a(label, e, k2, b2, bf16)
+
+            def call_a():
+                return pu.a_unit(e, k2, b2)
+
+            def plain_a():
+                return pu.a_unit_plain(e, w2, b2, compute_dtype=bf16)
+
+            def library_a():
+                y = torch.relu(nhwc_conv(e, w2, b2, bf16))
+                return F.max_pool2d(y.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+            moved = nbytes(e, k2, b2, call_a())
+            timed("a_unit", where, label, B, H, W, 2 * C, C_above, call_a, plain_a, library_a,
+                  lambda: nhwc_conv(e, w2, b2, bf16), moved, iters)
+            del r, a, e, e_out, pred
+
+    # float32 compute and state against float64 sums at the main path's layers
+    drift = {name: [] for name in UNIT_SOURCES}
+    for l, (H, W, C, C_above) in enumerate(UNIT_LAYERS):
+        r, a, k, b, e, k2, b2 = _unit_inputs(gen, MAIN_BATCH, H, W, C, C_above, params, l, f32,
+                                             f32)
+        check_ahat(f"main layer {l} float32", r, a, k, b, f32, f32)
+        v64 = nhwc_conv(r.to(bf16), pu.unpack_unit_weight(k, C), None, torch.float64) + b.double()
+        ahat64 = v64.clamp(0.0, 1.0) if l == 0 else torch.relu(v64)
+        e64 = torch.cat([torch.relu(ahat64 - a.double()), torch.relu(a.double() - ahat64)], -1)
+        outs = (pu.ahat_error_unit(r, k, b, a, layer0=l == 0, compute_dtype=f32,
+                                   state_dtype=f32)[0],
+                pu.ahat_error_unit_plain(r, pu.unpack_unit_weight(k, C), b, a, layer0=l == 0,
+                                         compute_dtype=f32, state_dtype=f32)[0])
+        drift["ahat_error_unit"].append([(t.double() - e64).abs().mean().item() for t in outs])
+        if C_above is not None:
+            check_a(f"main layer {l} float32", e, k2, b2, f32)
+            y64 = torch.relu(nhwc_conv(e.to(bf16), pu.unpack_unit_weight(k2, C_above), None,
+                                       torch.float64)
+                             + b2.double())
+            a64 = F.max_pool2d(y64.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+            outs = (pu.a_unit(e, k2, b2, compute_dtype=f32),
+                    pu.a_unit_plain(e, pu.unpack_unit_weight(k2, C_above), b2, compute_dtype=f32))
+            drift["a_unit"].append([(t.double() - a64).abs().mean().item() for t in outs])
+    for name, pairs in drift.items():
+        log(f"  {name} float32 compute and state, main path's layers: mean |out - out_float64| "
+            f"kernel / plain " + ", ".join(f"{d:.3e} / {q:.3e}" for d, q in pairs))
+        for l, (d, q) in enumerate(pairs):
+            if not d <= q:
+                raise AssertionError(f"{name} layer {l}: mean |out - out_float64| {d:.3e} above "
+                                     f"the plain version's {q:.3e}")
+
+    # bfloat16 compute against the float64 chain (the conv, + b, the
+    # differences, each rounded to bfloat16): how often each output is not
+    # the chain's, logged; the kernel within one ulp at each rounding point
+    # of the chain's on all but UNIT_BEYOND_SHARE of the elements
+    beyond = []
+
+    def off_chain(name, l, outs, ref, *points):
+        tol = sum(2.0**-7 * p.abs() for p in points) + 1e-6
+        share = (outs[0].double() - ref).abs().gt(tol).float().mean().item()
+        beyond.append(share)
+        if share > UNIT_BEYOND_SHARE:
+            raise AssertionError(f"{name} main layer {l} bfloat16: {share:.3e} of the outputs "
+                                 f"beyond one ulp of the rounded float64 chain")
+        return (" / ".join(f"{(t.double() != ref).float().mean().item():.2e}" for t in outs)
+                + f" (kernel beyond one ulp {share:.2e})")
+
+    for l, (H, W, C, C_above) in enumerate(UNIT_LAYERS):
+        r, a, k, b, e, k2, b2 = _unit_inputs(gen, MAIN_BATCH, H, W, C, C_above, params, l)
+        w = pu.unpack_unit_weight(k, C)
+        rb = (lambda t: t.to(bf16).double())
+        conv64 = rb(nhwc_conv(r, w, None, torch.float64))
+        v64 = rb(conv64 + b.double())
+        ahat64 = v64.clamp(0.0, 1.0) if l == 0 else torch.relu(v64)
+        e64 = torch.cat([torch.relu(rb(ahat64 - a.double())), torch.relu(rb(a.double() - ahat64))],
+                        -1)
+        outs = (pu.ahat_error_unit(r, k, b, a, layer0=l == 0)[0],
+                pu.ahat_error_unit_plain(r, w, b, a, layer0=l == 0, compute_dtype=bf16,
+                                         state_dtype=bf16)[0])
+        line = ["E " + off_chain("ahat_error_unit", l, outs, e64,
+                                 *(torch.cat([t] * 2, -1) for t in (conv64, ahat64, a.double())))]
+        if C_above is not None:
+            w2 = pu.unpack_unit_weight(k2, C_above)
+            conv64 = rb(nhwc_conv(e, w2, None, torch.float64))
+            y64 = torch.relu(rb(conv64 + b2.double()))
+            a64, pooled = (F.max_pool2d(t.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+                           for t in (y64, conv64.abs()))
+            outs = (pu.a_unit(e, k2, b2), pu.a_unit_plain(e, w2, b2, compute_dtype=bf16))
+            line.append("A " + off_chain("a_unit", l, outs, a64, pooled, a64))
+        log(f"  units, main layer {l}, bfloat16: share of outputs off the rounded float64 "
+            f"chain, kernel / plain: {'; '.join(line)}")
+
+    # the grayscale pixel layer and an odd shape, every type
+    for H, W, C, C_above in UNIT_ODD:
+        for cd, sd in ((bf16, bf16), (f32, bf16), (f32, f32)):
+            r, a, k, b, e, k2, b2 = _unit_inputs(gen, MAIN_BATCH, H, W, C, C_above, cd=cd, sd=sd)
+            check_ahat(f"{H}x{W} C={C} {cd} {sd}", r, a, k, b, cd, sd)
+            check_a(f"{H}x{W} C={C} {cd} {sd}", e, k2, b2, cd)
+    log(f"  the units at {[s[:3] for s in UNIT_ODD]}, every type: max abs err "
+        f"{max(worst.values()):.2e}")
+
+    out = {}
+    for name, by in layers.items():
+        def total(rows):
+            t = {key: sum(r[key] for r in rows)
+                 for key in ("ms", "plain_ms", "library_ms", "conv_ms", "bound_ms", "ops_ms",
+                             "bytes_ms")}
+            t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+            return t
+
+        main, north = total(by["main"]), total(by["north_star"])
+        out[name] = dict(route="cuda",
+                         source="evolutionary_illusion_generator_tpu_torch/csrc/prednet_units.cu",
+                         replaces=UNIT_SOURCES[name], max_abs_err=worst[name],
+                         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms", "conv_ms")},
+                         layers=by["main"], drift=drift[name],
+                         north_star=dict(north, layers=by["north_star"]))
+        log(f"  {name} a step: main path kernel {main['ms']:.4f} ms, plain {main['plain_ms']:.4f}, "
+            f"library {main['library_ms']:.4f}, bound {main['bound_ms']:.4f} ({main['bound_by']}); "
+            f"north star kernel {north['ms']:.4f} ms, plain {north['plain_ms']:.4f}, library "
+            f"{north['library_ms']:.4f}, bound {north['bound_ms']:.4f} ({north['bound_by']})")
+    return out
+
+
 @phase("kernels")
 def check_kernels(params):
     import torch
@@ -771,7 +1137,8 @@ def check_kernels(params):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {"fused_lstm_gates": check_gates(gen),
-               "narrow_convlstm_layer": check_narrow(gen, params)}
+               "narrow_convlstm_layer": check_narrow(gen, params),
+               **check_units(gen, params)}
     stream = torch.cuda.current_stream().cuda_stream
 
     def check_out(label, out, ref):
@@ -1021,11 +1388,15 @@ def _wrappers():
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_narrow as cn
 
+    from evolutionary_illusion_generator_tpu_torch.ops import prednet_units as pu
+
     out = {
         "fused_lstm_gates": cg.fused_lstm_gates,
         "narrow_convlstm_layer": cn.narrow_convlstm_layer,
         "fused_convlstm_layer_multi": cf.fused_convlstm_layer_multi,
         "fused_convlstm_layer": cf.fused_convlstm_layer,
+        "ahat_error_unit": pu.ahat_error_unit,
+        "a_unit": pu.a_unit,
     }
     for key, (name, _) in BISECT_RUNGS.items():
         out[name] = cb.RUNGS[key]
@@ -1053,15 +1424,25 @@ def _counts():
     return counts
 
 
+def _path_launches(passes, steps, pixel="narrow_convlstm_layer", units=UNITS_PER_STEP):
+    """The launches of ``passes`` chunk (or shard) passes of ``steps``
+    steps at 3,48,96,192 on the dense "fused" route: the pixel layer's
+    wrapper once a step (``pixel``: the narrow kernel's, or the gate
+    kernel's under s2d and subpixel), the fused kernel on three layers, and
+    ``units`` Ahat and A units a step (every layer's, but the s2d pixel
+    layer's).  A step that ran a cuDNN A or Ahat conv instead is short of
+    them."""
+    return {pixel: passes * steps, "fused_convlstm_layer_multi": passes * steps * 3,
+            "ahat_error_unit": passes * steps * units[0], "a_unit": passes * steps * units[1]}
+
+
 def _check_generations(label, generations, steps, records, out, kernels=True,
-                       pixel="narrow_convlstm_layer"):
+                       pixel="narrow_convlstm_layer", units=UNITS_PER_STEP):
     """The generation count, finite fitness, and each generation's launch
     counts (of a run that wrote ``out``/metrics.jsonl, its generations in
-    ``records``): ``steps`` launches of the pixel layer's wrapper (``pixel``:
-    the narrow kernel's, or the gate kernel's under s2d and subpixel) and 3
-    ``steps`` fused launches for each chunk run eagerly, none for a chunk
-    replayed as a CUDA graph (its kernels run, but no wrapper launches them)
-    or without ``kernels``."""
+    ``records``): :func:`_path_launches` for each chunk run eagerly, none
+    for a chunk replayed as a CUDA graph (its kernels run, but no wrapper
+    launches them) or without ``kernels``."""
     with open(os.path.join(out, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     if not len(recs) == len(records) == generations:
@@ -1069,7 +1450,7 @@ def _check_generations(label, generations, steps, records, out, kernels=True,
     for gen, r in enumerate(records):
         eager = (r["chunks"] - r["replays"]) if kernels else 0
         want = dict.fromkeys(r["launches"], 0)
-        want.update({pixel: eager * steps, "fused_convlstm_layer_multi": eager * steps * 3})
+        want.update(_path_launches(eager, steps, pixel, units))
         if r["launches"] != want:
             raise AssertionError(f"{label}: generation {gen} kernel launches {r['launches']}, "
                                  f"expected {want} ({r['chunks']} chunks, {r['replays']} "
@@ -1086,7 +1467,7 @@ def _check_generations(label, generations, steps, records, out, kernels=True,
 
 
 def run_generations(label, generations, steps, kernels=True, pixel="narrow_convlstm_layer",
-                    **kwargs):
+                    units=UNITS_PER_STEP, **kwargs):
     """``neat_illusion`` on the card, without artifacts; checks the launch
     counts, finite fitness and the generation count.  Returns the launch
     counts, the metrics records and each generation's record
@@ -1099,7 +1480,8 @@ def run_generations(label, generations, steps, kernels=True, pixel="narrow_convl
         pop = neat_illusion(out, None, generations=generations, seed=0,
                             save_artifacts=False, quiet=True, device="cuda", **kwargs)
         counts = _counts()
-        recs = _check_generations(label, generations, steps, records, out, kernels, pixel)
+        recs = _check_generations(label, generations, steps, records, out, kernels, pixel,
+                                  units)
     log(f"  {label} launches {counts}")
     if pop.generation != generations:
         raise AssertionError(f"{label}: ran {pop.generation} generations")
@@ -1238,8 +1620,7 @@ def probe_run(png, card):
     counts = _counts()
     torch.cuda.synchronize()
     want = dict.fromkeys(counts, 0)
-    want.update({"narrow_convlstm_layer": PROBE_ROLLOUTS * STEPS,
-                 "fused_convlstm_layer_multi": PROBE_ROLLOUTS * STEPS * 3})
+    want.update(_path_launches(PROBE_ROLLOUTS, STEPS))
     if counts != want:
         raise AssertionError(f"probe: kernel launches {counts}, expected {want}")
     if not (vectors.ndim == 2 and vectors.shape[1] == 4 and np.isfinite(vectors).all()
@@ -1381,9 +1762,12 @@ def options_phase(params, png, card):
     params_cpu = load_or_init(None, PROBE_CHANNELS, device="cpu")
     for name, opt in OPTIONS:
         int8 = "prednet_int8" in opt
-        with _eval_options(**opt):  # s2d and subpixel keep the gate kernel at layer 0
+        # s2d and subpixel keep the gate kernel at layer 0; s2d its lifted A
+        # and Ahat convs there
+        units = (3, 2) if "s2d_l0" in opt else UNITS_PER_STEP
+        with _eval_options(**opt):
             counts, recs, _ = run_generations(name, 2, STEPS, kernels=not int8,
-                                              pixel="fused_lstm_gates", **main)
+                                              pixel="fused_lstm_gates", units=units, **main)
         add(counts)
         log(f"  {name} s/generation (generation 1): {recs[1]['eval_seconds']:.4f} ({card})")
         if int8:  # the codes quantised on the card equal the CPU's
@@ -1462,7 +1846,7 @@ def options_phase(params, png, card):
     add(_counts())
 
     # the probe's --int8 and --s2d on the cli phase's best.png
-    for flag, want in (("int8", 0), ("s2d", STEPS)):  # s2d: the gate kernel at layer 0
+    for flag, want in (("int8", 0), ("s2d", STEPS)):  # int8: no kernel
         _reset_counts()
         out = io.StringIO()
         t0 = time.time()
@@ -1472,7 +1856,8 @@ def options_phase(params, png, card):
         vectors = probe.get_vectors(png, None, PROBE_CHANNELS, **{flag: True})
         counts = _counts()
         expect = dict.fromkeys(counts, 0)
-        expect.update({"fused_lstm_gates": 2 * want, "fused_convlstm_layer_multi": 6 * want})
+        # two probe rollouts; s2d: the gate kernel and the lifted convs at layer 0
+        expect.update(_path_launches(2, want, "fused_lstm_gates", (3, 2)))
         score = float(out.getvalue().split("score", 1)[1].split()[0])
         if counts != expect or not (math.isfinite(score) and np.isfinite(vectors).all()):
             raise AssertionError(f"probe --{flag}: launches {counts}, score {score}")
@@ -1521,8 +1906,7 @@ def scorers(params, card):
         runs[name] = (scores, host, res["vectors"], dict(ev.last_timings))
     counts = _counts()
     want = dict.fromkeys(counts, 0)
-    want.update({"narrow_convlstm_layer": len(SCORER_BACKENDS) * SCORER_STEPS,
-                 "fused_convlstm_layer_multi": len(SCORER_BACKENDS) * SCORER_STEPS * 3})
+    want.update(_path_launches(len(SCORER_BACKENDS), SCORER_STEPS))
     if counts != want:
         raise AssertionError(f"scorers: kernel launches {counts}, expected {want}")
     scores, host, _, _ = runs["numpy"]
@@ -1748,21 +2132,15 @@ PARALLEL_SHARDS = 2
 PARALLEL_GENERATIONS = 3
 SPATIAL_SHAPE = (2, 960, 1280, 3)  # (B, H, W, C): the pop256_v5e8 frame
 PIPELINE_SHAPE = (8, 120, 160, 3)
-# Each shard runs the unsharded pass's ops on fewer rows, and cuDNN's
-# algorithms follow the batch, so a bfloat16 sum may round another way
-# (bit-equal at the main path's shape on the H100; at 64x48 a fifth of
-# the flow's corner slots changed, tests/test_torch_cuda.py).  The
-# rollouts are held as the reference phase
-# holds card against CPU (one step: STEP_ATOL on at most STEP_DIFF_SHARE
-# of the entries; 22 steps in the mean).  Corners are ranked by response,
-# so a flip may swap two near-equal corners' slots: the flow's vectors are
-# held slot by slot where both runs hold the same corner (on at least
-# SHARD_MATCHED_SHARE of the masked slots), by their displacement
-# (SHARD_SHIFT_ATOL px), and the fitness within SHARD_FITNESS_ATOL; whether
-# all is bit-equal is logged beside them.
-SHARD_MATCHED_SHARE = 0.5
-SHARD_SHIFT_ATOL = 0.05
-SHARD_FITNESS_ATOL = 0.05
+# Each shard runs the unsharded pass's kernels on fewer rows, and every
+# kernel of the rollout sums a pixel in one order whatever the batch, so the
+# sharded evaluator's outputs (images, flow frame, vectors, masks) and
+# fitness are the unsharded one's bit for bit, as are those of two
+# processes each evaluating half a population.  The spatial and pipelined
+# rollouts (the plain route: cuDNN's or PyTorch's convs, which follow the
+# shape) are held as the reference phase holds card against CPU (one step:
+# STEP_ATOL on at most STEP_DIFF_SHARE of the entries; 22 steps in the
+# mean).
 TWO_PROCESS_TIMEOUT_S = 150
 # the rollouts' (repeat, extension): one step, then the flow pair's 22
 PARALLEL_STEPS = ((1, 1), (20, 2))
@@ -1975,8 +2353,9 @@ def _held_in_the_mean(label, got, want):
 
 def _sharded_generations(params, devices, label):
     """The sharded evaluator (program cache on, and eager) against the
-    unsharded one, generation after generation of one population; returns
-    the sharded evaluators' launch counts."""
+    unsharded one, generation after generation of one population: every
+    output and the fitness bit-equal; returns the sharded evaluators'
+    launch counts."""
     import numpy as np
     import torch
 
@@ -2003,6 +2382,7 @@ def _sharded_generations(params, devices, label):
         row = {}
         want = single(list(items))
         ref = single.last_results
+        ref_out = ref["outputs"].to_numpy()
         for name, ev in (("graph", graph), ("eager", eager)):
             before = _counts()
             torch.cuda.synchronize()
@@ -2012,24 +2392,18 @@ def _sharded_generations(params, devices, label):
             row[name + "_s"] = time.time() - t0
             launched = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
             res = ev.last_results
-            either = res["mask"] | ref["mask"]
-            same = res["mask"] & ref["mask"] & (
-                res["vectors"][..., :2] == ref["vectors"][..., :2]).all(-1)
-            matched = float(same.sum() / max(either.sum(), 1))
-            dv = float(np.abs(res["vectors"][..., 2:] - ref["vectors"][..., 2:])[same]
-                       .max(initial=0.0))
-            df = float(np.abs(got - want).max())
-            if not (matched >= SHARD_MATCHED_SHARE and dv <= SHARD_SHIFT_ATOL
-                    and df <= SHARD_FITNESS_ATOL and np.isfinite(got).all()):
-                raise AssertionError(f"parallel ({label}, {name}): the same corner in "
-                                     f"{matched:.4f} of the slots, displacements {dv:.3e}, "
-                                     f"fitness {df:.3e} from the unsharded")
-            exact = all(np.array_equal(res[k], ref[k]) for k in ("vectors", "mask"))
-            row[name] = (matched, dv, df, exact and bool(np.array_equal(got, want)), launched)
+            out = res["outputs"].to_numpy()
+            unequal = [k for k in ref_out if not np.array_equal(out[k], ref_out[k])]
+            if not np.array_equal(got, want):
+                unequal.append("fitness")
+            if unequal or out.keys() != ref_out.keys() or not np.isfinite(got).all():
+                raise AssertionError(f"parallel ({label}, {name}): {unequal} not bit-equal to the "
+                                     f"unsharded evaluator's (fitness max gap "
+                                     f"{float(np.abs(got - want).max()):.3e})")
+            row[name] = (int(ref["mask"].sum()), launched)
             if name == "eager":
                 chunks = len(res["outputs"]._chunks)
-                expect = {"narrow_convlstm_layer": chunks * n * STEPS,
-                          "fused_convlstm_layer_multi": chunks * n * 3 * STEPS}
+                expect = _path_launches(chunks * n, STEPS)
                 if launched != expect:
                     raise AssertionError(f"parallel ({label}): eager launches {launched}, "
                                          f"expected {expect} ({chunks} chunks x {n} shards)")
@@ -2048,9 +2422,8 @@ def _sharded_generations(params, devices, label):
                              f"{graphs}")
     for gen, row in enumerate(report):
         log(f"  sharded {label}, generation {gen} (pop {row['pop']}): s/generation graph "
-            f"{row['graph_s']:.4f}, eager {row['eager_s']:.4f}; against the unsharded "
-            f"(share of slots with the same corner, displacement max, fitness max, "
-            f"vectors, masks and fitness bit-equal, launches): "
+            f"{row['graph_s']:.4f}, eager {row['eager_s']:.4f}; images, flow frames, vectors, "
+            f"masks and fitness bit-equal to the unsharded (masked corner slots, launches): "
             f"graph {row['graph']}, eager {row['eager']}")
     log(f"  sharded {label}: {graph._programs.replays} graph replays over "
         f"{len(graphs)} captured keys")
@@ -2198,8 +2571,9 @@ def parallel_phase(params, card):
         if r["processes"] != [0, 1] or r["rows"] != hashes:
             raise AssertionError(f"parallel: rank {r['rank']} mesh {r['processes']}, fetched "
                                  f"rows equal {r['rows'] == hashes}")
-        if not np.abs(np.array(r["scores"]) - want).max() <= SHARD_FITNESS_ATOL:
-            raise AssertionError(f"parallel: rank {r['rank']} fitness {r['scores']} vs {want}")
+        if r["scores"] != want.tolist():
+            raise AssertionError(f"parallel: rank {r['rank']} fitness {r['scores']} is not the "
+                                 f"single process's {want.tolist()} bit for bit")
     if fitness[0] != fitness[1]:
         raise AssertionError("parallel: the two ranks assigned different fitness")
     # the sharded runs' launches and the single-process reference's
@@ -2298,8 +2672,8 @@ def composition_phase(card):
     kernel's plan at each fused layer, s/generation with the shard
     passes run eagerly, captured and replayed, the peak device memory, the
     launches and the best fitness; fails on a non-finite fitness, a best
-    fitness of 0 or launches that are not 22 narrow and 66 fused per eager
-    pass."""
+    fitness of 0 or launches that are not 22 narrow, 66 fused, 88 Ahat-unit
+    and 66 A-unit per eager pass."""
     import numpy as np
     import torch
 
@@ -2328,8 +2702,7 @@ def composition_phase(card):
                 and max(r["fitness"]) > 0.0):
             raise AssertionError(f"composition: generation {gen} fitness {r['fitness']}")
         eager = r["passes"] - r["replays"]
-        want = {"narrow_convlstm_layer": eager * STEPS,
-                "fused_convlstm_layer_multi": eager * 3 * STEPS}
+        want = {k: v for k, v in _path_launches(eager, STEPS).items() if v}
         if r["launches"] != want:
             raise AssertionError(f"composition: generation {gen} launches {r['launches']}, "
                                  f"expected {want}")
@@ -2362,12 +2735,17 @@ def _north_star_step(params, imgs):
     kernel on layer 0 at 480x640) against its plain version on the card on
     the same inputs, under the kernels phase's rules (the fused kernel's h
     within H_TOL and c within C_TOL, the narrow kernel's by the one-step
-    rule); each layer's R_above is the kernel's new R of the layer above."""
+    rule); each layer's R_above is the kernel's new R of the layer above.
+    Then the bottom-up half: each layer's Ahat unit on its kernel's new R
+    and its A, and its A unit on the unit's E, against the plain versions on
+    the same inputs (:func:`_unit_err`'s rule); each layer's A is the A
+    unit's output of the layer below."""
     import torch
 
     from evolutionary_illusion_generator_tpu_torch.models.prednet import model
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_narrow as cn
+    from evolutionary_illusion_generator_tpu_torch.ops import prednet_units as pu
 
     bf16 = torch.bfloat16
     B, H, W, _ = imgs.shape
@@ -2376,7 +2754,7 @@ def _north_star_step(params, imgs):
     with torch.inference_mode():
         for _ in range(NORTH_STAR_WARM_STEPS):
             state, _ = model.prednet_step(params, state, imgs, compute_dtype=bf16)
-        r_above, rows = None, []
+        r_above, rows, new_r = None, [], {}
         for l in reversed(range(len(params))):
             p, s = params[l], state[l]
             wks = [p["lstm_k_e"], p["lstm_k_r"]] + ([p["lstm_k_up"]] if r_above is not None
@@ -2406,6 +2784,32 @@ def _north_star_step(params, imgs):
                 raise AssertionError(f"north_star: one step, layer {l} {name} at {shape} "
                                      f"against its plain version: {err}, finite {finite}")
             r_above = out[0].to(bf16)
+            new_r[l] = r_above
+        a = imgs.to(bf16)
+        for l, p in enumerate(params):
+            conv, v = (model._conv(new_r[l], p["ahat_w"], b, bf16) for b in (None, p["ahat_b"]))
+            ahat = v.clamp(0.0, 1.0) if l == 0 else torch.relu(v)
+            e, pred = pu.ahat_error_unit(new_r[l], p["ahat_k"], p["ahat_b"], a, layer0=l == 0)
+            want = pu.ahat_error_unit_plain(new_r[l], p["ahat_w"], p["ahat_b"], a, layer0=l == 0,
+                                            compute_dtype=bf16, state_dtype=bf16)
+            checks = [("E", e, want[0], [torch.cat([t.float()] * 2, -1) for t in (conv, ahat, a)])]
+            if l == 0:
+                checks.append(("prediction", pred, want[1], [conv, ahat]))
+            if "a_k" in p:
+                a = pu.a_unit(e, p["a_k"], p["a_b"])
+                want_a = pu.a_unit_plain(e, p["a_w"], p["a_b"], compute_dtype=bf16)
+                pooled = torch.nn.functional.max_pool2d(
+                    model._conv(e, p["a_w"], None, bf16).float()
+                    .abs().permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+                checks.append(("A of the layer above", a, want_a, [pooled, want_a]))
+            torch.cuda.synchronize()
+            for what, got, ref, points in checks:
+                err, share, ok = _unit_err(got, ref, bf16, *points)
+                rows.append(f"layer {l} units, {what} {tuple(got.shape)}: max abs err "
+                            f"{err:.3e} ({share:.3%} differ)")
+                if not ok:
+                    raise AssertionError(f"north_star: one step, layer {l} units, {what} against "
+                                         f"the plain version: {err:.3e}, {share:.3%} differ")
     for row in rows:
         log(f"  one step at the chunk ({B}, {H}, {W}), kernel against its plain version: {row}")
 
@@ -2421,8 +2825,9 @@ def north_star_phase(params, card):
     the fused kernel's plan per layer.  Then
     ``scripts/phase_bench.py``'s split and ``scripts/rollout_profile.py``'s
     kernel table at one chunk (dense and s2d pixel layer).  Holds finite
-    fitness, 22 narrow and 66 fused launches per eager chunk, and one step
-    at the chunk, kernels against their plain versions
+    fitness, 22 narrow, 66 fused, 88 Ahat-unit and 66 A-unit launches per
+    eager chunk, and one step at the chunk, kernels against their plain
+    versions
     (:func:`_north_star_step`).  Returns the launches of the driven paths
     (the generations and the two scripts), not those of the check."""
     import numpy as np
@@ -2467,8 +2872,7 @@ def north_star_phase(params, card):
     Population(cfg, seed=0).run(evaluate, NORTH_STAR_GENERATIONS)
     for gen, r in enumerate(records):
         eager = r["chunks"] - r["replays"]
-        want = {"narrow_convlstm_layer": eager * STEPS,
-                "fused_convlstm_layer_multi": eager * 3 * STEPS}
+        want = _path_launches(eager, STEPS)
         if not (len(r["fitness"]) == NORTH_STAR_POP and np.isfinite(r["fitness"]).all()):
             raise AssertionError(f"north_star: generation {gen} fitness {r['fitness']}")
         if {k: v for k, v in r["launches"].items()} != {k: v for k, v in want.items() if v}:
@@ -2490,6 +2894,11 @@ def north_star_phase(params, card):
         log(f"  rollout_profile --s2d {s2d}: steady {prof['steady_s']:.4f} s, busy share "
             f"{prof['busy_share']:.3f}, {prof['launches']} launches; top "
             f"{[(k['name'][:60], k['count'], round(k['ms'], 3)) for k in prof['kernels'][:6]]}")
+        log(f"  rollout_profile --s2d {s2d}, device time by wrapper (count, ms): " + ", ".join(
+            f"{k} {v['count']} {v['ms']:.3f}" for k, v in prof["wrappers"].items()))
+        if s2d == "0" and prof["wrappers"]["library convs"]["count"]:
+            raise AssertionError(f"north_star: the dense rollout ran library convs "
+                                 f"{prof['wrappers']['library convs']}")
     counts = _counts()
     imgs = torch.stack([torch.from_numpy(ev.last_results["outputs"].fetch("images_u8", i))
                         for i in range(B)]).cuda().float().div(255)
@@ -2513,6 +2922,7 @@ def profile_generation(params):
     )
     from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
     from evolutionary_illusion_generator_tpu_torch.utils.profiling import (
+        by_wrapper,
         device_events,
         kernel_table,
     )
@@ -2547,6 +2957,14 @@ def profile_generation(params):
             f"wrappers {counts}")
         if ran != want:
             raise AssertionError(f"profile ({label}): the trace holds {ran}, expected {want}")
+        # the dense "fused" route runs no library conv: the A and Ahat convs
+        # are the units' kernels
+        wrappers = by_wrapper(kernels)
+        log(f"    device time by wrapper (count, ms): " + ", ".join(
+            f"{k} {v['count']} {v['ms']:.3f}" for k, v in wrappers.items()))
+        if wrappers["library convs"]["count"]:
+            raise AssertionError(f"profile ({label}): library conv kernels ran: "
+                                 f"{wrappers['library convs']}")
         if on:
             graphs = [g for g in evaluator._programs.graphs.values() if g is not None]
             if not (len(graphs) == 1 and evaluator._programs.replays == replays + 1
@@ -2594,7 +3012,9 @@ def bisect():
     kb.main(BISECT_ARGS)
     counts = _counts()
     want = dict.fromkeys(counts, 1 + kb.LOOP_OPS * (1 + kb.REPS))
-    want["fused_convlstm_layer_multi"] = want["narrow_convlstm_layer"] = 0  # not on the ladder
+    for name in ("fused_convlstm_layer_multi", "narrow_convlstm_layer", "ahat_error_unit",
+                 "a_unit"):
+        want[name] = 0  # not on the ladder
     if counts != want:
         raise AssertionError(f"bisect: kernel launches {counts}, expected {want}")
     log(f"  bisect launches {counts}")

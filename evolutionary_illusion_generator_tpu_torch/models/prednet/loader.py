@@ -15,7 +15,10 @@ Port params are a list of per-layer dicts of tensors:
   (:func:`..ops.convlstm_fused.pack_gate_weight`);
 * ``lstm_b``, ``ahat_w`` (OIHW) / ``ahat_b``, ``a_w`` (OIHW) / ``a_b``
   (below the top), and the peepholes ``w_ci`` / ``w_cf`` / ``w_co`` where
-  the source has them.
+  the source has them;
+* ``ahat_k`` / ``a_k`` (bfloat16 params only: the A and Ahat units' kernels
+  take only bfloat16 weights) — ``ahat_w`` and ``a_w`` in the unit kernels'
+  ``(9, Cp, Cin)`` layout (:func:`...ops.prednet_units.pack_unit_weight`).
 
 The reference's published predictors are Chainer ``.model`` NPZ snapshots;
 :func:`load_chainer_model` imports them as the JAX loader does, building
@@ -39,6 +42,7 @@ import torch
 
 from ..._device import resolve_device
 from ...ops.convlstm_fused import pack_gate_weight
+from ...ops.prednet_units import pack_unit_weight
 from ...utils import prng
 
 __all__ = [
@@ -51,6 +55,7 @@ __all__ = [
     "load_chainer_model",
     "load_or_init",
     "load_params",
+    "pack_unit_weights",
     "params_from_numpy",
     "params_to_numpy",
     "save_params",
@@ -66,6 +71,10 @@ WEIGHTS_DIR = (
 )
 
 _CONV_KEYS = ("ahat_w", "a_w")
+#: The weights packed for the kernels (the gate conv's ``lstm_k_*``, the
+#: units' ``ahat_k`` and ``a_k``, :func:`pack_unit_weights`); never saved or
+#: trained: the trainer packs them anew from the trained weights.
+PACKED_PREFIXES = ("lstm_k_", "ahat_k", "a_k")
 #: Prefixes of the weights ``model.with_layout_weights`` derives from a
 #: layer's own (lifted s2d kernels, subpixel tap pairs); never saved.
 DERIVED_PREFIXES = ("s2d_", "sub_")
@@ -76,6 +85,16 @@ def _oihw(w_hwio: np.ndarray, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1))).to(
         device=device, dtype=dtype
     )
+
+
+def pack_unit_weights(p: dict) -> dict:
+    """``p`` (one layer of port params) with the A and Ahat units' packed
+    weights (``ahat_k``, ``a_k``) made from its ``ahat_w`` and ``a_w``
+    where those are bfloat16.  Returns ``p``, updated in place."""
+    for k in _CONV_KEYS:
+        if k in p and p[k].dtype == torch.bfloat16:
+            p[k[:-1] + "k"] = pack_unit_weight(p[k].permute(2, 3, 1, 0))
+    return p
 
 
 def params_from_numpy(layers: Sequence[dict], dtype=torch.bfloat16,
@@ -105,7 +124,7 @@ def params_from_numpy(layers: Sequence[dict], dtype=torch.bfloat16,
         for k in _PEEPHOLE_KEYS:
             if k in arrs:
                 p[k] = torch.from_numpy(arrs[k]).to(device=device, dtype=dtype)
-        params.append(p)
+        params.append(pack_unit_weights(p))
     return params
 
 
@@ -122,7 +141,7 @@ def params_to_numpy(params: Sequence[dict]) -> List[dict]:
         layer = {"lstm_w": np.concatenate([_numpy(w).transpose(2, 3, 1, 0) for w in slices],
                                           axis=2)}
         for k, v in p.items():
-            if not k.startswith(("lstm_w_", "lstm_k_") + DERIVED_PREFIXES):
+            if not k.startswith(("lstm_w_",) + PACKED_PREFIXES + DERIVED_PREFIXES):
                 layer[k] = np.ascontiguousarray(
                     _numpy(v).transpose(2, 3, 1, 0) if k in _CONV_KEYS else _numpy(v))
         layers.append(layer)

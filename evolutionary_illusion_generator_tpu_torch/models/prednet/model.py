@@ -41,15 +41,23 @@ evaluator's route):
     dtype, then :func:`..ops.convlstm_gates.fused_lstm_gates` on their sum
     as it is, writing h and c in the state dtype — the same math, with the
     widening and the casts inside the gate kernel;
+  - the A and Ahat units of every layer but the s2d pixel layer, with
+    bfloat16 weights and a float32 or bfloat16 compute dtype:
+    :func:`..ops.prednet_units.ahat_error_unit` (the Ahat conv, its
+    activation, E and the prediction) and :func:`..ops.prednet_units.a_unit`
+    (the A conv, ReLU and the max-pool), each one kernel summing every
+    pixel in one order whatever the batch; the same math as the ops they
+    replaced (``_conv`` and the ops after it);
 
-* ``True``: split gate convs and the gate kernel on every layer;
+* ``True``: split gate convs and the gate kernel on every layer, the A and
+  Ahat units as ``_conv`` (cuDNN on the card) and eager ops;
 * ``False`` (the JAX default, which the trainer differentiates): split
   per-source ``F.conv2d`` gate convs in the compute dtype and the plain
   gate math (:func:`_lstm_gates`) in the gates' dtype, on every layer.
   It launches no kernel.
 
 A layer with peepholes takes the plain gate math on every route.  On CUDA
-tensors the three wrappers launch their kernels; on CPU tensors they run
+tensors the wrappers launch their kernels; on CPU tensors they run
 their plain versions.  No kernel has a backward (the JAX kernels have
 no VJP either), so the wrappers refuse, on every device, inputs that
 require a gradient while grad mode is on: a loss differentiated through
@@ -89,8 +97,11 @@ from ...ops.convlstm_fused import fused_convlstm_layer_multi
 from ...ops.convlstm_gates import fused_lstm_gates
 from ...ops.convlstm_narrow import COMPUTE_DTYPES as NARROW_COMPUTE_DTYPES
 from ...ops.convlstm_narrow import narrow_convlstm_layer
+from ...ops.prednet_units import COMPUTE_DTYPES as UNIT_COMPUTE_DTYPES
+from ...ops.prednet_units import STATE_DTYPES as UNIT_STATE_DTYPES
+from ...ops.prednet_units import a_unit, a_unit_plain, ahat_error_unit, ahat_error_unit_plain
 from ...utils import prng
-from .loader import DERIVED_PREFIXES, PredNetParams, params_from_numpy
+from .loader import DERIVED_PREFIXES, PACKED_PREFIXES, PredNetParams, params_from_numpy
 
 __all__ = [
     "FUSED_MIN_CHANNELS",
@@ -199,7 +210,7 @@ def quantize_params_int8(params: Sequence[dict]) -> List[dict]:
     qp = []
     for layer in params:
         q = {k: v for k, v in layer.items()
-             if not k.startswith(("lstm_k_",) + DERIVED_PREFIXES) and k not in _LSTM_SLICES}
+             if not k.startswith(PACKED_PREFIXES + DERIVED_PREFIXES) and k not in _LSTM_SLICES}
         names = [k for k in _LSTM_SLICES if k in layer]
         s = _int8_scale(torch.cat([layer[k].float() for k in names], dim=1))
         for k in names:
@@ -320,6 +331,14 @@ def _conv(x, w, b, out_dtype, pad=None, cudnn=True):
             y = F.conv2d(F.pad(xn, pad), w.to(acc))
     y = y.permute(0, 2, 3, 1).to(out_dtype)
     return y if b is None else y + b.to(out_dtype)
+
+
+def _satlu(x, jnp_clip=False):
+    """SatLU, the pixel layer's activation: ``x`` clamped to [0, 1].
+    ``jnp_clip``: as ``jnp.clip``, min(max(x, 0), 1), whose gradient splits
+    in half at either bound (clamp's would not): the plain route's, which
+    the trainer differentiates."""
+    return torch.minimum(torch.maximum(x, _ZERO), _ONE) if jnp_clip else x.clamp(0.0, 1.0)
 
 
 def _upsample2(x):
@@ -648,42 +667,51 @@ def prednet_step(params, state, frame, *, use_pallas: Union[bool, str] = "fused"
 
     a = frame.to(cd)
     prediction = None
+    # the A and Ahat units' kernels: bfloat16 weights, the compute and state
+    # dtypes they round to; the s2d pixel layer keeps its lifted convs
+    units = (use_pallas == "fused" and not quantized and cd in UNIT_COMPUTE_DTYPES
+             and dtype in UNIT_STATE_DTYPES and params[0]["ahat_w"].dtype == torch.bfloat16)
     for l in range(L):
         p = params[l]
         r = new_state[l]["r"]
         s2d_here = s2d_l0 and l == 0
-        if s2d_here:
-            ahat = _conv(r, p["s2d_ahat_w"], p["s2d_ahat_b"], cd, cudnn=cudnn)
-        elif quantized:
-            ahat = _conv_q(r.to(cd), p["ahat_w"], p["ahat_w_s"], p["ahat_b"], cd)
-        else:
-            ahat = _conv(r, p["ahat_w"], p["ahat_b"], cd, cudnn=cudnn)
-        if l == 0:  # SatLU at the pixel layer
-            if use_pallas is False:
-                # as jnp.clip: min(max(x, 0), 1), whose gradient splits in
-                # half at either bound (clamp's would not)
-                ahat = torch.minimum(torch.maximum(ahat, _ZERO), _ONE)
+        if s2d_here or quantized:  # their own convs
+            if s2d_here:
+                ahat = _conv(r, p["s2d_ahat_w"], p["s2d_ahat_b"], cd, cudnn=cudnn)
             else:
-                ahat = ahat.clamp(0.0, 1.0)
-            prediction = ahat.float()
+                ahat = _conv_q(r.to(cd), p["ahat_w"], p["ahat_w_s"], p["ahat_b"], cd)
+            if l == 0:
+                ahat = _satlu(ahat, jnp_clip=use_pallas is False)
+                prediction = ahat.float()
+            else:
+                ahat = torch.relu(ahat)
+            # under s2d: [pos (4 C0 phase-major); neg (4 C0)], which the
+            # lifted consumers take through _posneg_major_in
+            e_cd = torch.cat([torch.relu(ahat - a), torch.relu(a - ahat)], dim=-1)
+            e = e_cd.to(dtype)
         else:
-            ahat = torch.relu(ahat)
-        # under s2d: [pos (4 C0 phase-major); neg (4 C0)], which the lifted
-        # consumers take through _posneg_major_in
-        e = torch.cat([torch.relu(ahat - a), torch.relu(a - ahat)], dim=-1)
-        new_state[l]["e"] = e.to(dtype)
+            unit = ahat_error_unit if units else ahat_error_unit_plain
+            kw = (dict(ahat_w=p["ahat_w"]) if units
+                  else dict(cudnn=cudnn, jnp_clip=use_pallas is False))
+            e, pred = unit(r, p["ahat_k"] if units else p["ahat_w"], p["ahat_b"], a,
+                           layer0=l == 0, compute_dtype=cd, state_dtype=dtype, **kw)
+            if l == 0:
+                prediction = pred
+        new_state[l]["e"] = e
         if l + 1 < L:
             if s2d_here:
                 # maxpool2(relu(conv(E0))) is the max over the four phase
                 # blocks of the lifted conv, in layer 1's own layout
                 c1 = p["a_w"].shape[0]
-                r1 = torch.relu(_conv(e.to(dtype), p["s2d_a_w"], p["s2d_a_b"], cd, cudnn=cudnn))
+                r1 = torch.relu(_conv(e, p["s2d_a_w"], p["s2d_a_b"], cd, cudnn=cudnn))
                 a = torch.maximum(torch.maximum(r1[..., :c1], r1[..., c1:2 * c1]),
                                   torch.maximum(r1[..., 2 * c1:3 * c1], r1[..., 3 * c1:]))
             elif quantized:
-                a = _maxpool2(torch.relu(_conv_q(e, p["a_w"], p["a_w_s"], p["a_b"], cd)))
+                a = _maxpool2(torch.relu(_conv_q(e_cd, p["a_w"], p["a_w_s"], p["a_b"], cd)))
+            elif units:
+                a = a_unit(e, p["a_k"], p["a_b"], compute_dtype=cd, a_w=p["a_w"])
             else:
-                a = _maxpool2(torch.relu(_conv(e.to(dtype), p["a_w"], p["a_b"], cd, cudnn=cudnn)))
+                a = a_unit_plain(e, p["a_w"], p["a_b"], compute_dtype=cd, cudnn=cudnn)
     return new_state, prediction
 
 

@@ -20,9 +20,10 @@ params' rounding is lost, as in JAX, which a torch optimizer keeping its
 own float32 master would not do.
 
 Port params carry the fused kernel's packed gate weights (``lstm_k_*``)
-beside the trained OIHW slices (``lstm_w_*``); they are not trained, and
-the step packs them anew from the updated slices, so the params it returns
-run on the kernel route too.
+beside the trained OIHW slices (``lstm_w_*``), and bfloat16 params the A
+and Ahat units' (``ahat_k``, ``a_k``); they are not trained, and the step
+packs them anew from the updated weights, so the params it returns run on
+the kernel route too.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..._device import device_context
 from ...ops.convlstm_fused import pack_gate_weight
 from ...parallel.distributed import gather_entries, process_count, sum_in_order
 from ...parallel.mesh import replicate, shard_leading
+from .loader import PACKED_PREFIXES, pack_unit_weights
 from .model import init_state, prednet_step
 
 __all__ = [
@@ -48,13 +50,14 @@ __all__ = [
     "whole_batch",
 ]
 
-_PACKED = "lstm_k_"
+_PACKED = "lstm_k_"  # the gate conv's packed slices
 
 
 def trainable(params) -> list:
     """The trained leaves of port params: every entry but the packed
     kernel weights, per layer."""
-    return [{k: v for k, v in layer.items() if not k.startswith(_PACKED)} for layer in params]
+    return [{k: v for k, v in layer.items() if not k.startswith(PACKED_PREFIXES)}
+            for layer in params]
 
 
 def _layer_weights(L, layer_weights, device):
@@ -291,12 +294,13 @@ def init_opt_state(tx: Adam, params):
 
 
 def _repack(layer: dict) -> dict:
-    """The fused kernel's packed gate weights from the OIHW slices."""
+    """The kernels' packed weights from the OIHW ones: the fused kernel's
+    gate slices, and the A and Ahat units' (bfloat16 params)."""
     for name in ("e", "r", "up"):
         w = layer.get(f"lstm_w_{name}")
         if w is not None:
             layer[_PACKED + name] = pack_gate_weight(w.permute(2, 3, 1, 0))
-    return layer
+    return pack_unit_weights(layer)
 
 
 def _gather_parts(parts, mesh, leaves, home):

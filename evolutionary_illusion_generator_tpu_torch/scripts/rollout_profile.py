@@ -11,8 +11,11 @@ The port's counterpart of the JAX package's ``scripts/rollout_profile.py``:
 2. runs it once more under ``torch.profiler`` and prints, per kernel name
    (the 40 longest), its count, its milliseconds and its share of the
    device time, then the device's busy share of the profiled window (on
-   the CPU: the operators' self time).  This replaces the JAX script's parsing of a perfetto trace
-   and its XLA cost model, which the port has no counterpart of;
+   the CPU: the operators' self time), and the device time by the port's
+   kernel wrappers (the ConvLSTM kernels, the A and Ahat units) beside the
+   library's conv kernels.  This replaces the JAX script's parsing of a
+   perfetto trace and its XLA cost model, which the port has no
+   counterpart of;
 3. prints one JSON line: the times in seconds, the busy share, the card's
    name and power limit, and the table's rows::
 
@@ -34,7 +37,7 @@ import torch
 from .._device import resolve_device
 from ..models.prednet.model import init_params, rollout_flow_frames
 from ..utils import prng
-from ..utils.profiling import card_line, device_events, kernel_table
+from ..utils.profiling import by_wrapper, card_line, device_events, kernel_table
 
 __all__ = ["main"]
 
@@ -106,10 +109,13 @@ def main(argv=None) -> dict:
           f"{len(events)} names", flush=True)
     for line in lines:
         print(line, flush=True)
+    wrappers = by_wrapper(events)
+    print("[profile] by wrapper (count, ms): " + ", ".join(
+        f"{k} {v['count']} {v['ms']:.3f}" for k, v in wrappers.items()), flush=True)
     line = {"script": "rollout_profile", "card": card, "device": str(device), "pop": pop,
             "width": w, "height": h, "channels": list(channels), "s2d": s2d,
             "repeat": args.repeat, "first_s": first, "steady_s": steady, "all_s": ts,
-            **totals,
+            **totals, "wrappers": wrappers,
             "kernels": [{"name": n, "count": c, "ms": us / 1e3,
                          "share": us / 1e6 / totals["busy_s"] if totals["busy_s"] else 0.0}
                         for n, c, us in events[:TOP]]}

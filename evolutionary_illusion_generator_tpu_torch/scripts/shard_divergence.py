@@ -50,7 +50,8 @@ def cudnn_pinned(on: bool = True):
 @contextlib.contextmanager
 def op_trace(calls: List[dict]):
     """Appends ``{"op", "inputs", "output"}`` for every ``F.conv2d`` and
-    kernel wrapper call made inside the block."""
+    kernel wrapper call ``prednet_step`` makes inside the block (the
+    ConvLSTM kernels and the A and Ahat units)."""
     from ..models.prednet import model
 
     def tensors(xs):
@@ -74,17 +75,18 @@ def op_trace(calls: List[dict]):
             return res
         return call
 
-    saved = (F.conv2d, model.fused_lstm_gates, model.narrow_convlstm_layer,
-             model.fused_convlstm_layer_multi)
+    names = ("fused_lstm_gates", "narrow_convlstm_layer", "fused_convlstm_layer_multi",
+             "ahat_error_unit", "a_unit")
+    saved = F.conv2d, [getattr(model, name) for name in names]
     F.conv2d = recorded("conv2d", saved[0])
-    model.fused_lstm_gates = recorded("fused_lstm_gates", saved[1])
-    model.narrow_convlstm_layer = recorded("narrow_convlstm_layer", saved[2])
-    model.fused_convlstm_layer_multi = recorded("fused_convlstm_layer_multi", saved[3])
+    for name, fn in zip(names, saved[1]):
+        setattr(model, name, recorded(name, fn))
     try:
         yield calls
     finally:
-        (F.conv2d, model.fused_lstm_gates, model.narrow_convlstm_layer,
-         model.fused_convlstm_layer_multi) = saved
+        F.conv2d = saved[0]
+        for name, fn in zip(names, saved[1]):
+            setattr(model, name, fn)
 
 
 def _rows_equal(whole: List[torch.Tensor], part: List[torch.Tensor], n: int):

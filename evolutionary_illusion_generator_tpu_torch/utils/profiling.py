@@ -18,9 +18,24 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-__all__ = ["PhaseTimers", "card_line", "device_events", "kernel_table", "trace", "TRACE_FILE"]
+__all__ = ["PORT_KERNELS", "PhaseTimers", "by_wrapper", "card_line", "device_events",
+           "kernel_table", "trace", "TRACE_FILE"]
 
 TRACE_FILE = "trace.json"
+
+#: The rollout's kernel wrappers by the name their kernels carry in a trace.
+PORT_KERNELS = {
+    "narrow_convlstm_layer": "convlstm_narrow_kernel",
+    "fused_convlstm_layer_multi": "convlstm_fused_wgmma_kernel",
+    "fused_lstm_gates": "lstm_gates_kernel",
+    "ahat_error_unit": "ahat_error_unit_kernel",
+    "a_unit": "a_unit_kernel",
+}
+# pieces of the names of library conv kernels (cuDNN's implicit GEMMs, its
+# direct and FFT convs, PyTorch's own im2col conv), not of cuBLAS's GEMMs; a
+# port kernel's name is never counted as one
+_LIBRARY_CONV = ("implicit_gemm", "fprop", "dgrad", "wgrad", "cudnn", "conv2d", "convolve",
+                 "fft", "im2col")
 
 
 class PhaseTimers:
@@ -94,6 +109,24 @@ def kernel_table(events: List[Tuple[str, int, float]], wall_s: float,
               "busy_share": busy_us / 1e6 / wall_s if wall_s > 0 else float("nan"),
               "launches": sum(count for _, count, _ in events)}
     return lines, totals
+
+
+def by_wrapper(events: List[Tuple[str, int, float]]) -> Dict[str, Dict[str, float]]:
+    """:func:`device_events` summed by the port's kernel wrappers
+    (:data:`PORT_KERNELS`), plus ``"library convs"``: the library's conv
+    kernels (cuDNN, PyTorch's own) among them, with their names.
+    {name: {"count", "ms"}}."""
+    out = {name: {"count": 0, "ms": 0.0} for name in (*PORT_KERNELS, "library convs")}
+    out["library convs"]["names"] = []
+    for name, count, us in events:
+        w = next((w for w, key in PORT_KERNELS.items() if key in name), None)
+        if w is None and any(key in name.lower() for key in _LIBRARY_CONV):
+            w = "library convs"
+            out[w]["names"].append(name)
+        if w is not None:
+            out[w]["count"] += count
+            out[w]["ms"] += us / 1e3
+    return out
 
 
 def card_line(device: torch.device) -> str:

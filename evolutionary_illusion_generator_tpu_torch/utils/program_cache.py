@@ -51,10 +51,17 @@ def program_cache_enabled() -> bool:
 def counted_wrappers() -> List[Callable]:
     """Every kernel wrapper of the port that counts its launches (and the
     kernels it records into a graph)."""
-    from ..ops import convlstm_bisect, convlstm_fused, convlstm_gates, convlstm_narrow
+    from ..ops import (
+        convlstm_bisect,
+        convlstm_fused,
+        convlstm_gates,
+        convlstm_narrow,
+        prednet_units,
+    )
 
     return [convlstm_gates.fused_lstm_gates, convlstm_narrow.narrow_convlstm_layer,
             convlstm_fused.fused_convlstm_layer_multi, convlstm_fused.fused_convlstm_layer,
+            prednet_units.ahat_error_unit, prednet_units.a_unit,
             *convlstm_bisect.RUNGS.values()]
 
 

@@ -156,7 +156,11 @@ def test_kernel_stream_refuses_tensors_off_the_current_device(monkeypatch):
     here: no card; tests/test_torch_cuda.py shows it through a wrapper)."""
     import inspect
 
-    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused, convlstm_narrow
+    from evolutionary_illusion_generator_tpu_torch.ops import (
+        convlstm_fused,
+        convlstm_narrow,
+        prednet_units,
+    )
     from evolutionary_illusion_generator_tpu_torch.ops.convlstm_gates import fused_lstm_gates
 
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
@@ -170,7 +174,9 @@ def test_kernel_stream_refuses_tensors_off_the_current_device(monkeypatch):
     for wrapper, where in ((fused_lstm_gates, fused_lstm_gates),
                            (convlstm_narrow.narrow_convlstm_layer,
                             convlstm_narrow.narrow_convlstm_layer),
-                           (convlstm_fused.fused_convlstm_layer_multi, convlstm_fused._run)):
+                           (convlstm_fused.fused_convlstm_layer_multi, convlstm_fused._run),
+                           (prednet_units.ahat_error_unit, prednet_units.ahat_error_unit),
+                           (prednet_units.a_unit, prednet_units.a_unit)):
         name = wrapper.__name__
         assert "kernel_stream(" in inspect.getsource(where), name
         with pytest.raises(RuntimeError, match=f"{name}: tensors on cuda:1"):

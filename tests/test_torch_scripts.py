@@ -26,6 +26,7 @@ from evolutionary_illusion_generator_tpu_torch.scripts import (
     rollout_profile,
     swa_weights,
 )
+from evolutionary_illusion_generator_tpu_torch.utils.profiling import PORT_KERNELS, by_wrapper
 from test_torch_parallel import REPO
 
 torch.set_num_threads(1)
@@ -77,6 +78,34 @@ def test_rollout_profile_prints_its_table(s2d, capsys):
     assert all(set(r) == {"name", "count", "ms", "share"} for r in rows)
     assert [r["ms"] for r in rows] == sorted((r["ms"] for r in rows), reverse=True)
     assert sum(r["share"] for r in rows) <= 1.0 + 1e-9
+    assert set(line["wrappers"]) == set(PORT_KERNELS) | {"library convs"}
+
+
+def test_by_wrapper_sums_the_kernels_of_each_wrapper():
+    """A trace's kernels summed by the wrapper that launches them; library
+    conv kernels apart (with their names), cuBLAS's GEMMs and elementwise
+    kernels in neither."""
+    events = [
+        ("void (anonymous namespace)::a_unit_kernel<64, __nv_bfloat16>(AParams)", 66, 2723.0),
+        ("void (anonymous namespace)::ahat_error_unit_kernel<16, float, float>(P)", 22, 513.0),
+        ("void (anonymous namespace)::ahat_error_unit_kernel<64, float, float>(P)", 66, 2372.0),
+        ("void (anonymous namespace)::wg::convlstm_fused_wgmma_kernel<192, float>()", 66, 8e3),
+        ("void (anonymous namespace)::convlstm_fused_kernel<float>(Params)", 3, 30.0),
+        ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", 88, 67.0),
+        ("void cudnn::cnn::conv2d_grouped_direct_kernel<false>()", 22, 19.0),
+        ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", 5, 4.0),
+        ("void at::native::vectorized_elementwise_kernel<8>()", 330, 34.0),
+    ]
+    got = by_wrapper(events)
+    assert set(got) == set(PORT_KERNELS) | {"library convs"}
+    assert (got["a_unit"]["count"], got["a_unit"]["ms"]) == (66, 2.723)
+    assert got["ahat_error_unit"]["count"] == 88 and math.isclose(got["ahat_error_unit"]["ms"],
+                                                                  2.885)
+    assert got["fused_convlstm_layer_multi"] == {"count": 66, "ms": 8.0}
+    assert got["narrow_convlstm_layer"] == got["fused_lstm_gates"] == {"count": 0, "ms": 0.0}
+    lib = got["library convs"]
+    assert lib["count"] == 110 and math.isclose(lib["ms"], 0.086)
+    assert lib["names"] == [events[5][0], events[6][0]]
 
 
 def _npz(path):
