@@ -27,14 +27,17 @@ Phases, each printing its wall time and raising on failure:
    mma_sync body's, the library's and the plain version's times, each
    channel group timed at the main path; and at ragged shapes at every
    plan of both bodies and a source off its alignment; the A and Ahat
-   units' kernels (``csrc/prednet_units.cu``) at the main path's and the
-   north star's four layers, the grayscale pixel layer and an odd shape,
-   against their plain versions (and float64 sums: in float32 compute no
-   further from them than the plain version, in bfloat16 compute within one
-   ulp of the rounded float64 chain), with the times of the kernel, the
-   plain version (the cuDNN conv and eager ops they replaced), cuDNN's conv
-   with its bias and the eager ops (each call replayed as a CUDA graph),
-   and the bound;
+   units' kernels (``csrc/prednet_units_wgmma.cu``'s wgmma and im2col
+   bodies, ``csrc/prednet_units.cu``'s mma.sync and direct bodies) at the
+   main path's and the north star's four layers, the grayscale pixel layer
+   and an odd shape, against their plain versions (and float64 sums: in
+   float32 compute no further from them than the plain version, in
+   bfloat16 compute within one ulp of the rounded float64 chain), each on
+   the body of its shape's plan (counted by body: in bfloat16 compute every
+   layer of C >= 8 on the wgmma body), with the times of the kernel, of its
+   mma.sync body (the kernel before the wgmma bodies), the plain version
+   (the cuDNN conv and eager ops they replaced), cuDNN's conv with its bias
+   and the eager ops (each call replayed as a CUDA graph), and the bound;
 5. reference: the port's rollout on the card against the same rollout on
    the CPU (plain versions) on a small input with the bundled weights;
 6. main path: ``neat_illusion`` for two generations at the full width of the
@@ -135,9 +138,10 @@ Phases, each printing its wall time and raising on failure:
    one warm main-path generation, replayed as a CUDA graph (the default)
    and run eagerly (``program_cache=False``), with the device time by
    wrapper; in both the trace must hold 22 narrow and 66 fused kernels of
-   the wgmma body, 88 Ahat-unit and 66 A-unit kernels, no library conv
-   (cuDNN's A and Ahat convs are gone), and no gate kernel and no fused
-   kernel of the mma_sync body, which in the replay
+   the wgmma body, the units' 66 wgmma and 22 direct Ahat kernels and 44
+   wgmma and 22 im2col A kernels, no library conv (cuDNN's A and Ahat convs
+   are gone), and no gate kernel and no kernel of the fused kernel's or the
+   units' mma.sync bodies, which in the replay
    no wrapper launched (the graph recorded them at its capture), and the
    eager pass no upsampled copy of layer 1's R (the narrow kernel reads it
    at half resolution);
@@ -155,12 +159,15 @@ Phases, each printing its wall time and raising on failure:
 
 Every phase that reads the wrappers' launch counts fails if a fused layer
 took the fused kernel's mma_sync body (``_counts``), and if a dense
-"fused" step ran a cuDNN A or Ahat conv in place of a unit's kernel (its
-counts fall short, ``_path_launches``).
+"fused" step ran a cuDNN A or Ahat conv in place of a unit's kernel, or a
+unit took another body than its layer and compute dtype give (the counts
+by body, ``_path_launches``: in bfloat16 compute no mma.sync body).
 
 Then one JSON line with every kernel's numbers (its launches summed over
 the main path, cli, probe, options, scorers, train, parallel, composition,
-north_star and bisect phases), and as the last line
+north_star and bisect phases; the units both whole and by new body,
+``"ahat_error_unit/wgmma"``, ``"a_unit/wgmma"``, ``"a_unit/im2col"``), and
+as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a card or without the port beside it.
 """
@@ -290,10 +297,17 @@ CUDA_TESTS_TIMEOUT_S = 300
 CLI_ARGS = ["-s", "1", "--generations", "2"]
 CLI_SHAPE = (120, 160, 3)
 OVERLAY_RED = (255, 0, 0)
+# the trace's kernel names, demangled: the units' bodies apart (the pixel
+# layer's Ahat unit on the CUDA cores, its A unit on the im2col body, the
+# other layers on the wgmma bodies; no mma.sync body)
 TRACE_KERNELS = {"narrow_convlstm_layer": ("convlstm_narrow_kernel", STEPS),
                  "fused_convlstm_layer_multi": ("convlstm_fused_wgmma_kernel", STEPS * 3),
-                 "ahat_error_unit": ("ahat_error_unit_kernel", STEPS * UNITS_PER_STEP[0]),
-                 "a_unit": ("a_unit_kernel", STEPS * UNITS_PER_STEP[1]),
+                 "ahat_error_unit/wgmma": ("::ahat_error_unit_wgmma_kernel<", STEPS * 3),
+                 "ahat_error_unit/direct": ("::ahat_error_unit_kernel_direct<", STEPS),
+                 "ahat_error_unit/mma_sync": ("::ahat_error_unit_kernel<", 0),
+                 "a_unit/wgmma": ("::a_unit_wgmma_kernel<", STEPS * 2),
+                 "a_unit/im2col": ("::a_unit_im2col_kernel<", STEPS),
+                 "a_unit/mma_sync": ("::a_unit_kernel<", 0),
                  "fused_lstm_gates": ("lstm_gates_kernel", 0),
                  "convlstm_fused (mma_sync body)": ("convlstm_fused_kernel", 0)}
 # the probe phase: the color predictor at full width on the cli phase's
@@ -498,6 +512,23 @@ def check_device():
     return card
 
 
+def _entry_name(mangled):
+    """A kernel's name and its mangled template arguments from its mangled
+    name: the last source name (``<length><name>``, digits allowed inside
+    it) that holds ``kernel``."""
+    found = ""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group(0)
+        for k in range(1, len(digits) + 1):
+            length = int(digits[-k:])
+            name = mangled[m.end():m.end() + length]
+            if len(name) == length and "kernel" in name and re.fullmatch(r"[A-Za-z_]\w*", name):
+                rest = mangled[m.end() + len(name):]
+                args = re.match(r"I\w*?E(?=Ev|E)", rest)
+                found = name + (args.group(0) if args else "")
+    return found or mangled
+
+
 @phase("build")
 def build():
     from evolutionary_illusion_generator_tpu_torch import _build
@@ -505,10 +536,10 @@ def build():
     _build.library()
     kernel = ""
     for line in _build.build_log().splitlines():
-        entry = re.search(r"Compiling entry function .*?(?<=\d)([a-z][a-z_]*_kernel)(I\w*?)EEv", line)
-        if entry:  # the kernel's name and its mangled template arguments
-            kernel = entry.group(1) + entry.group(2)
-        elif "registers" in line or "spill" in line:
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel = _entry_name(entry.group(1))
+        elif ("registers" in line or "spill" in line) and "(C7519)" not in line:
             log(f"  ptxas {kernel}: " + line.split(":", 1)[-1].strip())
 
 
@@ -902,27 +933,45 @@ def _unit_inputs(gen, B, H, W, C, C_above, params=None, layer=None, cd=None, sd=
 
 
 def check_units(gen, params):
-    """The A and Ahat units' kernels (``csrc/prednet_units.cu``) against
-    their plain versions: at the main path's four layers (the bundled
-    weights, a chunk of 8) and the north star's (a chunk of 25) in the main
-    path's types, both Ahat activations, with the device times of the
-    kernel, the plain version (``model._conv`` and the eager ops: the route
-    the kernels replaced), the library yardstick (cuDNN's bfloat16 conv
-    with its bias in one call and the eager ops; the conv alone logged
-    beside it) and the bound; at the main path's layers in float32 compute
-    and state, each output's mean distance to float64 sums beside the plain
-    version's (it may be no larger); then the grayscale stack's pixel layer
-    and an odd shape in every type.  Returns the two kernels' rows: ms,
+    """The A and Ahat units' kernels (``csrc/prednet_units_wgmma.cu``'s
+    wgmma and im2col bodies, ``csrc/prednet_units.cu``'s mma.sync and
+    direct bodies) against their plain versions: at the main path's four
+    layers (the bundled weights, a chunk of 8) and the north star's (a chunk
+    of 25) in the main path's types, both Ahat activations, each launch on
+    the body of the shape's plan (counted by body; in bfloat16 compute every
+    layer of C >= 8 on the wgmma body, the A unit's pixel layer on the
+    im2col body), with the device times of the kernel, of its mma.sync body
+    (the kernel before the wgmma bodies; the direct body where it is that),
+    the plain version (``model._conv`` and the eager ops: the route the
+    kernels replaced), the library yardstick (cuDNN's bfloat16 conv with
+    its bias in one call and the eager ops; the conv alone logged beside it)
+    and the bound; at the main path's layers in float32 compute and state
+    (the mma.sync body), each output's mean distance to float64 sums beside
+    the plain version's (it may be no larger); then the grayscale stack's
+    pixel layer and an odd shape in every type.  Returns the two units'
+    rows and one row per new body (``"<unit>/<body>"``): ms, old_ms,
     plain_ms, library_ms and bound_ms summed over a main-path step's
-    launches, with each layer's and the north star's beside them."""
+    launches (of that body), with each layer's and the north star's beside
+    them."""
     import torch
     import torch.nn.functional as F
 
     from evolutionary_illusion_generator_tpu_torch.models.prednet import model
     from evolutionary_illusion_generator_tpu_torch.ops import prednet_units as pu
+    from evolutionary_illusion_generator_tpu_torch.ops.convlstm_fused import tile_width
 
     bf16, f32 = torch.bfloat16, torch.float32
     layers = {name: {"main": [], "north_star": []} for name in UNIT_SOURCES}
+
+    def counted(wrapper, plan, call):
+        """``call()`` through ``wrapper``, which must launch ``plan``'s body
+        once; in bfloat16 compute a layer of C >= 8 takes the wgmma body."""
+        before = dict(wrapper.body_launches)
+        out = call()
+        if wrapper.body_launches[plan.body] != before[plan.body] + 1:
+            raise AssertionError(f"{wrapper.__name__}: plan {plan}, launches by body "
+                                 f"{wrapper.body_launches} (before {before})")
+        return out
     worst = dict.fromkeys(UNIT_SOURCES, 0.0)
 
     def nhwc_conv(x, w, b, dtype):  # cuDNN's conv of the library yardstick (OIHW w)
@@ -938,12 +987,15 @@ def check_units(gen, params):
         return err, share
 
     def check_ahat(label, r, a, k, b, cd, sd):
-        C = r.shape[-1]
+        B, H, W, C = r.shape
         conv = model._conv(r, pu.unpack_unit_weight(k, C), None, cd)
         v = model._conv(r, pu.unpack_unit_weight(k, C), b, cd)
+        plan = pu.ahat_plan(B, H, W, C, cd)
+        if cd == bf16 and C >= 8 and C % 8 == 0 and plan.body != "wgmma":
+            raise AssertionError(f"ahat_error_unit {label}: took {plan}")
         for layer0 in (True, False):
-            e, pred = pu.ahat_error_unit(r, k, b, a, layer0=layer0, compute_dtype=cd,
-                                         state_dtype=sd)
+            e, pred = counted(pu.ahat_error_unit, plan, lambda: pu.ahat_error_unit(
+                r, k, b, a, layer0=layer0, compute_dtype=cd, state_dtype=sd))
             want_e, want_p = pu.ahat_error_unit_plain(r, pu.unpack_unit_weight(k, C), b, a,
                                                       layer0=layer0,
                                                       compute_dtype=cd, state_dtype=sd)
@@ -956,28 +1008,40 @@ def check_units(gen, params):
         return err
 
     def check_a(label, e, k, b, cd):
+        B, H, W, cin = e.shape
         cout = b.shape[0]
-        got = pu.a_unit(e, k, b, compute_dtype=cd)
+        plan = pu.a_plan(B, H, W, cin, cout, cd)
+        if cd == bf16 and plan.body != ("im2col" if cin <= pu.IM2COL_MAX_CIN else
+                                        "wgmma" if cin % 8 == 0 else "mma_sync"):
+            raise AssertionError(f"a_unit {label}: took {plan}")
+        got = counted(pu.a_unit, plan, lambda: pu.a_unit(e, k, b, compute_dtype=cd))
         want = pu.a_unit_plain(e, pu.unpack_unit_weight(k, cout), b, compute_dtype=cd)
         torch.cuda.synchronize()
         conv = model._conv(e, pu.unpack_unit_weight(k, cout), None, cd).float().abs()
         pooled = F.max_pool2d(conv.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
         return held("a_unit", label, got, want, cd, pooled, want)
 
-    def timed(name, where, label, B, H, W, cin, cout, call, plain, library, conv, moved, iters):
+    def timed(name, where, label, B, H, W, cin, cout, plan, call, old, plain, library, conv,
+              moved, iters):
         flops = 2.0 * B * H * W * 9 * cin * cout
         b_ms, b_by = bound_ms(flops, moved)
-        ms = graph_ms(call, iters)
-        row = dict(shape=[B, H, W, cin, cout], ms=ms, plain_ms=graph_ms(plain, iters),
+        ms, old_ms = graph_ms(call, iters), graph_ms(old, iters)
+        row = dict(shape=[B, H, W, cin, cout], body=plan.body, plan=list(plan), ms=ms,
+                   old_ms=old_ms, plain_ms=graph_ms(plain, iters),
                    library_ms=graph_ms(library, iters), conv_ms=graph_ms(conv, iters),
                    bound_ms=b_ms, bound_by=b_by, ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
                    bytes_ms=moved / PEAK_BYTES_PER_S * 1e3)
         layers[name][where].append(row)
-        log(f"  {name} {label} {B}x{H}x{W} {cin} -> {cout} (CUDA graph replays): kernel "
-            f"{ms * 1e3:.2f} us, {b_ms / ms:.1%} of its {b_ms * 1e3:.2f} us bound "
-            f"({b_by}; {moved / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP); plain "
+        log(f"  {name} {label} {B}x{H}x{W} {cin} -> {cout} (CUDA graph replays): {plan.body} "
+            f"body {ms * 1e3:.2f} us, {b_ms / ms:.1%} of its {b_ms * 1e3:.2f} us bound "
+            f"({b_by}; {moved / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP); mma.sync body (the "
+            f"earlier kernel) {old_ms * 1e3:.2f} us{' SLOWER' if ms > old_ms else ''}; plain "
             f"{row['plain_ms'] * 1e3:.2f} us; library (cuDNN conv + bias, eager ops) "
-            f"{row['library_ms'] * 1e3:.2f} us, its conv alone {row['conv_ms'] * 1e3:.2f} us")
+            f"{row['library_ms'] * 1e3:.2f} us, its conv alone {row['conv_ms'] * 1e3:.2f} us; "
+            f"plan {tuple(plan)}")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
 
     for where, shapes, B, iters in (("main", UNIT_LAYERS, MAIN_BATCH, 50),
                                     ("north_star", NORTH_STAR_UNIT_LAYERS, NORTH_STAR_CHUNK, 10)):
@@ -991,6 +1055,13 @@ def check_units(gen, params):
             def call():
                 return pu.ahat_error_unit(r, k, b, a, layer0=layer0)
 
+            plan = pu.ahat_plan(B, H, W, C)
+            old_plan = (plan if plan.body == "direct"
+                        else pu.UnitPlan("mma_sync", tile_w=tile_width(B, H, W)))
+
+            def old():
+                return pu.launch_ahat(r, k, b, a, layer0, bf16, bf16, stream(), old_plan)
+
             def plain():
                 return pu.ahat_error_unit_plain(r, w, b, a, layer0=layer0, compute_dtype=bf16,
                                                 state_dtype=bf16)
@@ -1002,7 +1073,7 @@ def check_units(gen, params):
 
             e_out, pred = call()
             moved = nbytes(r, k, b, a, e_out, *(() if pred is None else (pred,)))
-            timed("ahat_error_unit", where, label, B, H, W, C, C, call, plain, library,
+            timed("ahat_error_unit", where, label, B, H, W, C, C, plan, call, old, plain, library,
                   lambda: nhwc_conv(r, w, b, bf16), moved, iters)
             if C_above is None:
                 continue
@@ -1010,6 +1081,12 @@ def check_units(gen, params):
 
             def call_a():
                 return pu.a_unit(e, k2, b2)
+
+            plan_a = pu.a_plan(B, H, W, 2 * C, C_above)
+            old_a_plan = pu.UnitPlan("mma_sync", tile_w=pu.pool_tile_width(H, W))
+
+            def old_a():
+                return pu.launch_a(e, k2, b2, bf16, stream(), old_a_plan)
 
             def plain_a():
                 return pu.a_unit_plain(e, w2, b2, compute_dtype=bf16)
@@ -1019,8 +1096,8 @@ def check_units(gen, params):
                 return F.max_pool2d(y.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
             moved = nbytes(e, k2, b2, call_a())
-            timed("a_unit", where, label, B, H, W, 2 * C, C_above, call_a, plain_a, library_a,
-                  lambda: nhwc_conv(e, w2, b2, bf16), moved, iters)
+            timed("a_unit", where, label, B, H, W, 2 * C, C_above, plan_a, call_a, old_a, plain_a,
+                  library_a, lambda: nhwc_conv(e, w2, b2, bf16), moved, iters)
             del r, a, e, e_out, pred
 
     # float32 compute and state against float64 sums at the main path's layers
@@ -1104,27 +1181,40 @@ def check_units(gen, params):
     log(f"  the units at {[s[:3] for s in UNIT_ODD]}, every type: max abs err "
         f"{max(worst.values()):.2e}")
 
-    out = {}
-    for name, by in layers.items():
-        def total(rows):
-            t = {key: sum(r[key] for r in rows)
-                 for key in ("ms", "plain_ms", "library_ms", "conv_ms", "bound_ms", "ops_ms",
-                             "bytes_ms")}
-            t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
-            return t
+    def total(rows):
+        t = {key: sum(r[key] for r in rows)
+             for key in ("ms", "old_ms", "plain_ms", "library_ms", "conv_ms", "bound_ms",
+                         "ops_ms", "bytes_ms")}
+        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+        return t
 
-        main, north = total(by["main"]), total(by["north_star"])
-        out[name] = dict(route="cuda",
-                         source="evolutionary_illusion_generator_tpu_torch/csrc/prednet_units.cu",
-                         replaces=UNIT_SOURCES[name], max_abs_err=worst[name],
-                         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                 "library_ms", "conv_ms")},
-                         layers=by["main"], drift=drift[name],
-                         north_star=dict(north, layers=by["north_star"]))
-        log(f"  {name} a step: main path kernel {main['ms']:.4f} ms, plain {main['plain_ms']:.4f}, "
-            f"library {main['library_ms']:.4f}, bound {main['bound_ms']:.4f} ({main['bound_by']}); "
-            f"north star kernel {north['ms']:.4f} ms, plain {north['plain_ms']:.4f}, library "
-            f"{north['library_ms']:.4f}, bound {north['bound_ms']:.4f} ({north['bound_by']})")
+    out = {}
+    csrc = "evolutionary_illusion_generator_tpu_torch/csrc/"
+    for name, by in layers.items():
+        # the unit as a whole (every body), then each new body on its own
+        # layers (the pixel layer's direct Ahat body is the earlier kernel)
+        for body in (None, "wgmma", "im2col"):
+            rows_main = [r for r in by["main"] if body in (None, r["body"])]
+            rows_north = [r for r in by["north_star"] if body in (None, r["body"])]
+            if not rows_main:
+                continue
+            main, north = total(rows_main), total(rows_north)
+            key = name if body is None else f"{name}/{body}"
+            out[key] = dict(
+                route="cuda",
+                source=csrc + ("prednet_units.cu" if body is None else "prednet_units_wgmma.cu"),
+                sources=[csrc + "prednet_units_wgmma.cu", csrc + "prednet_units.cu"],
+                replaces=UNIT_SOURCES[name], max_abs_err=worst[name],
+                **{k: main[k] for k in ("ms", "old_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "conv_ms")},
+                layers=rows_main, north_star=dict(north, layers=rows_north),
+                **({"drift": drift[name]} if body is None else {}))
+            log(f"  {key} a step: main path kernel {main['ms']:.4f} ms (mma.sync body "
+                f"{main['old_ms']:.4f}), plain {main['plain_ms']:.4f}, library "
+                f"{main['library_ms']:.4f}, bound {main['bound_ms']:.4f} ({main['bound_by']}); "
+                f"north star kernel {north['ms']:.4f} ms (mma.sync body {north['old_ms']:.4f}), "
+                f"plain {north['plain_ms']:.4f}, library {north['library_ms']:.4f}, bound "
+                f"{north['bound_ms']:.4f} ({north['bound_by']})")
     return out
 
 
@@ -1410,30 +1500,52 @@ def _reset_counts():
             fn.body_launches = dict.fromkeys(fn.body_launches, 0)
 
 
+UNIT_WRAPPERS = ("ahat_error_unit", "a_unit")
+
+
 def _counts():
-    """The launches of each wrapper since the last reset; raises if a fused
-    layer took the mma_sync body: every fused layer of the driven paths
-    (sources of channels a multiple of 8, 16-byte aligned) must take the
-    wgmma body, launch for launch."""
+    """The launches of each wrapper since the last reset, and of each body
+    of the units (``"<unit>/<body>"``, which :func:`_path_launches` sets
+    out); raises if a fused layer took the mma_sync body (every fused layer
+    of the driven paths has sources of channels a multiple of 8, 16-byte
+    aligned: the wgmma body, launch for launch)."""
     counts = {name: fn.launches for name, fn in _wrappers().items()}
     for name, fn in _wrappers().items():
         bodies = getattr(fn, "body_launches", None)
-        if bodies is not None and bodies != {"wgmma": fn.launches, "mma_sync": 0}:
+        if name in UNIT_WRAPPERS:
+            counts.update({f"{name}/{body}": n for body, n in bodies.items()})
+            if sum(bodies.values()) != fn.launches:
+                raise AssertionError(f"{name}: {fn.launches} launches, by body {bodies}")
+        elif bodies is not None and bodies != {"wgmma": fn.launches, "mma_sync": 0}:
             raise AssertionError(f"{name}: {fn.launches} launches, by body {bodies}; every "
                                  f"fused layer of the driven paths must take the wgmma body")
     return counts
 
 
-def _path_launches(passes, steps, pixel="narrow_convlstm_layer", units=UNITS_PER_STEP):
+def _path_launches(passes, steps, pixel="narrow_convlstm_layer", units=UNITS_PER_STEP,
+                   compute="bfloat16"):
     """The launches of ``passes`` chunk (or shard) passes of ``steps``
     steps at 3,48,96,192 on the dense "fused" route: the pixel layer's
     wrapper once a step (``pixel``: the narrow kernel's, or the gate
     kernel's under s2d and subpixel), the fused kernel on three layers, and
     ``units`` Ahat and A units a step (every layer's, but the s2d pixel
-    layer's).  A step that ran a cuDNN A or Ahat conv instead is short of
-    them."""
-    return {pixel: passes * steps, "fused_convlstm_layer_multi": passes * steps * 3,
-            "ahat_error_unit": passes * steps * units[0], "a_unit": passes * steps * units[1]}
+    layer's), by body: in bfloat16 compute (the evaluator's) the three wide
+    layers' Ahat and two A units on the wgmma bodies, the pixel layer's on
+    the direct (Ahat) and im2col (A) bodies; in float32 compute (the
+    probe's and the file bus's) every A unit and the wide layers' Ahat
+    units on the mma.sync body.  A step that ran a cuDNN A or Ahat conv
+    instead, or another body, is off them."""
+    n = passes * steps
+    wide = "wgmma" if compute == "bfloat16" else "mma_sync"
+    out = {pixel: n, "fused_convlstm_layer_multi": n * 3,
+           "ahat_error_unit": n * units[0], "a_unit": n * units[1],
+           f"ahat_error_unit/{wide}": n * 3, "ahat_error_unit/direct": n * (units[0] - 3),
+           f"a_unit/{wide}": n * 2}
+    pixel_a = n * (units[1] - 2)
+    if pixel_a:
+        key = "a_unit/im2col" if compute == "bfloat16" else "a_unit/mma_sync"
+        out[key] = out.get(key, 0) + pixel_a
+    return {k: v for k, v in out.items() if v or "/" not in k}
 
 
 def _check_generations(label, generations, steps, records, out, kernels=True,
@@ -1620,7 +1732,7 @@ def probe_run(png, card):
     counts = _counts()
     torch.cuda.synchronize()
     want = dict.fromkeys(counts, 0)
-    want.update(_path_launches(PROBE_ROLLOUTS, STEPS))
+    want.update(_path_launches(PROBE_ROLLOUTS, STEPS, compute="float32"))
     if counts != want:
         raise AssertionError(f"probe: kernel launches {counts}, expected {want}")
     if not (vectors.ndim == 2 and vectors.shape[1] == 4 and np.isfinite(vectors).all()
@@ -1751,11 +1863,11 @@ def options_phase(params, png, card):
     from evolutionary_illusion_generator_tpu_torch.neat import Population, preset
     from evolutionary_illusion_generator_tpu_torch.structure import StructureType
 
-    total = dict.fromkeys(_wrappers(), 0)
+    total = {}
 
     def add(counts):
         for k, v in counts.items():
-            total[k] += v
+            total[k] = total.get(k, 0) + v
 
     main = dict(config=None, structure=StructureType.Circles, w=160, h=120,
                 channels=PROBE_CHANNELS, c_dim=3)
@@ -1857,7 +1969,7 @@ def options_phase(params, png, card):
         counts = _counts()
         expect = dict.fromkeys(counts, 0)
         # two probe rollouts; s2d: the gate kernel and the lifted convs at layer 0
-        expect.update(_path_launches(2, want, "fused_lstm_gates", (3, 2)))
+        expect.update(_path_launches(2, want, "fused_lstm_gates", (3, 2), compute="float32"))
         score = float(out.getvalue().split("score", 1)[1].split()[0])
         if counts != expect or not (math.isfinite(score) and np.isfinite(vectors).all()):
             raise AssertionError(f"probe --{flag}: launches {counts}, score {score}")
@@ -2930,7 +3042,8 @@ def profile_generation(params):
     cfg = preset("circles")
     items = list(Population(cfg, seed=0).population.items())
     want = {name: n for name, (_, n) in TRACE_KERNELS.items()}
-    launched = {name: n for name, n in want.items() if n}  # what the wrappers count
+    launched = _path_launches(1, STEPS)  # what the wrappers count: one chunk
+    recorded = {k: v for k, v in launched.items() if "/" not in k}  # a graph's, by wrapper
     for label, on in (("CUDA graph replay", True), ("eager", False)):
         evaluator = GenerationEvaluator(EvalConfig(program_cache=on), params, cfg,
                                         device="cuda")
@@ -2968,12 +3081,12 @@ def profile_generation(params):
         if on:
             graphs = [g for g in evaluator._programs.graphs.values() if g is not None]
             if not (len(graphs) == 1 and evaluator._programs.replays == replays + 1
-                    and graphs[0].recorded == launched and not counts):
+                    and graphs[0].recorded == recorded and not counts):
                 raise AssertionError(
                     f"profile: {len(graphs)} captured graphs, "
                     f"{evaluator._programs.replays - replays} replays, recorded "
                     f"{[g.recorded for g in graphs]}, wrapper launches {counts}; expected one "
-                    f"replay of a graph that recorded {launched} and no wrapper launch")
+                    f"replay of a graph that recorded {recorded} and no wrapper launch")
         elif counts != launched:
             raise AssertionError(f"profile (eager): wrapper launches {counts}, expected "
                                  f"{launched}")
@@ -3012,9 +3125,10 @@ def bisect():
     kb.main(BISECT_ARGS)
     counts = _counts()
     want = dict.fromkeys(counts, 1 + kb.LOOP_OPS * (1 + kb.REPS))
-    for name in ("fused_convlstm_layer_multi", "narrow_convlstm_layer", "ahat_error_unit",
-                 "a_unit"):
-        want[name] = 0  # not on the ladder
+    for name in want:
+        if name.split("/")[0] in ("fused_convlstm_layer_multi", "narrow_convlstm_layer",
+                                  *UNIT_WRAPPERS):
+            want[name] = 0  # not on the ladder
     if counts != want:
         raise AssertionError(f"bisect: kernel launches {counts}, expected {want}")
     log(f"  bisect launches {counts}")
@@ -3244,7 +3358,7 @@ def main():
     # north_star, then the bisection ladder
     paths = (counts, cli_counts, probe_counts, options_counts, scorer_counts, train_counts,
              parallel_counts, composition_counts, north_star_counts, bisect_counts)
-    rows = [dict(name=name, launches=sum(c[name] for c in paths), **r)
+    rows = [dict(name=name, launches=sum(c.get(name, 0) for c in paths), **r)
             for name, r in kernels.items()]
     for row in rows:  # every path's fused launches took the wgmma body (_counts checks it)
         if row["name"] in ("fused_convlstm_layer_multi", "fused_convlstm_layer"):

@@ -53,6 +53,12 @@ _SIGNATURES = {
     # the PredNet units (csrc/prednet_units.cu)
     "eigen_ahat_error_unit": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "eigen_a_unit": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    # their wgmma and im2col bodies (csrc/prednet_units_wgmma.cu)
+    "eigen_ahat_error_unit_wgmma": (
+        _P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "eigen_a_unit_wgmma": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "eigen_a_unit_im2col": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
     # the bisection ladder's rungs: A in csrc/convlstm_bisect.cu, the six
     # conv rungs C, D, H, E, I and J in csrc/bisect_wgmma.cu
     "eigen_bisect_a": (_P, _I, _P, _LL, _P),

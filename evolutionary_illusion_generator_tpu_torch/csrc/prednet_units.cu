@@ -29,6 +29,14 @@
 // (0.39 ms at 3.35 TB/s); chip_smoke.py computes each launch's bound from
 // its own shapes.
 //
+// Bodies: this file holds the units' mma.sync body and the pixel layer's
+// direct body; csrc/prednet_units_wgmma.cu their wgmma and im2col bodies,
+// which take bfloat16 compute wherever the TMA can address the input.
+// ops/prednet_units.py::ahat_plan / a_plan pick one per launch from the
+// layer's shape and types alone.  Here the float32 compute type (Kahan sums
+// per tap take 1.5 N registers a thread, too many for wgmma's N), channel
+// counts that are not a multiple of 8, and the pixel layer's Ahat unit.
+//
 // Design: the implicit GEMM of csrc/convlstm_narrow.cu and the mma.sync body
 // of csrc/convlstm_fused.cu, eigen::igemm::conv3x3 in common.cuh (mma.sync
 // m16n8k16 from ldmatrix fragments, bfloat16 in, float32 sums; a block owns

@@ -49,8 +49,9 @@ evaluator's route):
     pixel in one order whatever the batch; the same math as the ops they
     replaced (``_conv`` and the ops after it);
 
-* ``True``: split gate convs and the gate kernel on every layer, the A and
-  Ahat units as ``_conv`` (cuDNN on the card) and eager ops;
+* ``True``: split gate convs and the gate kernel on every layer, and the A
+  and Ahat units' kernels as on ``"fused"`` (its SatLU is the same
+  ``min(max(x, 0), 1)``);
 * ``False`` (the JAX default, which the trainer differentiates): split
   per-source ``F.conv2d`` gate convs in the compute dtype and the plain
   gate math (:func:`_lstm_gates`) in the gates' dtype, on every layer.
@@ -667,9 +668,10 @@ def prednet_step(params, state, frame, *, use_pallas: Union[bool, str] = "fused"
 
     a = frame.to(cd)
     prediction = None
-    # the A and Ahat units' kernels: bfloat16 weights, the compute and state
-    # dtypes they round to; the s2d pixel layer keeps its lifted convs
-    units = (use_pallas == "fused" and not quantized and cd in UNIT_COMPUTE_DTYPES
+    # the A and Ahat units' kernels, on both kernel routes: bfloat16
+    # weights, the compute and state dtypes they round to; the s2d pixel
+    # layer keeps its lifted convs
+    units = (use_pallas is not False and not quantized and cd in UNIT_COMPUTE_DTYPES
              and dtype in UNIT_STATE_DTYPES and params[0]["ahat_w"].dtype == torch.bfloat16)
     for l in range(L):
         p = params[l]

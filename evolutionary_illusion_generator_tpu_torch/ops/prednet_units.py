@@ -24,39 +24,73 @@ then the 9 taps, then the 16 products of one ``mma``; at the pixel layer's
 Ahat unit, C <= :data:`DIRECT_MAX_C`, one float32 chain in (ky, kx, ci)
 order on the CUDA cores), whatever the batch, the tile or the plan.
 
+Each unit has several bodies, and the host's plan (:func:`ahat_plan`,
+:func:`a_plan`) picks one per launch from the layer's shape and types
+alone, never from the batch, a pointer's alignment or a failure (the
+bodies may round a 16-product dot differently, and a shard has the
+unsharded pass's H, W and C but a smaller B):
+
+- ``"wgmma"`` (``csrc/prednet_units_wgmma.cu``; bfloat16 compute, input
+  channels a multiple of 8): warpgroup products over a TMA-fed halo slab,
+  N = every output of the layer (or channel groups of N where that fills
+  more SMs), the weights multicast across a cluster of two blocks; a block
+  owns a ``tile_h`` x ``tile_w`` rectangle of one image
+  (``convlstm_fused.tile_shapes``; even for the A unit's pooling);
+- ``"im2col"`` (the same file; the A unit at the pixel layer, bfloat16
+  compute, at most :data:`IM2COL_MAX_CIN` input channels): each pixel's
+  9 Cin products laid out as one K row of up to 64, summed by four
+  ``wgmma`` k16 steps in one accumulator;
+- ``"mma_sync"`` (``csrc/prednet_units.cu``; float32 compute, and channel
+  counts the TMA cannot address): ``mma.sync`` over 128-pixel strips, Kahan
+  sums per tap in float32 compute;
+- ``"direct"`` (``csrc/prednet_units.cu``; the Ahat unit at C <=
+  :data:`DIRECT_MAX_C`): the CUDA cores, one thread a pixel.
+
+Each wrapper counts its launches per body (``body_launches``) beside
+``launches``.
+
 Math, in the order of ``model._conv`` and the ops after it: the 3x3 SAME
 conv of bfloat16 inputs and weights with float32 sums, rounded to the
 compute dtype (float32 or bfloat16); ``+ b`` in the compute dtype; the
 activation; for Ahat, ``ahat - a`` and ``a - ahat`` in the compute dtype,
 each through ReLU, written in the state dtype.  Weights are packed once per
 params (:func:`pack_unit_weight`, the ``ahat_k`` and ``a_k`` entries of
-bfloat16 params) in the layout the shared ``eigen::igemm`` loop reads.
+bfloat16 params) in the ``(9, Cp, Cin)`` layout every body reads.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import _build
 from ..utils import debug_nans
-from .convlstm_fused import TILE_PIXELS, tile_width
+from .convlstm_fused import SMS, TILE_PIXELS, tile_shapes, tile_width
 from .convlstm_gates import count_launch, kernel_stream, refuse_grad
 
 __all__ = [
+    "BODIES",
     "COMPUTE_DTYPES",
     "DIRECT_MAX_C",
+    "IM2COL_MAX_CIN",
+    "IM2COL_TILES",
     "POOL_TILES",
     "STATE_DTYPES",
+    "UNIT_N",
+    "UnitPlan",
+    "a_plan",
     "a_unit",
     "a_unit_plain",
     "ahat_error_unit",
     "ahat_error_unit_plain",
+    "ahat_plan",
     "launch_a",
     "launch_ahat",
     "pack_unit_weight",
     "pool_tile_width",
+    "unit_body",
     "unpack_unit_weight",
 ]
 
@@ -106,6 +140,180 @@ def pool_tile_width(H: int, W: int) -> int:
         return blocks, (tile_rows + 2) * (tw + 2), -tw
 
     return min((tw for tw in POOL_TILES if tw <= max(W, POOL_TILES[0])), key=cost)
+
+
+# ---- the plan: which body, at which tiling -------------------------------------
+
+BODIES = ("wgmma", "im2col", "mma_sync", "direct")
+#: Outputs a block of the wgmma and im2col bodies (wgmma.m64nNk16): the
+#: layer's every output where one N holds them, else channel groups.
+UNIT_N = (48, 64, 96, 192)
+#: The A unit's im2col body takes E of at most this many channels (9 Cin
+#: products <= 64, four k16 steps): the pixel layer's 2 C0.
+IM2COL_MAX_CIN = 7
+#: The im2col body's tile widths; a tile is 128 pixels, 128 / tile_w rows.
+IM2COL_TILES = (16, 32, 64)
+#: The im2col body's grid-stride grid: at most this many blocks an SM
+#: (about 39 KB of shared memory a block at N 48, so five are resident;
+#: eight measured fastest at the north star on the H100,
+#: scripts/units_breakdown.py --plans), and at least
+#: IM2COL_TILES_PER_BLOCK tiles a block, over which it keeps its weight.
+IM2COL_BLOCKS_PER_SM = 8
+IM2COL_TILES_PER_BLOCK = 2
+#: The wgmma body's blocks resident on an SM at each N (shared memory: a
+#: ring of 67, 81, 108 and 192 KB; registers: 57, 73, 105 and 201 a thread,
+#: ptxas on the H100).
+UNIT_BLOCKS_PER_SM = {48: 3, 64: 2, 96: 2, 192: 1}
+#: The blocks of a cluster sharing each weight slice at each N, for the
+#: Ahat unit: four at N 48 (2-8% faster than two at the main path's and the
+#: north star's layers on the H100, scripts/units_breakdown.py --plans),
+#: two at wider N (four gained nothing there).  The A unit takes two at
+#: every N: with four, chip_smoke.py timed it slower than the mma.sync body
+#: at the main path's layers 1 and 2.
+UNIT_CLUSTER = {48: 4, 64: 2, 96: 2, 192: 2}
+A_UNIT_CLUSTER = 2
+#: The plan's cost of a block, in outputs: its products (N) plus the halo
+#: slab's staging (STAGING_COST), which co-resident blocks run side by
+#: side, and a part that a block alone cannot overlap (the ring's first
+#: load, the epilogue: FIXED_COST), which another block on the SM hides.
+#: Fitted to a sweep of every plan at the main path's and the north star's
+#: layers on the H100 (scripts/units_breakdown.py --plans: two groups of 96
+#: beat one of 192 at north-star layer 2, whose 192-wide block is alone on
+#: its SM).
+STAGING_COST = 32
+FIXED_COST = 192
+
+
+class UnitPlan(NamedTuple):
+    """How one launch of a unit covers its layer.  ``body`` is one of
+    :data:`BODIES`.  wgmma: a block owns ``tile_h`` x ``tile_w`` output
+    pixels of one image and ``n`` outputs, its two warpgroups' M rows
+    ``wg_stride`` halo-slab positions apart (``convlstm_fused.block_rows``),
+    ``cluster`` (2 or 4) blocks of neighbouring tiles sharing each weight
+    slice.
+    im2col: a block walks tiles of ``tile_h`` x ``tile_w`` = 128 pixels,
+    ``blocks`` blocks along the tiles, ``n`` outputs.  mma_sync: the strip
+    width ``tile_w``.  direct: nothing to choose."""
+
+    body: str
+    n: int = 0
+    tile_h: int = 0
+    tile_w: int = 0
+    wg_stride: int = 0
+    blocks: int = 0
+    cluster: int = 0
+
+
+def unit_body(unit: str, cin: int, cout: int, compute_dtype: torch.dtype) -> str:
+    """The body of ``unit`` (``"ahat"`` or ``"a"``) at a layer, from its
+    channels and compute dtype alone (every body writes both state dtypes):
+    the Ahat unit at C <= :data:`DIRECT_MAX_C` on the CUDA cores; in
+    bfloat16 compute the A unit at Cin <= :data:`IM2COL_MAX_CIN` on the
+    im2col body and any unit whose input channels the TMA can address (a
+    multiple of 8) on the wgmma body; the rest (float32 compute: Kahan sums
+    per tap take 1.5 N registers a thread) on the mma.sync body.  At every
+    layer of the main path and the north star the new bodies measured
+    faster than the mma.sync body on the H100, so no shape keeps it."""
+    if unit not in ("ahat", "a"):
+        raise ValueError(f"unit must be 'ahat' or 'a', got {unit!r}")
+    if unit == "ahat" and cout <= DIRECT_MAX_C:
+        return "direct"
+    if compute_dtype == torch.bfloat16:
+        if unit == "a" and cin <= IM2COL_MAX_CIN:
+            return "im2col"
+        if cin % 8 == 0:
+            return "wgmma"
+    return "mma_sync"
+
+
+def _n_groups(cout: int):
+    """The N of each channel-group count that fits: the fewest columns
+    past ``cout`` for 1, 2, 4 ... groups."""
+    out = {}
+    for n in UNIT_N:
+        groups = -(-cout // n)
+        if groups not in out or n < out[groups]:
+            out[groups] = n
+    return sorted((n, g) for g, n in out.items())
+
+
+@functools.lru_cache(maxsize=None)
+def unit_tiles(W: int, pool: bool):
+    """The wgmma body's tiles at image width ``W``: ``convlstm_fused``'s
+    (:func:`.convlstm_fused.tile_shapes`); for the A unit (``pool``) even
+    widths, each taking the even number of rows below its own, so that
+    every 2x2 quad lies in one tile."""
+    shapes = []
+    for th, tw, ws in tile_shapes(W):
+        if pool:
+            th -= th % 2
+            if tw % 2 or th < 2:
+                continue
+        shapes.append((th, tw, ws))
+    return tuple(shapes)
+
+
+def _wgmma_plan(B, H, W, cout, pool):
+    def cost(choice):
+        (n, groups), (th, tw, _) = choice
+        tiles = B * -(-H // th) * -(-W // tw)
+        cluster = A_UNIT_CLUSTER if pool else UNIT_CLUSTER[n]
+        tiles = -(-tiles // cluster) * cluster  # a cluster's padding blocks
+        k = UNIT_BLOCKS_PER_SM[n]
+        wave = max(k * (n + STAGING_COST), n + STAGING_COST + FIXED_COST)
+        return (-(-tiles * groups // (SMS * k)) * wave, tiles * th * tw, groups * n, -tw)
+
+    (n, _), (th, tw, ws) = min(((ng, s) for ng in _n_groups(cout) for s in unit_tiles(W, pool)),
+                               key=cost)
+    return UnitPlan("wgmma", n, th, tw, ws, cluster=A_UNIT_CLUSTER if pool else UNIT_CLUSTER[n])
+
+
+def _im2col_plan(B, H, W, cout):
+    n = min((n for n in UNIT_N if n >= cout), default=UNIT_N[-1])
+
+    def tiles(tw):
+        return B * -(-H // (TILE_PIXELS // tw)) * -(-W // tw)
+
+    tw = min(IM2COL_TILES, key=lambda tw: (tiles(tw), abs(tw - 32)))
+    return UnitPlan("im2col", n, TILE_PIXELS // tw, tw, 0,
+                    max(1, min(tiles(tw) // IM2COL_TILES_PER_BLOCK, SMS * IM2COL_BLOCKS_PER_SM)))
+
+
+@functools.lru_cache(maxsize=None)
+def ahat_plan(B: int, H: int, W: int, C: int,
+              compute_dtype: torch.dtype = torch.bfloat16) -> UnitPlan:
+    """The Ahat unit's launch at ``(B, H, W, C)``: the body of
+    :func:`unit_body`; on the wgmma body the channel groups and tile of the
+    fewest waves of blocks over the SMs (:data:`UNIT_BLOCKS_PER_SM` an SM,
+    a wave costing its blocks' products and staging side by side, or one
+    block's with :data:`FIXED_COST`, whichever is more), then the fewest
+    tile pixels past the image's edges; on the mma.sync body the strip width
+    :func:`.convlstm_fused.tile_width` (the batch's rows one tiling).  The
+    batch moves only the tiling, under which a pixel's sums do not move."""
+    body = unit_body("ahat", C, C, compute_dtype)
+    if body == "wgmma":
+        return _wgmma_plan(B, H, W, C, pool=False)
+    if body == "mma_sync":
+        return UnitPlan("mma_sync", tile_w=tile_width(B, H, W))
+    return UnitPlan(body)
+
+
+@functools.lru_cache(maxsize=None)
+def a_plan(B: int, H: int, W: int, cin: int, cout: int,
+           compute_dtype: torch.dtype = torch.bfloat16) -> UnitPlan:
+    """The A unit's launch: the body of :func:`unit_body`; wgmma as
+    :func:`ahat_plan` over :func:`unit_tiles`' even tiles; im2col the
+    :data:`IM2COL_TILES` width of the fewest tiles, then the nearest to 32
+    columns, its grid at most :data:`IM2COL_BLOCKS_PER_SM` blocks an SM
+    and :data:`IM2COL_TILES_PER_BLOCK` tiles a block;
+    mma.sync
+    :func:`pool_tile_width` (each image its own tiling)."""
+    body = unit_body("a", cin, cout, compute_dtype)
+    if body == "wgmma":
+        return _wgmma_plan(B, H, W, cout, pool=True)
+    if body == "im2col":
+        return _im2col_plan(B, H, W, cout)
+    return UnitPlan("mma_sync", tile_w=pool_tile_width(H, W))
 
 
 # ---- plain versions -------------------------------------------------------
@@ -167,55 +375,87 @@ def _same_device(name, *tensors):
         raise ValueError(f"{name}: tensors on several devices: {sorted(map(str, devices))}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the TMA's rule): copied into a
+    fresh allocation where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def launch_ahat(r, ahat_k, ahat_b, a, layer0, compute_dtype, state_dtype, stream: int,
-                tw: Optional[int] = None):
-    """Run ``csrc/prednet_units.cu``'s Ahat unit on device tensors with strip
-    width ``tw`` (default :func:`.convlstm_fused.tile_width`; the batch's
-    rows one tiling); returns (E, prediction or ``None``).  Counts nothing:
-    the wrapper does."""
+                plan: Optional[UnitPlan] = None):
+    """Run the Ahat unit's kernel on device tensors at ``plan`` (default
+    :func:`ahat_plan`); returns (E, prediction or ``None``).  A plan of
+    another body than the shape's sums in another order (``chip_smoke.py``
+    times the mma.sync body beside the wgmma body so).  Counts nothing: the
+    wrapper does."""
     B, H, W, C = r.shape
-    tw = tile_width(B, H, W) if tw is None else tw
-    if not 1 <= tw <= W:
-        raise ValueError(f"strip width {tw} outside 1..{W}")
-    x = r.to(torch.bfloat16).contiguous()
-    a, bias = a.contiguous(), ahat_b.contiguous()
+    plan = ahat_plan(B, H, W, C, compute_dtype) if plan is None else plan
+    if plan.body == "wgmma" and compute_dtype != torch.bfloat16:
+        raise ValueError("the wgmma body computes in bfloat16")
+    if plan.body == "mma_sync" and not 1 <= plan.tile_w <= W:
+        raise ValueError(f"strip width {plan.tile_w} outside 1..{W}")
+    x = _aligned(r.to(torch.bfloat16))
+    a, bias, wk = _aligned(a), ahat_b.contiguous(), _aligned(ahat_k)
     e = torch.empty(B, H, W, 2 * C, dtype=state_dtype, device=r.device)
     pred = torch.empty(B, H, W, C, device=r.device) if layer0 else None
     bf16 = torch.bfloat16
-    rc = _build.library().eigen_ahat_error_unit(
-        x.data_ptr(), ahat_k.contiguous().data_ptr(), C, C, bias.data_ptr(),
-        int(bias.dtype == bf16), a.data_ptr(), e.data_ptr(),
-        None if pred is None else pred.data_ptr(), int(layer0), int(compute_dtype == bf16),
-        int(state_dtype == bf16), B, H, W, tw, stream,
-    )
+    lib = _build.library()
+    args = (x.data_ptr(), wk.data_ptr(), C, C, bias.data_ptr(), int(bias.dtype == bf16),
+            a.data_ptr(), e.data_ptr(), None if pred is None else pred.data_ptr(), int(layer0))
+    if plan.body == "wgmma":
+        rc = lib.eigen_ahat_error_unit_wgmma(*args, int(state_dtype == bf16), B, H, W, plan.n,
+                                             plan.tile_h, plan.tile_w, plan.wg_stride,
+                                             plan.cluster, stream)
+    else:  # mma_sync and direct: one entry, which takes the direct body at C <= DIRECT_MAX_C
+        rc = lib.eigen_ahat_error_unit(*args, int(compute_dtype == bf16),
+                                       int(state_dtype == bf16), B, H, W,
+                                       plan.tile_w if plan.body == "mma_sync" else 1, stream)
     if rc != 0:
-        raise RuntimeError(f"ahat_error_unit kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ahat_error_unit kernel ({plan.body} body) launch failed: "
+                           f"CUDA error {rc}")
     return e, pred
 
 
-def launch_a(e, a_k, a_b, compute_dtype, stream: int, tw: Optional[int] = None):
-    """Run ``csrc/prednet_units.cu``'s A unit on device tensors with strip
-    width ``tw`` (one of :data:`POOL_TILES`, default :func:`pool_tile_width`;
-    tiles inside one image); returns the pooled A in the compute dtype."""
+def launch_a(e, a_k, a_b, compute_dtype, stream: int, plan: Optional[UnitPlan] = None):
+    """Run the A unit's kernel on device tensors at ``plan`` (default
+    :func:`a_plan`; as :func:`launch_ahat`); returns the pooled A in the
+    compute dtype."""
     B, H, W, cin = e.shape
     cout = a_b.shape[0]
-    tw = pool_tile_width(H, W) if tw is None else tw
-    if tw % 2 or TILE_PIXELS % (2 * tw):
-        raise ValueError(f"strip width {tw}: the A unit's tiles need an even width whose "
-                         f"{TILE_PIXELS}-pixel tiles hold an even number of rows")
+    plan = a_plan(B, H, W, cin, cout, compute_dtype) if plan is None else plan
+    if plan.body in ("wgmma", "im2col") and compute_dtype != torch.bfloat16:
+        raise ValueError(f"the {plan.body} body computes in bfloat16")
+    if plan.body == "mma_sync" and (plan.tile_w % 2 or TILE_PIXELS % (2 * plan.tile_w)):
+        raise ValueError(f"strip width {plan.tile_w}: the A unit's tiles need an even width "
+                         f"whose {TILE_PIXELS}-pixel tiles hold an even number of rows")
     out = torch.empty(B, H // 2, W // 2, cout, dtype=compute_dtype, device=e.device)
     if out.numel() == 0:
         return out
-    x = e.to(torch.bfloat16).contiguous()
-    bias = a_b.contiguous()
-    rc = _build.library().eigen_a_unit(
-        x.data_ptr(), a_k.contiguous().data_ptr(), cin, cout, bias.data_ptr(),
-        int(bias.dtype == torch.bfloat16), out.data_ptr(),
-        int(compute_dtype == torch.bfloat16), B, H, W, tw, stream,
-    )
+    x = _aligned(e.to(torch.bfloat16))
+    bias, wk = a_b.contiguous(), _aligned(a_k)
+    lib = _build.library()
+    args = (x.data_ptr(), wk.data_ptr(), cin, cout, bias.data_ptr(),
+            int(bias.dtype == torch.bfloat16), out.data_ptr())
+    if plan.body == "wgmma":
+        rc = lib.eigen_a_unit_wgmma(*args, B, H, W, plan.n, plan.tile_h, plan.tile_w,
+                                    plan.wg_stride, plan.cluster, stream)
+    elif plan.body == "im2col":
+        rc = lib.eigen_a_unit_im2col(*args, B, H, W, plan.n, plan.tile_w, plan.blocks, stream)
+    else:
+        rc = lib.eigen_a_unit(*args, int(compute_dtype == torch.bfloat16), B, H, W, plan.tile_w,
+                              stream)
     if rc != 0:
-        raise RuntimeError(f"a_unit kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"a_unit kernel ({plan.body} body) launch failed: CUDA error {rc}")
     return out
+
+
+def _counted(wrapper, plan):
+    """Counts a launch on ``wrapper`` (:func:`.convlstm_gates.count_launch`)
+    and on its ``body_launches`` by ``plan``'s body, outside a capture."""
+    count_launch(wrapper)
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.body_launches[plan.body] += 1
 
 
 # ---- wrappers ---------------------------------------------------------------
@@ -266,9 +506,11 @@ def ahat_error_unit(r: torch.Tensor, ahat_k: torch.Tensor, ahat_b: torch.Tensor,
                                          compute_dtype=compute_dtype, state_dtype=state_dtype)
         if r.device.type != "cuda":
             raise ValueError(f"unsupported device {r.device}")
+        B, H, W, C = r.shape
+        plan = ahat_plan(B, H, W, C, compute_dtype)
         e, pred = launch_ahat(r, ahat_k, ahat_b, a, layer0, compute_dtype, state_dtype,
-                              kernel_stream(name, r.device))
-        count_launch(ahat_error_unit)
+                              kernel_stream(name, r.device), plan)
+        _counted(ahat_error_unit, plan)
         debug_nans.check(name, e, *(() if pred is None else (pred,)))
         return e, pred
 
@@ -305,13 +547,17 @@ def a_unit(e: torch.Tensor, a_k: torch.Tensor, a_b: torch.Tensor, *,
             return a_unit_plain(e, a_w, a_b, compute_dtype=compute_dtype)
         if e.device.type != "cuda":
             raise ValueError(f"unsupported device {e.device}")
-        out = launch_a(e, a_k, a_b, compute_dtype, kernel_stream(name, e.device))
-        count_launch(a_unit)
+        B, H, W, cin = e.shape
+        plan = a_plan(B, H, W, cin, a_b.shape[0], compute_dtype)
+        out = launch_a(e, a_k, a_b, compute_dtype, kernel_stream(name, e.device), plan)
+        _counted(a_unit, plan)
         debug_nans.check(name, out)
         return out
 
 
-ahat_error_unit.launches = 0  # kernel launches (not plain-version calls)
-ahat_error_unit.captured = 0  # kernels recorded into a CUDA graph (count_launch)
-a_unit.launches = 0
-a_unit.captured = 0
+# kernel launches (not plain-version calls), kernels recorded into a CUDA
+# graph (count_launch), and the launches by body
+for _fn in (ahat_error_unit, a_unit):
+    _fn.launches = _fn.captured = 0
+    _fn.body_launches = dict.fromkeys(BODIES, 0)
+del _fn

@@ -15,7 +15,10 @@ as the trainer pins it (``deterministic=True``, ``benchmark=False``)::
     python3 -m evolutionary_illusion_generator_tpu_torch.scripts.shard_divergence
 
 (the defaults are the card test's case: 64x48, channels 3,48,96 drawn from
-seed 1, pop 16, two shards).  ``--device cpu`` runs it on the CPU at any size.
+seed 1, pop 16, two shards, the ``"fused"`` route).  ``--use_pallas
+{fused,true,false}`` takes another route of ``EvalConfig.use_pallas``,
+``--s2d`` the s2d pixel layer and ``--int8`` the int8 predictor, as the
+evaluator runs them.  ``--device cpu`` runs it on the CPU at any size.
 """
 
 from __future__ import annotations
@@ -49,9 +52,9 @@ def cudnn_pinned(on: bool = True):
 
 @contextlib.contextmanager
 def op_trace(calls: List[dict]):
-    """Appends ``{"op", "inputs", "output"}`` for every ``F.conv2d`` and
-    kernel wrapper call ``prednet_step`` makes inside the block (the
-    ConvLSTM kernels and the A and Ahat units)."""
+    """Appends ``{"op", "inputs", "output"}`` for every ``F.conv2d``,
+    kernel wrapper call (the ConvLSTM kernels and the A and Ahat units) and
+    int8 conv (``model._conv_q``) ``prednet_step`` makes inside the block."""
     from ..models.prednet import model
 
     def tensors(xs):
@@ -76,7 +79,7 @@ def op_trace(calls: List[dict]):
         return call
 
     names = ("fused_lstm_gates", "narrow_convlstm_layer", "fused_convlstm_layer_multi",
-             "ahat_error_unit", "a_unit")
+             "ahat_error_unit", "a_unit", "_conv_q")
     saved = F.conv2d, [getattr(model, name) for name in names]
     F.conv2d = recorded("conv2d", saved[0])
     for name, fn in zip(names, saved[1]):
@@ -104,24 +107,33 @@ def _rows_equal(whole: List[torch.Tensor], part: List[torch.Tensor], n: int):
     return equal, gap
 
 
-def first_divergence(params, images, n_shard: int, steps: int, **step_kw):
-    """Run ``steps`` predictor steps on ``images`` and on its first
-    ``n_shard`` rows under :func:`op_trace`; returns one row per call
+def first_divergence(params, images, n_shard: int, steps: int, **rollout_kw):
+    """Run ``steps`` predictor steps (``model.rollout``'s open loop, so its
+    options apply as the evaluator applies them) on ``images`` and on its
+    first ``n_shard`` rows under :func:`op_trace`; returns one row per call
     ``(step, op, inputs equal, output equal, output gap)``."""
-    from ..models.prednet.model import _state_dtype, init_state, prednet_step
+    from ..models.prednet import model
 
     traces = []
+    step = model.prednet_step
     for batch in (images, images[:n_shard]):
         calls: List[dict] = []
-        B, H, W, _ = batch.shape
-        state = init_state(B, H, W, [p["ahat_w"].shape[0] for p in params],
-                           dtype=_state_dtype(params), device=batch.device)
-        with torch.inference_mode(), op_trace(calls):
-            for t in range(steps):
-                start = len(calls)
-                state, _ = prednet_step(params, state, batch, **step_kw)
-                for c in calls[start:]:
-                    c["step"] = t
+
+        def tagged(*args, _calls=calls, **kwargs):
+            start = len(_calls)
+            out = step(*args, **kwargs)
+            for c in _calls[start:]:
+                c["step"] = tagged.t
+            tagged.t += 1
+            return out
+
+        tagged.t = 0
+        model.prednet_step = tagged
+        try:
+            with torch.inference_mode(), op_trace(calls):
+                model.rollout(params, batch, repeat=steps, extension=0, **rollout_kw)
+        finally:
+            model.prednet_step = step
         traces.append(calls)
     rows = []
     for whole, part in zip(*traces):
@@ -129,6 +141,10 @@ def first_divergence(params, images, n_shard: int, steps: int, **step_kw):
         out_eq, gap = _rows_equal(whole["output"], part["output"], n_shard)
         rows.append((whole["step"], whole["op"], in_eq, out_eq, gap))
     return rows
+
+
+#: ``--use_pallas`` -> ``EvalConfig.use_pallas``
+ROUTES = {"fused": "fused", "true": True, "false": False}
 
 
 def _evaluators(args, device):
@@ -140,11 +156,12 @@ def _evaluators(args, device):
     ncfg = preset("circles").replace(pop_size=args.pop)
     params = load_or_init(None, args.channels, seed=args.params_seed, device=device)
     items = list(Population(ncfg, seed=args.seed).population.items())
-    cfg = EvalConfig(w=args.w, h=args.h, program_cache=False)
+    cfg = EvalConfig(w=args.w, h=args.h, program_cache=False, use_pallas=ROUTES[args.use_pallas],
+                     s2d_l0=args.s2d, prednet_int8=args.int8)
     single = GenerationEvaluator(cfg, params, ncfg, device=device)
     sharded = ShardedGenerationEvaluator(cfg, params, ncfg,
                                          make_mesh(devices=[device] * args.shards))
-    return params, items, single, sharded
+    return items, single, sharded
 
 
 def _flow_gap(a, b):
@@ -165,6 +182,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p.add_argument("--seed", type=int, default=3, help="the population's seed")
     p.add_argument("--params_seed", type=int, default=1,
                    help="the predictor's seed (1: live flow at the defaults; 0 gives none)")
+    p.add_argument("--use_pallas", choices=sorted(ROUTES), default="fused",
+                   help="the predictor's route (EvalConfig.use_pallas)")
+    p.add_argument("--s2d", action="store_true", help="the s2d pixel layer (EvalConfig.s2d_l0)")
+    p.add_argument("--int8", action="store_true",
+                   help="the int8 predictor (EvalConfig.prednet_int8)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     args.channels = tuple(int(c) for c in args.channels.split(","))
@@ -172,7 +194,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if device.type == "cuda":  # as the driver runs: float32 convs in full float32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    params, items, single, sharded = _evaluators(args, device)
+    items, single, sharded = _evaluators(args, device)
     single(list(items))
     images = single.last_results["outputs"].to_numpy()["images_u8"]
     frames = torch.from_numpy(images).to(device).float().div(255.0)
@@ -181,9 +203,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     for pinned in (False, True):
         label = "pinned" if pinned else "default"
         with cudnn_pinned(pinned):
-            rows = first_divergence(params, frames, n_shard, args.steps,
+            # the evaluator's own params: int8-quantized and with the layout
+            # weights its options take
+            rows = first_divergence(single.params, frames, n_shard, args.steps,
                                     compute_dtype=getattr(torch, single.cfg.prednet_dtype),
-                                    use_pallas=single.cfg.use_pallas)
+                                    use_pallas=single.cfg.use_pallas,
+                                    subpixel_up=single.cfg.subpixel_up, s2d_l0=args.s2d)
             t0 = time.time()
             want = single(list(items))
             t1 = time.time()
@@ -194,6 +219,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         b = sharded.last_results["outputs"].to_numpy()
         matched, shift = _flow_gap(a, b)
         summary[label] = {
+            "route": args.use_pallas, "s2d": args.s2d, "int8": args.int8,
             "masked": int((a["mask"] | b["mask"]).sum()),
             "ops": len(rows),
             "ops_equal": sum(r[3] for r in rows),

@@ -23,13 +23,15 @@ __all__ = ["PORT_KERNELS", "PhaseTimers", "by_wrapper", "card_line", "device_eve
 
 TRACE_FILE = "trace.json"
 
-#: The rollout's kernel wrappers by the name their kernels carry in a trace.
+#: The rollout's kernel wrappers by the names their kernels carry in a trace
+#: (each unit has several bodies: csrc/prednet_units.cu's mma.sync and
+#: direct kernels, csrc/prednet_units_wgmma.cu's wgmma and im2col kernels).
 PORT_KERNELS = {
-    "narrow_convlstm_layer": "convlstm_narrow_kernel",
-    "fused_convlstm_layer_multi": "convlstm_fused_wgmma_kernel",
-    "fused_lstm_gates": "lstm_gates_kernel",
-    "ahat_error_unit": "ahat_error_unit_kernel",
-    "a_unit": "a_unit_kernel",
+    "narrow_convlstm_layer": ("convlstm_narrow_kernel",),
+    "fused_convlstm_layer_multi": ("convlstm_fused_wgmma_kernel",),
+    "fused_lstm_gates": ("lstm_gates_kernel",),
+    "ahat_error_unit": ("ahat_error_unit_kernel", "ahat_error_unit_wgmma_kernel"),
+    "a_unit": ("a_unit_kernel", "a_unit_wgmma_kernel", "a_unit_im2col_kernel"),
 }
 # pieces of the names of library conv kernels (cuDNN's implicit GEMMs, its
 # direct and FFT convs, PyTorch's own im2col conv), not of cuBLAS's GEMMs; a
@@ -119,7 +121,7 @@ def by_wrapper(events: List[Tuple[str, int, float]]) -> Dict[str, Dict[str, floa
     out = {name: {"count": 0, "ms": 0.0} for name in (*PORT_KERNELS, "library convs")}
     out["library convs"]["names"] = []
     for name, count, us in events:
-        w = next((w for w, key in PORT_KERNELS.items() if key in name), None)
+        w = next((w for w, keys in PORT_KERNELS.items() if any(k in name for k in keys)), None)
         if w is None and any(key in name.lower() for key in _LIBRARY_CONV):
             w = "library convs"
             out[w]["names"].append(name)

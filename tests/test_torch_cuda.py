@@ -278,20 +278,25 @@ def test_cuda_fused_kernel_rows_do_not_follow_the_batch():
 
 
 # The A and Ahat units, (B, H, W, C, C_above or None): the main path's four
-# layers at its chunk of 8, the north star's at one image, the grayscale
-# stack's pixel layer, and odd shapes (odd H and W, C not a multiple of 4)
+# layers at its chunk of 8, the north star's at one image (and layer 1 at its
+# chunk of 25), the grayscale stack's pixel layer, and odd shapes (odd H and
+# W, C not a multiple of 4 or of 8); chip_smoke.py's UNIT_LAYERS,
+# NORTH_STAR_UNIT_LAYERS and UNIT_ODD
 UNIT_CASES = {
     "main0": (8, 120, 160, 3, 48),
     "main1": (8, 60, 80, 48, 96),
     "main2": (8, 30, 40, 96, 192),
     "main3": (8, 15, 20, 192, None),
+    "main3_b1": (1, 15, 20, 192, None),
     "north0": (1, 480, 640, 3, 48),
     "north1": (1, 240, 320, 48, 96),
+    "north1_b25": (25, 240, 320, 48, 96),
     "north2": (1, 120, 160, 96, 192),
     "north3": (1, 60, 80, 192, None),
     "gray0": (8, 120, 160, 1, 16),
     "odd": (3, 13, 21, 12, 20),
 }
+UNIT_TYPES = ["bf16_bf16", "bf16_f32", "f32_bf16", "f32_f32"]  # compute, state
 # The kernels against their plain versions: the same bfloat16 products
 # summed in another order, so a sum may round the other way at any of the
 # rounding points (the conv, + b, each difference), one bfloat16 ulp there,
@@ -305,6 +310,10 @@ UNIT_CASES = {
 UNIT_DIFF_SHARE = 0.01
 UNIT_BEYOND_SHARE = 1e-4
 UNIT_F32_ATOL = 1e-4
+
+
+def _types(types):
+    return tuple(torch.bfloat16 if t == "bf16" else torch.float32 for t in types.split("_"))
 
 
 def _unit_inputs(seed, B, H, W, C, C_above, cd, sd):
@@ -343,24 +352,27 @@ def _unit_held(got, want, cd, *points):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("types", ["bf16_bf16", "f32_bf16", "f32_f32"])
+@pytest.mark.parametrize("types", UNIT_TYPES)
 @pytest.mark.parametrize("case", sorted(UNIT_CASES))
 def test_cuda_unit_kernels_match_plain(case, types):
     """Each unit's kernel against its plain version (compute dtype, state
     dtype), both activations of the Ahat unit, the prediction, the pooled
-    A (odd sizes floored); counted by the wrappers."""
+    A (odd sizes floored); counted by the wrappers, by the body of the
+    shape's plan."""
     _cuda_or_skip()
     from evolutionary_illusion_generator_tpu_torch.models.prednet import model
 
     B, H, W, C, C_above = UNIT_CASES[case]
-    cd, sd = (torch.bfloat16 if t == "bf16" else torch.float32 for t in types.split("_"))
+    cd, sd = _types(types)
     r, a, k, b, e_in, k2, b2 = _unit_inputs(len(case), B, H, W, C, C_above, cd, sd)
     conv = model._conv(r, pu.unpack_unit_weight(k, C), None, cd)
+    body = pu.ahat_plan(B, H, W, C, cd).body
     for layer0 in (True, False):
-        n = ahat_error_unit.launches
+        n, nb = ahat_error_unit.launches, ahat_error_unit.body_launches[body]
         e, pred = ahat_error_unit(r, k, b, a, layer0=layer0, compute_dtype=cd, state_dtype=sd)
         torch.cuda.synchronize()
         assert ahat_error_unit.launches == n + 1
+        assert ahat_error_unit.body_launches[body] == nb + 1
         want_e, want_p = pu.ahat_error_unit_plain(r, pu.unpack_unit_weight(k, C), b, a,
                                                   layer0=layer0, compute_dtype=cd, state_dtype=sd)
         v = model._conv(r, pu.unpack_unit_weight(k, C), b, cd)
@@ -371,39 +383,83 @@ def test_cuda_unit_kernels_match_plain(case, types):
             _unit_held(pred, want_p, cd, conv, ahat)
         else:
             assert pred is None
-    n = a_unit.launches
+    body = pu.a_plan(B, H, W, 2 * C, b2.shape[0], cd).body
+    n, nb = a_unit.launches, a_unit.body_launches[body]
     got = a_unit(e_in, k2, b2, compute_dtype=cd)
     torch.cuda.synchronize()
-    assert a_unit.launches == n + 1
+    assert a_unit.launches == n + 1 and a_unit.body_launches[body] == nb + 1
     want = pu.a_unit_plain(e_in, pu.unpack_unit_weight(k2, b2.shape[0]), b2, compute_dtype=cd)
     conv = model._conv(e_in, pu.unpack_unit_weight(k2, b2.shape[0]), None, cd).float().abs()
     pooled = torch.nn.functional.max_pool2d(conv.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
     _unit_held(got, want, cd, pooled, want)
 
 
+# every shape of chip_smoke.py's UNIT_LAYERS, NORTH_STAR_UNIT_LAYERS and
+# UNIT_ODD, (H, W, C, C_above); the whole batch is 25 images
+UNIT_ROW_SHAPES = {
+    "main0": (120, 160, 3, 48), "main1": (60, 80, 48, 96), "main2": (30, 40, 96, 192),
+    "main3": (15, 20, 192, None), "north0": (480, 640, 3, 48), "north1": (240, 320, 48, 96),
+    "north2": (120, 160, 96, 192), "north3": (60, 80, 192, None), "gray0": (120, 160, 1, 16),
+    "odd": (13, 21, 12, 20),
+}
+
+
+def _other_plans(plan, unit, W, cout):
+    """Plans of ``plan``'s body other than the default, as a forced plan may
+    give them: every channel group of the wgmma body with a tile of one
+    row of 64 a warpgroup and narrow run-on tiles; the im2col body's tile
+    widths and grids; the mma.sync body's strip widths."""
+    if plan.body == "wgmma":
+        tiles = [s for s in pu.unit_tiles(W, unit == "a") if s[1] in (2, 6, 7, 64)]
+        return [pu.UnitPlan("wgmma", n, *tile, cluster=c) for n, _ in pu._n_groups(cout)
+                for tile in tiles for c in (2, 4)]
+    if plan.body == "im2col":
+        return [pu.UnitPlan("im2col", plan.n, 128 // tw, tw, 0, blocks)
+                for tw in pu.IM2COL_TILES for blocks in (1, 7, 1000)]
+    if plan.body == "mma_sync":
+        widths = pu.POOL_TILES if unit == "a" else (3, 5, 8)
+        return [pu.UnitPlan("mma_sync", tile_w=tw) for tw in widths if tw <= W or unit == "a"]
+    return []
+
+
 @pytest.mark.cuda
-def test_cuda_unit_kernels_rows_do_not_follow_the_batch():
-    """A pixel's sums do not depend on the batch, the tile or the strip
-    width: each unit's kernel on three images of a batch of 8, at other
-    strip widths, is bit-equal to those images of the whole batch (the
-    sharded evaluator's shards run fewer images; cuDNN's convs at these
-    shapes did not keep this)."""
+@pytest.mark.parametrize("types", UNIT_TYPES)
+@pytest.mark.parametrize("shape", sorted(UNIT_ROW_SHAPES))
+def test_cuda_unit_kernels_rows_do_not_follow_the_batch(shape, types):
+    """A pixel's sums do not depend on the batch, the tile, the channel
+    group or the grid: each unit's kernel on one and on three images of a
+    batch of 25, at their own plans and at the other plans of the same body,
+    is bit-equal to those images of the whole batch (the sharded
+    evaluator's shards run fewer images; cuDNN's convs at these shapes did
+    not keep this)."""
     _cuda_or_skip()
     stream = torch.cuda.current_stream().cuda_stream
-    bf16 = torch.bfloat16
-    for B, H, W, C, C_above in ((8, 30, 40, 96, 192), (8, 15, 20, 192, 8), (8, 24, 32, 3, 48)):
-        r, a, k, b, e_in, k2, b2 = _unit_inputs(C, B, H, W, C, C_above, bf16, bf16)
-        whole, _ = pu.launch_ahat(r, k, b, a, False, bf16, bf16, stream)
-        pooled = pu.launch_a(whole, k2, b2, bf16, stream)
-        for tw in (3, 5, 8):
-            part, _ = pu.launch_ahat(r[2:5].contiguous(), k, b, a[2:5].contiguous(), False, bf16,
-                                     bf16, stream, tw=tw)
+    cd, sd = _types(types)
+    H, W, C, C_above = UNIT_ROW_SHAPES[shape]
+    gen = torch.Generator(device="cuda").manual_seed(C)
+    B, cout = 25, C_above or 8
+    r = torch.rand(B, H, W, C, device="cuda", generator=gen).mul_(2).sub_(1).to(sd)
+    a = torch.rand(B, H, W, C, device="cuda", generator=gen).to(cd)
+    k = pu.pack_unit_weight(torch.randn(3, 3, C, C, device="cuda", generator=gen) / (3 * C**0.5))
+    b = torch.randn(C, device="cuda", generator=gen).mul_(0.1).bfloat16()
+    k2 = pu.pack_unit_weight(torch.randn(3, 3, 2 * C, cout, device="cuda", generator=gen)
+                             / (3 * (2 * C)**0.5))
+    b2 = torch.randn(cout, device="cuda", generator=gen).mul_(0.1).bfloat16()
+    whole, _ = pu.launch_ahat(r, k, b, a, False, cd, sd, stream)
+    pooled = pu.launch_a(whole, k2, b2, cd, stream)
+    for s0, s1 in ((2, 3), (2, 5)):
+        rs, as_, es = (t[s0:s1].contiguous() for t in (r, a, whole))
+        n = s1 - s0
+        own = pu.ahat_plan(n, H, W, C, cd)
+        for plan in [own] + _other_plans(own, "ahat", W, C):
+            part, _ = pu.launch_ahat(rs, k, b, as_, False, cd, sd, stream, plan=plan)
             torch.cuda.synchronize()
-            assert torch.equal(whole[2:5], part), (C, tw)
-        for tw in pu.POOL_TILES:
-            part = pu.launch_a(whole[2:5].contiguous(), k2, b2, bf16, stream, tw=tw)
+            assert torch.equal(whole[s0:s1], part), plan
+        own = pu.a_plan(n, H, W, 2 * C, cout, cd)
+        for plan in [own] + _other_plans(own, "a", W, cout):
+            part = pu.launch_a(es, k2, b2, cd, stream, plan=plan)
             torch.cuda.synchronize()
-            assert torch.equal(pooled[2:5], part), (C, tw)
+            assert torch.equal(pooled[s0:s1], part), plan
 
 
 @pytest.mark.cuda
@@ -757,8 +813,9 @@ def _graph_evaluators(**kw):
 
 
 def _trace_counts(fn, names):
-    """How many times each kernel whose name holds one of ``names`` ran in
-    ``fn()``, from torch.profiler's device trace."""
+    """How many times the kernels whose names hold each of ``names`` (a name
+    or a tuple of names: any of them) ran in ``fn()``, from torch.profiler's
+    device trace."""
     from torch.profiler import ProfilerActivity, profile
 
     # one cycle; acc_events keeps the profiler from warning that it clears
@@ -769,7 +826,8 @@ def _trace_counts(fn, names):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [sum(e.count for e in kernels if name in e.key) for name in names]
+    names = [(n,) if isinstance(n, str) else n for n in names]
+    return [sum(e.count for e in kernels if any(k in e.key for k in keys)) for keys in names]
 
 
 @pytest.mark.cuda
@@ -809,9 +867,12 @@ def test_cuda_graph_replay_equals_the_eager_pass(monkeypatch):
     assert captured.recorded == {"narrow_convlstm_layer": 22, "fused_convlstm_layer_multi": 66,
                                  "ahat_error_unit": 88, "a_unit": 66}
     n = [w.launches for w in counted]
+    from evolutionary_illusion_generator_tpu_torch.utils.profiling import PORT_KERNELS
+
     ran = _trace_counts(lambda: graph(list(items)),
                         ("convlstm_narrow_kernel", "convlstm_fused_wgmma_kernel",
-                         "lstm_gates_kernel", "ahat_error_unit_kernel", "a_unit_kernel"))
+                         "lstm_gates_kernel", PORT_KERNELS["ahat_error_unit"],
+                         PORT_KERNELS["a_unit"]))
     assert ran == [2 * 22, 2 * 66, 0, 2 * 88, 2 * 66] and [w.launches for w in counted] == n
 
 
@@ -942,6 +1003,43 @@ def test_cuda_sharded_evaluator_on_a_repeated_device(n_shards, shape):
     assert len(chunk) == n_shards and all(s["images_u8"].is_cuda for s in chunk)
 
 
+# The sharded evaluator on each route and option against the unsharded
+# pass at the main path's 160x120, 3,48,96,192 (the bundled weights), a
+# population of 10 from seed 3 in two shards: the largest fitness gap, as
+# scripts/shard_divergence.py measured it on an H100 (NVIDIA H100 80GB
+# HBM3, 700 W).  The "fused" route, its s2d pixel layer and the int8
+# predictor are bit-equal (every op equal over 22 steps).  The True route's
+# cuDNN gate convs and the plain route's bfloat16 cuDNN convs round a row by
+# the batch (the first op apart: layer 2's gate conv of E, and on the plain
+# route layer 2's A conv), and their fitness moves by up to the bound here;
+# the units' kernels, which both routes' A and Ahat units take (the plain
+# route: its convs), are equal on every route.
+SHARD_ROUTE_GAPS = {"fused": 0.0, "s2d": 0.0, "int8": 0.0, "true": 0.0084, "false": 0.0173}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(SHARD_ROUTE_GAPS))
+def test_cuda_sharded_routes_against_the_unsharded_pass(route):
+    """``scripts/shard_divergence.py`` at 160x120 on one route or option:
+    the sharded evaluator's fitness within the route's measured residual of
+    the unsharded evaluator's (bit-equal where it is 0), and no kernel
+    wrapper's op follows the batch: only library convs may."""
+    _cuda_or_skip()
+    from evolutionary_illusion_generator_tpu_torch.scripts import shard_divergence
+
+    option = {"true": ["--use_pallas", "true"], "false": ["--use_pallas", "false"],
+              "s2d": ["--s2d"], "int8": ["--int8"]}.get(route, [])
+    out = shard_divergence.main(["--w", "160", "--h", "120", "--channels", "3,48,96,192",
+                                 "--pop", "10", "--shards", "2", "--steps", "2", *option])
+    for label, got in out.items():
+        assert got["masked"] > 0, label  # live flow to compare
+        assert all(op.split()[2] == "conv2d" for op in got["batch_variant_ops"]), got
+        if SHARD_ROUTE_GAPS[route] == 0.0:
+            assert got["bit_equal"] and got["fitness_gap"] == 0.0, got
+        else:
+            assert got["fitness_gap"] <= SHARD_ROUTE_GAPS[route], got
+
+
 @pytest.mark.cuda
 def test_cuda_sharded_graph_replays_per_device_key(monkeypatch):
     """With the program cache, the two shards of a chunk share one graph
@@ -1026,13 +1124,13 @@ def test_cuda_wrappers_refuse_tensors_off_the_current_device(wrapper, monkeypatc
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route,per_step", [("fused", (1, 0, 2, 3, 2)), (True, (0, 3, 0, 0, 0)),
+@pytest.mark.parametrize("route,per_step", [("fused", (1, 0, 2, 3, 2)), (True, (0, 3, 0, 3, 2)),
                                             (False, (0, 0, 0, 0, 0))])
 def test_cuda_use_pallas_routes_launch_counts(route, per_step):
     """``EvalConfig.use_pallas``: per step, "fused" launches the narrow
     kernel on the pixel layer, the fused kernel on the two wide layers and
     the A and Ahat units' kernels on every layer, True the gate kernel on
-    all three, False none."""
+    all three and the units' kernels on every layer, False none."""
     _cuda_or_skip()
     single, _, items = _parallel_evaluators(1, use_pallas=route, program_cache=False)
     counted = (narrow_convlstm_layer, fused_lstm_gates, fused_convlstm_layer_multi,

@@ -24,6 +24,7 @@ from evolutionary_illusion_generator_tpu_torch.scripts import (
     ckpt_to_weights,
     phase_bench,
     rollout_profile,
+    shard_divergence,
     swa_weights,
 )
 from evolutionary_illusion_generator_tpu_torch.utils.profiling import PORT_KERNELS, by_wrapper
@@ -79,6 +80,63 @@ def test_rollout_profile_prints_its_table(s2d, capsys):
     assert [r["ms"] for r in rows] == sorted((r["ms"] for r in rows), reverse=True)
     assert sum(r["share"] for r in rows) <= 1.0 + 1e-9
     assert set(line["wrappers"]) == set(PORT_KERNELS) | {"library convs"}
+
+
+@pytest.mark.parametrize("option,op", [([], "ahat_error_unit"),
+                                       (["--use_pallas", "true"], "fused_lstm_gates"),
+                                       (["--use_pallas", "false"], "conv2d"),
+                                       (["--s2d"], "fused_lstm_gates"),
+                                       (["--int8"], "_conv_q")])
+def test_shard_divergence_takes_the_evaluator_options(option, op):
+    """``shard_divergence.py`` on the CPU at a tiny shape with each route and
+    option: the summary names them, and the traced ops are the route's (the
+    True route's gate kernel and units, the plain route's convs only, the
+    s2d pixel layer's gate kernel, the int8 convs); the CPU's plain versions
+    sum a row in one order whatever the batch, so every op is equal."""
+    out = shard_divergence.main(["--device", "cpu", "--w", "32", "--h", "24", "--channels",
+                                 "3,4,8", "--pop", "4", "--steps", "2", *option])
+    route = option[1] if option[:1] == ["--use_pallas"] else "fused"
+    for label in ("default", "pinned"):
+        got = out[label]
+        assert (got["route"], got["s2d"], got["int8"]) == (route, "--s2d" in option,
+                                                           "--int8" in option)
+        assert got["ops"] > 0 and got["ops_equal"] == got["ops"] and got["bit_equal"]
+    calls = []
+    params = shard_divergence._evaluators(shard_divergence.argparse.Namespace(
+        channels=(3, 4, 8), params_seed=1, pop=4, seed=3, w=32, h=24, shards=2,
+        use_pallas=route, s2d="--s2d" in option, int8="--int8" in option),
+        torch.device("cpu"))[1].params
+    with torch.inference_mode(), shard_divergence.op_trace(calls):
+        from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+        model.rollout(params, torch.rand(2, 24, 32, 3), repeat=1, extension=0,
+                      use_pallas=shard_divergence.ROUTES[route], s2d_l0="--s2d" in option,
+                      compute_dtype=torch.bfloat16)
+    ops = {c["op"].split()[0] for c in calls}
+    assert op in ops, ops
+    if route == "false":
+        assert ops == {"conv2d"}, ops
+
+
+def test_by_wrapper_counts_every_body_of_the_units():
+    """The units' wgmma, im2col, mma.sync and direct kernels all count for
+    their wrappers, and the im2col kernel's name is not taken for a library
+    conv's."""
+    events = [
+        ("void (anonymous namespace)::ahat_error_unit_wgmma_kernel<192, __nv_bfloat16>()", 44,
+         1e3),
+        ("void (anonymous namespace)::ahat_error_unit_kernel_direct<3, float, float>()", 22, 1e2),
+        ("void (anonymous namespace)::ahat_error_unit_kernel<64, float, float>(P)", 2, 1e1),
+        ("void (anonymous namespace)::a_unit_wgmma_kernel<96>(CUtensorMap_st)", 44, 2e3),
+        ("void (anonymous namespace)::a_unit_im2col_kernel<48>(Geometry)", 22, 3e2),
+        ("void (anonymous namespace)::a_unit_kernel<64, float>(AParams)", 1, 1e1),
+        ("void at::native::im2col_kernel<float>()", 3, 1.0),
+    ]
+    got = by_wrapper(events)
+    assert got["ahat_error_unit"]["count"] == 68 and math.isclose(got["ahat_error_unit"]["ms"],
+                                                                  1.11)
+    assert got["a_unit"]["count"] == 67 and math.isclose(got["a_unit"]["ms"], 2.31)
+    assert got["library convs"]["count"] == 3
+    assert got["library convs"]["names"] == [events[-1][0]]
 
 
 def test_by_wrapper_sums_the_kernels_of_each_wrapper():
