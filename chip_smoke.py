@@ -13,10 +13,17 @@ Phases, each printing its wall time and raising on failure:
 4. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, in the main path's types, with times of the kernel, the
    plain version and a library yardstick, and its bound; the narrow layer's
-   kernel at the main path's pixel layer (against float64 sums too), the
-   grayscale stack's narrow layers and odd widths, with the route it
-   replaced (cuDNN convs, upsample, adds, gate kernel) as its yardstick; the
-   gate kernel in
+   two bodies (``csrc/convlstm_narrow_hopper.cu``'s persistent body, the
+   plan's in bfloat16 compute, and ``csrc/convlstm_narrow.cu``'s mma.sync
+   body) at the main path's pixel layer, the grayscale stack's narrow
+   layers, a narrow top layer and the north star's pixel layer, each within
+   one ulp at each rounding point of the rounded float64 chain, the
+   persistent body's rows bit-equal across batch, tile and grid, float32
+   compute (the mma.sync body) against float64 sums, and odd widths at
+   every plan, timed beside the route they replaced (cuDNN convs, upsample,
+   adds, gate kernel) as the yardstick; the True route's gate convs
+   (``convlstm_narrow.gate_convs``) at the main path's four layers against
+   the cuDNN convs they replaced and the float64 chain; the gate kernel in
    both its contracts (the main path's bfloat16 one and the JAX function's
    float32 one), timed on the device (``device_ms``) beside the host's call
    rate (``call_ms``), at the s2d pixel layer's shape (8, 60, 80, 12), and
@@ -98,7 +105,8 @@ Phases, each printing its wall time and raising on failure:
    three generations (program cache on and off), bit-equal to the unsharded
    evaluator (images, flow frames, vectors, masks, fitness), with 22
    narrow, 66 fused, 88 Ahat-unit and 66 A-unit launches per shard's eager
-   pass
+   pass, and the same on the ``use_pallas=True`` route (88 gate-conv and
+   88 gate-kernel launches a shard's pass)
    (on two real devices too where the machine has them, else one line
    says it could not); one data-parallel step of the train phase's recipe
    on two shards against one device (the train phase's rules); a spatial
@@ -160,13 +168,16 @@ Phases, each printing its wall time and raising on failure:
 Every phase that reads the wrappers' launch counts fails if a fused layer
 took the fused kernel's mma_sync body (``_counts``), and if a dense
 "fused" step ran a cuDNN A or Ahat conv in place of a unit's kernel, or a
-unit took another body than its layer and compute dtype give (the counts
-by body, ``_path_launches``: in bfloat16 compute no mma.sync body).
+unit or the narrow layer took another body than its layer and compute
+dtype give (the counts by body, ``_path_launches``: in bfloat16 compute no
+mma.sync body).
 
 Then one JSON line with every kernel's numbers (its launches summed over
 the main path, cli, probe, options, scorers, train, parallel, composition,
 north_star and bisect phases; the units both whole and by new body,
-``"ahat_error_unit/wgmma"``, ``"a_unit/wgmma"``, ``"a_unit/im2col"``), and
+``"ahat_error_unit/wgmma"``, ``"a_unit/wgmma"``, ``"a_unit/im2col"``, and
+the narrow layer whole and by body, ``"narrow_convlstm_layer/persistent"``,
+``"narrow_convlstm_layer/mma_sync"``), and
 as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a card or without the port beside it.
@@ -243,6 +254,8 @@ NARROW_SHAPES = {
     "top": (MAIN_BATCH, 30, 40, 3, None),
 }
 NARROW_ODD = ((3, 26, 38, 3, 48), (2, 14, 22, 16, 12), (2, 9, 13, 1, None))
+# the north star's pixel layer at its chunk of 25
+NARROW_NORTH_STAR = (25, 480, 640, 3, 48)
 
 # the A and Ahat units' kernels, (H, W, C, C_above or None) per layer: the
 # main path's at its chunk of 8 and the north star's at its chunk of 25;
@@ -300,7 +313,9 @@ OVERLAY_RED = (255, 0, 0)
 # the trace's kernel names, demangled: the units' bodies apart (the pixel
 # layer's Ahat unit on the CUDA cores, its A unit on the im2col body, the
 # other layers on the wgmma bodies; no mma.sync body)
-TRACE_KERNELS = {"narrow_convlstm_layer": ("convlstm_narrow_kernel", STEPS),
+TRACE_KERNELS = {"narrow_convlstm_layer/persistent": ("convlstm_narrow_persistent_kernel", STEPS),
+                 "narrow_convlstm_layer/mma_sync": ("convlstm_narrow_kernel", 0),
+                 "gate_convs": ("gate_convs_kernel", 0),
                  "fused_convlstm_layer_multi": ("convlstm_fused_wgmma_kernel", STEPS * 3),
                  "ahat_error_unit/wgmma": ("::ahat_error_unit_wgmma_kernel<", STEPS * 3),
                  "ahat_error_unit/direct": ("::ahat_error_unit_kernel_direct<", STEPS),
@@ -774,17 +789,39 @@ def _old_narrow_route(srcs, wks, b, c_prev):
     return run
 
 
+def _narrow_chain_held(label, outs, chain):
+    """Each of ``outs`` ({name: (h, c)}) within one ulp at each rounding
+    point of the rounded float64 chain (``convlstm_narrow.chain_float64``);
+    returns {name: mean |c - c_float64|} against the unrounded float64 c."""
+    drift = {}
+    for name, (h, c) in outs.items():
+        for t, key in ((h, "h"), (c, "c")):
+            off = ((t.double() - chain[key]).abs() > chain["d" + key]).float().mean().item()
+            if off:
+                raise AssertionError(f"narrow_convlstm_layer {label} {name}: {off:.3e} of {key} "
+                                     f"beyond one ulp at each rounding point of the float64 chain")
+        drift[name] = (c.double() - chain["c_exact"]).abs().mean().item()
+    return drift
+
+
 def check_narrow(gen, params):
-    """narrow_convlstm_layer (``csrc/convlstm_narrow.cu``) against its plain
-    version: at the main path's pixel layer (8, 120, 160, C 3, R_above 48
-    at 60x80, the bundled weights) in the main path's types, then in float32
-    compute and state against float64 sums (its c no further from them than
-    the plain version's); at the grayscale stack's pixel layer (C 1, R_above
-    16) and layer 1 (C 16 at 60x80, R_above 32), a narrow top layer, and odd
-    widths at every strip width the wrapper chooses from and odd ones.
-    Times the kernel on the device beside its bound, the plain version and
+    """narrow_convlstm_layer's two bodies (``csrc/convlstm_narrow_hopper.cu``'s
+    persistent body, ``csrc/convlstm_narrow.cu``'s mma.sync body) against
+    the plain version: at the main path's pixel layer (8, 120, 160, C 3,
+    R_above 48 at 60x80, the bundled weights), the grayscale stack's pixel
+    layer (C 1, R_above 16) and layer 1 (C 16 at 60x80, R_above 32), a
+    narrow top layer and the north star's pixel layer (25 x 480x640), in the
+    main path's types: the wrapper launches its plan's body (the persistent
+    one in bfloat16 compute, counted by body); both bodies and the plain
+    version within one ulp at each rounding point of the rounded float64
+    chain, the plan's body's mean |c - c_float64| no worse than the plain
+    version's; the persistent body's rows bit-equal across batch, tile and
+    grid.  Then float32 compute and state (the mma.sync body) against
+    float64 sums, and odd widths at every strip width and tile.  Times, as
+    CUDA graph replays, each body beside its bound, the plain version and
     the route it replaced (cuDNN convs, the upsampled copy, the adds and the
-    gate kernel: the library time)."""
+    gate kernel: the library time).  Returns the wrapper's row and one per
+    body (``"narrow_convlstm_layer/<body>"``)."""
     import torch
     import torch.nn.functional as F
 
@@ -792,42 +829,88 @@ def check_narrow(gen, params):
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_narrow as cn
 
     bf16, f32 = torch.bfloat16, torch.float32
-    stream = torch.cuda.current_stream().cuda_stream
+    wrapper = cn.narrow_convlstm_layer
     rows = {}
-    for label, (B, H, W, C, C_above) in NARROW_SHAPES.items():
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    shapes = dict(NARROW_SHAPES, north_star=NARROW_NORTH_STAR)
+    for label, (B, H, W, C, C_above) in shapes.items():
         srcs, wks, b, c_prev = _narrow_inputs(gen, B, H, W, C, C_above,
-                                              params if label == "main" else None)
-        call = lambda: cn.narrow_convlstm_layer(srcs, wks, b, c_prev)  # noqa: E731
-        out = call()
+                                              params if label in ("main", "north_star") else None)
+        plan = cn.narrow_plan(B, H, W, C, C_above)
+        # the pixel layers on the persistent body; layer 1 of 1,16,32,64
+        # keeps the mma.sync body (measured faster there)
+        if plan.body != ("persistent" if C <= cn.PACKED_MAX_C else "mma_sync"):
+            raise AssertionError(f"narrow_convlstm_layer {label}: plan {plan}")
+        old_plan = cn.NarrowPlan("mma_sync", tile_w=cn.tile_width(B, H, W))
+        before = dict(wrapper.body_launches)
+        out = wrapper(srcs, wks, b, c_prev)
+        if wrapper.body_launches[plan.body] != before[plan.body] + 1:
+            raise AssertionError(f"narrow_convlstm_layer {label}: launches by body "
+                                 f"{wrapper.body_launches} (before {before})")
+        old = cn.launch(srcs, wks, b, c_prev, bf16, stream(), plan=old_plan)
+        ref = cn.narrow_convlstm_layer_plain(srcs, wks, b, c_prev, compute_dtype=bf16)
         torch.cuda.synchronize()
-        err, share, ok = _narrow_err(out, cn.narrow_convlstm_layer_plain(
-            srcs, wks, b, c_prev, compute_dtype=bf16))
+        err, share, ok = _narrow_err(out, ref)
         if not ok:
             raise AssertionError(f"narrow_convlstm_layer {label} {(B, H, W, C, C_above)}: max "
                                  f"abs err {err:.3e}, {share:.2%} of a tensor differ")
+        n = DRIFT_IMAGES if B > MAIN_BATCH else B  # the float64 chain of a chunk of 25 is slow
+        chain = cn.chain_float64([x[:n] for x in srcs], wks, b, c_prev[:n])
+        # every element within one ulp at each rounding point; the means
+        # are logged: in bfloat16 compute they part only by the few sums
+        # each side rounds the other way (the float32 compute check below
+        # holds the mean)
+        drift = _narrow_chain_held(label, {k: (h[:n], c[:n]) for k, (h, c) in (
+            (plan.body, out), ("mma_sync", old), ("plain", ref))}, chain)
+        if label == "main":  # rows of a batch of 1 and 3 at other tiles and grids
+            for r0, k in ((5, 1), (2, 3)):
+                part_src = [x[r0:r0 + k].contiguous() for x in srcs]
+                for tw in cn.PERSISTENT_TILES:
+                    p = cn.persistent_plan(k, H, W, C, C_above, tile_w=tw, blocks_per_sm=1)
+                    part = cn.launch(part_src, wks, b, c_prev[r0:r0 + k].contiguous(), bf16,
+                                     stream(), plan=p._replace(blocks=p.blocks + 7 * k))
+                    if not all(torch.equal(a[r0:r0 + k], q) for a, q in zip(out, part)):
+                        raise AssertionError(f"narrow_convlstm_layer: rows {r0}..{r0 + k} at "
+                                             f"{p} not bit-equal to the whole batch's")
         cins = [x.shape[-1] for x in srcs]
         flops = 2.0 * B * H * W * 9 * sum(cins) * 4 * C
         moved = nbytes(*srcs, *wks, b, c_prev, *out)
         b_ms, b_by = bound_ms(flops, moved)
-        ms, per_call = device_ms(call, 200)
-        plain_ms = device_ms(lambda: cn.narrow_convlstm_layer_plain(
-            srcs, wks, b, c_prev, compute_dtype=bf16), 50)[0]
-        old = _old_narrow_route(srcs, wks, b, c_prev)
-        lib_ms, lib_kernels = device_ms(old, 200)
-        rows[label] = dict(max_abs_err=err, ms=ms, call_ms=cuda_ms(call, 200), plain_ms=plain_ms,
-                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        log(f"  narrow_convlstm_layer {label} {B}x{H}x{W} C={C} sources {cins}: err {err:.2e} "
-            f"({share:.3%} differ) device {ms * 1e3:.2f} us ({per_call:g} kernel a call), call "
-            f"rate {rows[label]['call_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
-            f"{moved / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP); plain device {plain_ms * 1e3:.2f} us; "
-            f"the route before (convs, upsample, adds, gate kernel) device {lib_ms * 1e3:.2f} us "
-            f"({lib_kernels:g} kernels)")
+        iters = 20 if B > MAIN_BATCH else 200
+        call = lambda: wrapper(srcs, wks, b, c_prev)  # noqa: E731
+        ms = graph_ms(call, iters)
+        old_ms = graph_ms(lambda: cn.launch(srcs, wks, b, c_prev, bf16, stream(), plan=old_plan),
+                          iters)
+        plain_ms = graph_ms(lambda: cn.narrow_convlstm_layer_plain(
+            srcs, wks, b, c_prev, compute_dtype=bf16), max(iters // 4, 5))
+        lib_ms = graph_ms(_old_narrow_route(srcs, wks, b, c_prev), iters)
+        rows[label] = dict(max_abs_err=err, ms=ms, mma_sync_ms=old_ms, body=plan.body,
+                           plan=list(plan), call_ms=cuda_ms(call, iters), plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, drift=drift)
+        log(f"  narrow_convlstm_layer {label} {B}x{H}x{W} C={C} sources {cins} (CUDA graph "
+            f"replays): {plan.body} body {ms * 1e3:.2f} us, {b_ms / ms:.1%} of its "
+            f"{b_ms * 1e3:.2f} us bound ({b_by}, {moved / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP); "
+            f"mma.sync body {old_ms * 1e3:.2f} us"
+            f"{' FASTER' if old_ms < ms and plan.body != 'mma_sync' else ''}; call rate "
+            f"{rows[label]['call_ms'] * 1e3:.2f} us; plain {plain_ms * 1e3:.2f} us; the route "
+            f"before (convs, upsample, adds, gate kernel) {lib_ms * 1e3:.2f} us; err {err:.2e} "
+            f"({share:.3%} differ); mean |c - c_float64| {plan.body} / mma.sync / plain "
+            f"{drift[plan.body]:.4e} / {drift['mma_sync']:.4e} / {drift['plain']:.4e}; plan "
+            f"{tuple(plan)}")
 
     # float32 compute and state against float64 sums, at the main shape
     B, H, W, C, C_above = NARROW_SHAPES["main"]
     srcs, wks, b, _ = _narrow_inputs(gen, B, H, W, C, C_above, params)
     c32 = torch.randn(B, H, W, C, device="cuda", generator=gen)
-    h, c = cn.narrow_convlstm_layer(srcs, wks, b, c32, compute_dtype=f32)
+    if cn.narrow_plan(B, H, W, C, C_above, f32, f32).body != "mma_sync":
+        raise AssertionError("narrow_convlstm_layer: float32 compute off the mma.sync body")
+    before = wrapper.body_launches["mma_sync"]
+    h, c = wrapper(srcs, wks, b, c32, compute_dtype=f32)
+    if wrapper.body_launches["mma_sync"] != before + 1:
+        raise AssertionError("narrow_convlstm_layer: float32 compute off the mma.sync body")
     ref = cn.narrow_convlstm_layer_plain(srcs, wks, b, c32, compute_dtype=f32)
     torch.cuda.synchronize()
     eh, ec = ((x - y).abs().max().item() for x, y in zip((h, c), ref))
@@ -839,29 +922,121 @@ def check_narrow(gen, params):
     i, f, o, g = (g64.permute(0, 2, 3, 1) + b.double()).split(C, dim=-1)
     c64 = torch.sigmoid(f) * c32.double() + torch.sigmoid(i) * torch.tanh(g)
     drift, drift_p = ((t.double() - c64).abs().mean().item() for t in (c, ref[1]))
-    log(f"  narrow_convlstm_layer float32 compute and state: max abs err h {eh:.2e} c {ec:.2e}; "
-        f"mean |c - c_float64| kernel {drift:.3e} plain {drift_p:.3e}")
+    log(f"  narrow_convlstm_layer float32 compute and state (mma.sync body): max abs err h "
+        f"{eh:.2e} c {ec:.2e}; mean |c - c_float64| kernel {drift:.3e} plain {drift_p:.3e}")
     if not drift <= drift_p:
         raise AssertionError(f"narrow_convlstm_layer: mean |c - c_float64| {drift:.3e} above the "
                              f"plain version's {drift_p:.3e}")
 
-    # odd widths at every strip width the wrapper chooses from, and odd ones
+    # odd widths at every strip width of the mma.sync body and every tile of
+    # the persistent body, where it takes the channels
     for B, H, W, C, C_above in NARROW_ODD:
         srcs, wks, b, c_prev = _narrow_inputs(gen, B, H, W, C, C_above)
         ref = cn.narrow_convlstm_layer_plain(srcs, wks, b, c_prev, compute_dtype=bf16)
+        plans = [cn.NarrowPlan("mma_sync", tile_w=tw)
+                 for tw in sorted(set(cf.tile_candidates(W)) | {3, 7})]
+        if cn.narrow_body(C, C_above, bf16) == "persistent":
+            plans += [cn.persistent_plan(B, H, W, C, C_above, tile_w=tw)
+                      for tw in cn.PERSISTENT_TILES]
+        chain = cn.chain_float64(srcs, wks, b, c_prev)
         worst = 0.0
-        for tw in sorted(set(cf.tile_candidates(W)) | {3, 7}):
-            err, share, ok = _narrow_err(cn.launch(srcs, wks, b, c_prev, bf16, stream, tw=tw), ref)
+        for p in plans:
+            out = cn.launch(srcs, wks, b, c_prev, bf16, stream(), plan=p)
+            err, share, ok = _narrow_err(out, ref)
             if not ok:
-                raise AssertionError(f"narrow_convlstm_layer {(B, H, W, C, C_above)} tw={tw}: "
+                raise AssertionError(f"narrow_convlstm_layer {(B, H, W, C, C_above)} {p}: "
                                      f"max abs err {err:.3e}, {share:.2%} differ")
+            _narrow_chain_held(f"{(B, H, W, C, C_above)}", {p.body: out}, chain)
             worst = max(worst, err)
         log(f"  narrow_convlstm_layer {B}x{H}x{W} C={C} R_above {C_above}: max abs err "
-            f"{worst:.2e} at tw {sorted(set(cf.tile_candidates(W)) | {3, 7})}")
+            f"{worst:.2e} at {[tuple(p)[:2] for p in plans]}")
+    csrc = "evolutionary_illusion_generator_tpu_torch/csrc/"
+    main = rows["main"]
+    out = {}
+    # the wrapper (its plan's body at each shape), then each body on its own:
+    # the persistent body's rows are the pixel layers'
+    for key, src, ms_key, body in (
+            ("narrow_convlstm_layer", "convlstm_narrow_hopper.cu", "ms", None),
+            ("narrow_convlstm_layer/persistent", "convlstm_narrow_hopper.cu", "ms", "persistent"),
+            ("narrow_convlstm_layer/mma_sync", "convlstm_narrow.cu", "mma_sync_ms", "mma_sync")):
+        out[key] = dict(route="cuda", source=csrc + src,
+                        sources=[csrc + "convlstm_narrow_hopper.cu", csrc + "convlstm_narrow.cu"],
+                        replaces="evolutionary_illusion_generator_tpu/ops/convlstm_pallas.py:57",
+                        **dict(main, ms=main[ms_key]),
+                        shapes={k: dict(v, ms=v[ms_key]) for k, v in rows.items()
+                                if k != "main" and body in (None, "mma_sync", v["body"])})
+    return out
+
+
+def check_gate_convs(gen, params):
+    """The True route's gate convs (``convlstm_narrow.gate_convs``: the
+    mma.sync body with its gates written out) at each layer of the main
+    path's step, a chunk of 8 (the bundled weights), in bfloat16 compute:
+    within one ulp at each rounding point of the rounded float64 chain, as
+    ``model._gate_convs`` (the cuDNN convs it replaced, the library time);
+    times summed over a step's four layers (CUDA graph replays)."""
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_narrow as cn
+
+    bf16 = torch.bfloat16
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    worst, layers = 0.0, []
+    for l, (H, W, C, C_above) in enumerate(UNIT_LAYERS):
+        p = params[l]
+        shapes = [(MAIN_BATCH, H, W, 2 * C), (MAIN_BATCH, H, W, C)] + (
+            [(MAIN_BATCH, H // 2, W // 2, C_above)] if C_above else [])
+        srcs = [torch.rand(s, device="cuda", generator=gen).mul_(2).sub_(1).bfloat16()
+                for s in shapes]
+        wks = [p["lstm_k_e"], p["lstm_k_r"]] + ([p["lstm_k_up"]] if C_above else [])
+        n = cn.gate_convs.launches
+        got = cn.gate_convs(srcs, wks, p["lstm_b"])
+        if cn.gate_convs.launches != n + 1:
+            raise AssertionError("gate_convs: no launch counted")
+        r_above = srcs[2] if C_above else None
+        want = model._gate_convs(p, {"e": srcs[0], "r": srcs[1]}, r_above, bf16, False, False)
+        xs = [x.double() for x in srcs]
+        if C_above:
+            xs[2] = xs[2].repeat_interleave(2, 1).repeat_interleave(2, 2)
+        g, err = p["lstm_b"].to(bf16).double(), 0.0
+        for x, wk in zip(xs, wks):
+            v = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2),
+                                           cf.unpack_gate_weight(wk).double(),
+                                           padding=1).permute(0, 2, 3, 1).to(bf16).double()
+            g = (g + v).to(bf16).double()
+            err = err + 2.0**-7 * (v.abs() + g.abs())
+        torch.cuda.synchronize()
+        for name, t in (("gate_convs", got), ("model._gate_convs", want)):
+            off = ((t.double() - g).abs() > err).float().mean().item()
+            if off > UNIT_BEYOND_SHARE or t.dtype != bf16:
+                raise AssertionError(f"{name} layer {l}: {off:.3e} of the gates beyond one ulp "
+                                     f"at each rounding point of the float64 chain")
+        d = (got.float() - want.float()).abs()
+        worst = max(worst, d.max().item())
+        flops = 2.0 * MAIN_BATCH * H * W * 9 * sum(s[-1] for s in shapes) * 4 * C
+        moved = nbytes(*srcs, *wks, p["lstm_b"], got)
+        row = dict(layer=l, ms=graph_ms(lambda: cn.gate_convs(srcs, wks, p["lstm_b"]), 50),
+                   plain_ms=graph_ms(lambda: cn.gate_convs_plain(
+                       srcs, wks, p["lstm_b"], compute_dtype=bf16), 50),
+                   library_ms=graph_ms(lambda: model._gate_convs(
+                       p, {"e": srcs[0], "r": srcs[1]}, r_above, bf16, False, False), 50),
+                   ops_ms=flops / PEAK_BF16_FLOPS * 1e3, bytes_ms=moved / PEAK_BYTES_PER_S * 1e3,
+                   differ=(d > 0).float().mean().item())
+        layers.append(row)
+        for k in tot:
+            tot[k] += row[k]
+        log(f"  gate_convs layer {l} {MAIN_BATCH}x{H}x{W} C={C}: {row['ms'] * 1e3:.2f} us, "
+            f"model._gate_convs (cuDNN) {row['library_ms'] * 1e3:.2f} us; {row['differ']:.2e} of "
+            f"the gates apart, max {d.max().item():.3e}")
+    b_by = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
     return dict(route="cuda",
                 source="evolutionary_illusion_generator_tpu_torch/csrc/convlstm_narrow.cu",
-                replaces="evolutionary_illusion_generator_tpu/ops/convlstm_pallas.py:57",
-                **rows["main"], grayscale={k: v for k, v in rows.items() if k != "main"})
+                replaces="evolutionary_illusion_generator_tpu/models/prednet/model.py:467",
+                max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                library_ms=tot["library_ms"], bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
+                bound_by=b_by, layers=layers)
 
 
 def _unit_err(got, want, cd, *points):
@@ -1226,9 +1401,8 @@ def check_kernels(params):
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {"fused_lstm_gates": check_gates(gen),
-               "narrow_convlstm_layer": check_narrow(gen, params),
-               **check_units(gen, params)}
+    results = {"fused_lstm_gates": check_gates(gen), **check_narrow(gen, params),
+               "gate_convs": check_gate_convs(gen, params), **check_units(gen, params)}
     stream = torch.cuda.current_stream().cuda_stream
 
     def check_out(label, out, ref):
@@ -1483,6 +1657,7 @@ def _wrappers():
     out = {
         "fused_lstm_gates": cg.fused_lstm_gates,
         "narrow_convlstm_layer": cn.narrow_convlstm_layer,
+        "gate_convs": cn.gate_convs,
         "fused_convlstm_layer_multi": cf.fused_convlstm_layer_multi,
         "fused_convlstm_layer": cf.fused_convlstm_layer,
         "ahat_error_unit": pu.ahat_error_unit,
@@ -1501,18 +1676,21 @@ def _reset_counts():
 
 
 UNIT_WRAPPERS = ("ahat_error_unit", "a_unit")
+# the wrappers counted by body in the paths' launches
+BY_BODY = (*UNIT_WRAPPERS, "narrow_convlstm_layer")
 
 
 def _counts():
     """The launches of each wrapper since the last reset, and of each body
-    of the units (``"<unit>/<body>"``, which :func:`_path_launches` sets
-    out); raises if a fused layer took the mma_sync body (every fused layer
-    of the driven paths has sources of channels a multiple of 8, 16-byte
-    aligned: the wgmma body, launch for launch)."""
+    of the units and the narrow layer (``"<wrapper>/<body>"``, which
+    :func:`_path_launches` sets out); raises if a fused layer took the
+    mma_sync body (every fused layer of the driven paths has sources of
+    channels a multiple of 8, 16-byte aligned: the wgmma body, launch for
+    launch)."""
     counts = {name: fn.launches for name, fn in _wrappers().items()}
     for name, fn in _wrappers().items():
         bodies = getattr(fn, "body_launches", None)
-        if name in UNIT_WRAPPERS:
+        if name in BY_BODY:
             counts.update({f"{name}/{body}": n for body, n in bodies.items()})
             if sum(bodies.values()) != fn.launches:
                 raise AssertionError(f"{name}: {fn.launches} launches, by body {bodies}")
@@ -1526,8 +1704,10 @@ def _path_launches(passes, steps, pixel="narrow_convlstm_layer", units=UNITS_PER
                    compute="bfloat16"):
     """The launches of ``passes`` chunk (or shard) passes of ``steps``
     steps at 3,48,96,192 on the dense "fused" route: the pixel layer's
-    wrapper once a step (``pixel``: the narrow kernel's, or the gate
-    kernel's under s2d and subpixel), the fused kernel on three layers, and
+    wrapper once a step (``pixel``: the narrow kernel's, on its persistent
+    body in bfloat16 compute and its mma.sync body in float32 compute, or
+    the gate kernel's under s2d and subpixel), the fused kernel on three
+    layers, and
     ``units`` Ahat and A units a step (every layer's, but the s2d pixel
     layer's), by body: in bfloat16 compute (the evaluator's) the three wide
     layers' Ahat and two A units on the wgmma bodies, the pixel layer's on
@@ -1545,6 +1725,8 @@ def _path_launches(passes, steps, pixel="narrow_convlstm_layer", units=UNITS_PER
     if pixel_a:
         key = "a_unit/im2col" if compute == "bfloat16" else "a_unit/mma_sync"
         out[key] = out.get(key, 0) + pixel_a
+    if pixel == "narrow_convlstm_layer":
+        out["narrow_convlstm_layer/" + ("persistent" if compute == "bfloat16" else "mma_sync")] = n
     return {k: v for k, v in out.items() if v or "/" not in k}
 
 
@@ -2463,11 +2645,24 @@ def _held_in_the_mean(label, got, want):
     return d.max().item(), d.mean().item()
 
 
-def _sharded_generations(params, devices, label):
+def _true_route_launches(passes, steps):
+    """The launches of ``passes`` chunk (or shard) passes on the
+    ``use_pallas=True`` route at 3,48,96,192: each layer's gate convs
+    (``convlstm_narrow.gate_convs``) and gate kernel, and the units as on
+    the "fused" route."""
+    out = {k: v for k, v in _path_launches(passes, steps).items()
+           if not k.startswith(("narrow_convlstm_layer", "fused_convlstm_layer_multi"))}
+    n = passes * steps
+    out.update({"gate_convs": 4 * n, "fused_lstm_gates": 4 * n, "narrow_convlstm_layer": 0,
+                "fused_convlstm_layer_multi": 0})
+    return out
+
+
+def _sharded_generations(params, devices, label, use_pallas="fused"):
     """The sharded evaluator (program cache on, and eager) against the
-    unsharded one, generation after generation of one population: every
-    output and the fitness bit-equal; returns the sharded evaluators'
-    launch counts."""
+    unsharded one, generation after generation of one population, on the
+    predictor's route ``use_pallas``: every output and the fitness
+    bit-equal; returns the sharded evaluators' launch counts."""
     import numpy as np
     import torch
 
@@ -2484,9 +2679,10 @@ def _sharded_generations(params, devices, label):
     cfg = preset("circles")
     mesh = make_mesh(devices=devices)
     n = mesh.size
-    single = GenerationEvaluator(EvalConfig(), params, cfg, device="cuda")
-    graph = ShardedGenerationEvaluator(EvalConfig(), params, cfg, mesh)
-    eager = ShardedGenerationEvaluator(EvalConfig(program_cache=False), params, cfg, mesh)
+    single = GenerationEvaluator(EvalConfig(use_pallas=use_pallas), params, cfg, device="cuda")
+    graph = ShardedGenerationEvaluator(EvalConfig(use_pallas=use_pallas), params, cfg, mesh)
+    eager = ShardedGenerationEvaluator(EvalConfig(program_cache=False, use_pallas=use_pallas),
+                                       params, cfg, mesh)
     pop = Population(cfg, seed=0)
     report = []
 
@@ -2515,7 +2711,9 @@ def _sharded_generations(params, devices, label):
             row[name] = (int(ref["mask"].sum()), launched)
             if name == "eager":
                 chunks = len(res["outputs"]._chunks)
-                expect = _path_launches(chunks * n, STEPS)
+                expect = (_path_launches(chunks * n, STEPS) if use_pallas == "fused"
+                          else _true_route_launches(chunks * n, STEPS))
+                expect = {k: v for k, v in expect.items() if v}
                 if launched != expect:
                     raise AssertionError(f"parallel ({label}): eager launches {launched}, "
                                          f"expected {expect} ({chunks} chunks x {n} shards)")
@@ -2575,6 +2773,10 @@ def parallel_phase(params, card):
 
     counts = _sharded_generations(params, ["cuda:0"] * PARALLEL_SHARDS,
                                   f"cuda:0 x {PARALLEL_SHARDS}")
+    # the True route: its gate convs sum each pixel in one order too
+    true = _sharded_generations(params, ["cuda:0"] * PARALLEL_SHARDS,
+                                f"cuda:0 x {PARALLEL_SHARDS}, use_pallas=True", use_pallas=True)
+    counts = {k: v + true[k] for k, v in counts.items()}
     if torch.cuda.device_count() >= 2:
         more = _sharded_generations(params, [f"cuda:{i}" for i in range(2)], "cuda:0, cuda:1")
         counts = {k: v + more[k] for k, v in counts.items()}
@@ -3105,7 +3307,8 @@ def profile_generation(params):
                 raise AssertionError(f"profile (eager): ops on the upsampled layer-1 R {view}: "
                                      f"{ups}")
             log(f"    no op takes the upsampled layer-1 R {view}; narrow kernels a chunk "
-                f"{ran['narrow_convlstm_layer']}, gate kernels {ran['fused_lstm_gates']}")
+                f"{ran['narrow_convlstm_layer/persistent']}, gate kernels "
+                f"{ran['fused_lstm_gates']}")
         for line in lines:
             log("    " + line)
 
@@ -3127,7 +3330,7 @@ def bisect():
     want = dict.fromkeys(counts, 1 + kb.LOOP_OPS * (1 + kb.REPS))
     for name in want:
         if name.split("/")[0] in ("fused_convlstm_layer_multi", "narrow_convlstm_layer",
-                                  *UNIT_WRAPPERS):
+                                  "gate_convs", *UNIT_WRAPPERS):
             want[name] = 0  # not on the ladder
     if counts != want:
         raise AssertionError(f"bisect: kernel launches {counts}, expected {want}")

@@ -50,6 +50,16 @@ _SIGNATURES = {
         _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
         _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
     ),
+    # the narrow layer's persistent body (csrc/convlstm_narrow_hopper.cu)
+    "eigen_convlstm_narrow_persistent": (
+        _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
+        _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # the True route's gate convs (csrc/convlstm_narrow.cu)
+    "eigen_gate_convs": (
+        _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
+        _P, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+    ),
     # the PredNet units (csrc/prednet_units.cu)
     "eigen_ahat_error_unit": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "eigen_a_unit": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),

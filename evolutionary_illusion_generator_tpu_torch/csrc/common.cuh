@@ -38,6 +38,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(valid ? 16 : 0));
 }
+// 16 bytes global -> shared of which the first `bytes` (0 .. 16) are read
+// and the rest written as zeros; `src` 16-byte aligned and readable for
+// `bytes` bytes.
+__device__ __forceinline__ void cp_async16_partial(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }

@@ -1,7 +1,13 @@
 // One narrow ConvLSTM layer update (C < 32: the pixel layer, C = 3 or 1,
 // and layer 1 of 1,16,32,64) in one pass: the gate convolution of E, R and
 // the upsampled R_above, the bias, the gate nonlinearities and the cell
-// update.
+// update.  This is the narrow layer's mma.sync body: float32 compute and
+// the widths csrc/convlstm_narrow_hopper.cu's persistent body does not take
+// (ops/convlstm_narrow.py::narrow_plan picks the body).  The same sums with
+// the gates written out (gate_convs_kernel, eigen_gate_convs) are the True
+// route's gate convs on every layer (ops/convlstm_narrow.py::gate_convs):
+// each pixel summed in one order whatever the batch, as cuDNN's convs,
+// which they replace there, were not.
 //
 // Replaces no TPU kernel of its own: it is the redesign of this card's port
 // of evolutionary_illusion_generator_tpu/ops/convlstm_pallas.py
@@ -95,37 +101,42 @@ __device__ __forceinline__ float round_to(float v) {
   return eigen::to_float(eigen::from_float<CT>(v));
 }
 
-template <int NOUT, typename CT, typename ST>
-__global__ void __launch_bounds__(Shape<NOUT>::NT) convlstm_narrow_kernel(Params p) {
+// The block's gates for channels c0 .. c0 + NOUT / 4 (the thread's D
+// fragments, NTW n8 tiles of MT m16 tiles): each source's conv rounded to
+// the compute type, E's + bias, + R's, + R_above's, each add rounded.
+template <int NOUT, typename CT>
+__device__ __forceinline__ void gate_sums(unsigned char* smem, const Params& p, int c0,
+                                          float (&gates)[MT][Shape<NOUT>::NTW][4]) {
   using S = Shape<NOUT>;
-  constexpr int NT = S::NT, NTW = S::NTW, EP = S::EP;
+  constexpr int NT = S::NT, NTW = S::NTW;
   constexpr bool kKahan = std::is_same<CT, float>::value;  // see Accumulation
-  extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int wn = warp / WARPS_M;
+  const int tig = lane & 3;  // mma fragment column pair
   const eigen::igemm::Tiling& t = p.t;
   const eigen::igemm::Block blk = eigen::igemm::block_tile(t);
 
-  // the bias of the thread's D fragment columns n = 4 c + gate (0 past 4C)
+  // the bias of the thread's D fragment columns n = 4 (c - c0) + gate (0
+  // past C)
   float bias[NTW][2];
 #pragma unroll
   for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int n = (wn * NTW + nt) * 8 + 2 * tig + j;
-      const int k = (n & 3) * t.C + (n >> 2);
+      const int c = c0 + (n >> 2);
+      const int k = (n & 3) * t.C + c;
       bias[nt][j] = 0.0f;
-      if (n < 4 * t.C)  // the bias cast to the compute type
+      if (c < t.C)  // the bias cast to the compute type
         bias[nt][j] = round_to<CT>(
             p.bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.bias)[k])
                         : static_cast<const float*>(p.bias)[k]);
     }
 
   // acc: the tap's (or chunk's) sums; tot, comp: the source's, and the
-  // low-order part tot has lost (Kahan); gates: the running gates
-  float acc[MT][NTW][4], tot[MT][NTW][4], comp[MT][NTW][4], gates[MT][NTW][4];
+  // low-order part tot has lost (Kahan)
+  float acc[MT][NTW][4], tot[MT][NTW][4], comp[MT][NTW][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -177,24 +188,47 @@ __global__ void __launch_bounds__(Shape<NOUT>::NT) convlstm_narrow_kernel(Params
       src_end += si == 1 ? p.src[1].chunks : p.src[2].chunks;
     }
   };
-  eigen::igemm::conv3x3<NOUT, NT, NTW, true>(smem, p.src, p.n_chunks, t, blk, 0, acc, tap_done,
+  eigen::igemm::conv3x3<NOUT, NT, NTW, true>(smem, p.src, p.n_chunks, t, blk, c0, acc, tap_done,
                                              chunk_done);
-  __syncthreads();  // the epilogue reuses the stages
+}
 
-  // D fragment: rows = pixels gid, gid + 8; columns = outputs 2 tig (+1)
-  float* ep = reinterpret_cast<float*>(smem);  // [TM][EP]; the stages are done
+// the thread's D fragments into the epilogue's rows of floats: rows =
+// pixels gid, gid + 8; columns = outputs 2 tig (+1)
+template <int NOUT>
+__device__ __forceinline__ void gates_to_smem(float* ep,
+                                              const float (&gates)[MT][Shape<NOUT>::NTW][4]) {
+  using S = Shape<NOUT>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int m = (wm * MT + mt) * 16 + gid;
 #pragma unroll
-    for (int nt = 0; nt < NTW; ++nt) {
-      const int n = (wn * NTW + nt) * 8 + 2 * tig;
-      ep[m * EP + n] = gates[mt][nt][0];
-      ep[m * EP + n + 1] = gates[mt][nt][1];
-      ep[(m + 8) * EP + n] = gates[mt][nt][2];
-      ep[(m + 8) * EP + n + 1] = gates[mt][nt][3];
+    for (int nt = 0; nt < S::NTW; ++nt) {
+      const int n = (wn * S::NTW + nt) * 8 + 2 * tig;
+      ep[m * S::EP + n] = gates[mt][nt][0];
+      ep[m * S::EP + n + 1] = gates[mt][nt][1];
+      ep[(m + 8) * S::EP + n] = gates[mt][nt][2];
+      ep[(m + 8) * S::EP + n + 1] = gates[mt][nt][3];
     }
   }
+}
+
+template <int NOUT, typename CT, typename ST>
+__global__ void __launch_bounds__(Shape<NOUT>::NT) convlstm_narrow_kernel(Params p) {
+  using S = Shape<NOUT>;
+  constexpr int NT = S::NT, EP = S::EP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const eigen::igemm::Tiling& t = p.t;
+  const eigen::igemm::Block blk = eigen::igemm::block_tile(t);
+  float gates[MT][S::NTW][4];
+  gate_sums<NOUT, CT>(smem, p, 0, gates);
+  __syncthreads();  // the epilogue reuses the stages
+
+  float* ep = reinterpret_cast<float*>(smem);  // [TM][EP]; the stages are done
+  gates_to_smem<NOUT>(ep, gates);
   __syncthreads();
   // the gate math of csrc/lstm_gates.cu, one thread per (pixel, channel)
   const ST* c_prev = static_cast<const ST*>(p.c_prev);
@@ -217,6 +251,39 @@ __global__ void __launch_bounds__(Shape<NOUT>::NT) convlstm_narrow_kernel(Params
   }
 }
 
+// The True route's gate convs (ops/convlstm_narrow.py::gate_convs):
+// gate_sums over the channel group blockIdx.y of NOUT / 4 channels, the
+// gates written out gate-major ([i | f | o | g], C each) in the compute
+// type, for csrc/lstm_gates.cu to read.
+template <int NOUT, typename CT>
+__global__ void __launch_bounds__(Shape<NOUT>::NT) gate_convs_kernel(Params p, CT* gates_out) {
+  using S = Shape<NOUT>;
+  constexpr int NT = S::NT, EP = S::EP, NC = NOUT / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const eigen::igemm::Tiling& t = p.t;
+  const eigen::igemm::Block blk = eigen::igemm::block_tile(t);
+  const int c0 = blockIdx.y * NC;
+  float gates[MT][S::NTW][4];
+  gate_sums<NOUT, CT>(smem, p, c0, gates);
+  __syncthreads();  // the gates reuse the stages
+
+  float* ep = reinterpret_cast<float*>(smem);
+  gates_to_smem<NOUT>(ep, gates);
+  __syncthreads();
+  // a pixel's gates of the group: four runs of nc channels, one a gate
+  const int nc = min(NC, t.C - c0);
+  for (int i = tid; i < TM * 4 * nc; i += NT) {
+    const int m = i / (4 * nc), j = i % (4 * nc);
+    const int gate = j / nc, cl = j % nc;
+    const int q = blk.q0 + m;
+    const int row = q / t.tw, x = blk.x0 + q % t.tw;
+    if (row >= t.rows || x >= t.W) continue;
+    gates_out[((long long)row * t.W + x) * 4 * t.C + gate * t.C + c0 + cl] =
+        eigen::from_float<CT>(ep[m * EP + 4 * cl + gate]);
+  }
+}
+
 template <int NOUT, typename CT, typename ST>
 int launch(const Params& p, cudaStream_t st) {
   const int bytes = eigen::igemm::smem_bytes(p.t, NOUT, Shape<NOUT>::EP);
@@ -236,6 +303,40 @@ int launch_types(const Params& p, int compute_bf16, int state_bf16, cudaStream_t
   return state_bf16 ? launch<NOUT, float, bf16>(p, st) : launch<NOUT, float, float>(p, st);
 }
 
+template <int NOUT, typename CT>
+int launch_gate_convs(const Params& p, int groups, void* gates_out, cudaStream_t st) {
+  const int bytes = eigen::igemm::smem_bytes(p.t, NOUT, Shape<NOUT>::EP);
+  const cudaError_t rc = cudaFuncSetAttribute(gate_convs_kernel<NOUT, CT>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  gate_convs_kernel<NOUT, CT><<<dim3(eigen::igemm::pixel_blocks(p.t), groups), Shape<NOUT>::NT,
+                                bytes, st>>>(p, static_cast<CT*>(gates_out));
+  return (int)cudaGetLastError();
+}
+
+template <int NOUT>
+int launch_gate_types(const Params& p, int groups, int compute_bf16, void* gates_out,
+                      cudaStream_t st) {
+  return compute_bf16 ? launch_gate_convs<NOUT, __nv_bfloat16>(p, groups, gates_out, st)
+                      : launch_gate_convs<NOUT, float>(p, groups, gates_out, st);
+}
+
+// the sources, tiling and bias of either entry; false on a bad argument
+bool make_params(Params& p, const void* x0, const void* w0, int cin0, const void* x1,
+                 const void* w1, int cin1, const void* x2, const void* w2, int cin2, int n_src,
+                 const void* bias, int bias_bf16, int B, int H, int W, int C, int tw) {
+  if (n_src < 2 || n_src > MAX_SOURCES || tw < 1 || tw > W || C < 1) return false;
+  if (n_src == 3 && (H % 2 || W % 2)) return false;
+  const void* xs[MAX_SOURCES] = {x0, x1, x2};
+  const void* wts[MAX_SOURCES] = {w0, w1, w2};
+  const int cins[MAX_SOURCES] = {cin0, cin1, cin2};
+  if (!eigen::igemm::make_sources(p.src, p.n_chunks, xs, wts, cins, n_src, 2)) return false;
+  p.t = eigen::igemm::make_tiling(B, H, W, C, tw);
+  p.bias = bias;
+  p.bias_bf16 = bias_bf16;
+  return true;
+}
+
 }  // namespace
 
 // x0 (E): (B, H, W, cin0); x1 (R): (B, H, W, cin1); x2 (R_above, n_src = 3
@@ -253,19 +354,12 @@ extern "C" int eigen_convlstm_narrow(const void* x0, const void* w0, int cin0,
                                      const void* c_prev,
                                      int state_bf16, void* h_out, void* c_out, int B, int H,
                                      int W, int C, int tw, void* stream) {
-  if (n_src < 2 || n_src > MAX_SOURCES || tw < 1 || tw > W || C < 1 || C >= 32)
-    return (int)cudaErrorInvalidValue;
-  if (n_src == 3 && (H % 2 || W % 2)) return (int)cudaErrorInvalidValue;
+  if (C >= 32 || B < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || W == 0) return (int)cudaSuccess;
   Params p{};
-  const void* xs[MAX_SOURCES] = {x0, x1, x2};
-  const void* wts[MAX_SOURCES] = {w0, w1, w2};
-  const int cins[MAX_SOURCES] = {cin0, cin1, cin2};
-  if (!eigen::igemm::make_sources(p.src, p.n_chunks, xs, wts, cins, n_src, 2))
+  if (!make_params(p, x0, w0, cin0, x1, w1, cin1, x2, w2, cin2, n_src, bias, bias_bf16, B, H, W,
+                   C, tw))
     return (int)cudaErrorInvalidValue;
-  p.t = eigen::igemm::make_tiling(B, H, W, C, tw);
-  p.bias = bias;
-  p.bias_bf16 = bias_bf16;
   p.c_prev = c_prev;
   p.h_out = h_out;
   p.c_out = c_out;
@@ -275,4 +369,28 @@ extern "C" int eigen_convlstm_narrow(const void* x0, const void* w0, int cin0,
   if (n <= 32) return launch_types<32>(p, compute_bf16, state_bf16, st);
   if (n <= 64) return launch_types<64>(p, compute_bf16, state_bf16, st);
   return launch_types<128>(p, compute_bf16, state_bf16, st);
+}
+
+// The gate convs alone (the True route's), any C: sources, weights, bias
+// and compute type as above; gates_out: (B, H, W, 4C) gate-major in the
+// compute type.  C < 32: one block holds all 4C outputs; else channel
+// groups of 32 (N 128) along the grid's second axis.  Launches on `stream`
+// and returns the CUDA error of the launch.
+extern "C" int eigen_gate_convs(const void* x0, const void* w0, int cin0, const void* x1,
+                                const void* w1, int cin1, const void* x2, const void* w2,
+                                int cin2, int n_src, const void* bias, int bias_bf16,
+                                int compute_bf16, void* gates_out, int B, int H, int W, int C,
+                                int tw, void* stream) {
+  if (B < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || W == 0) return (int)cudaSuccess;
+  Params p{};
+  if (!make_params(p, x0, w0, cin0, x1, w1, cin1, x2, w2, cin2, n_src, bias, bias_bf16, B, H, W,
+                   C, tw))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n = 4 * C;
+  if (n <= 16) return launch_gate_types<16>(p, 1, compute_bf16, gates_out, st);
+  if (n <= 32) return launch_gate_types<32>(p, 1, compute_bf16, gates_out, st);
+  if (n <= 64) return launch_gate_types<64>(p, 1, compute_bf16, gates_out, st);
+  return launch_gate_types<128>(p, (C + 31) / 32, compute_bf16, gates_out, st);
 }

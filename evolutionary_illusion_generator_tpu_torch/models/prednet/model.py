@@ -51,7 +51,10 @@ evaluator's route):
 
 * ``True``: split gate convs and the gate kernel on every layer, and the A
   and Ahat units' kernels as on ``"fused"`` (its SatLU is the same
-  ``min(max(x, 0), 1)``);
+  ``min(max(x, 0), 1)``); with bfloat16 weights, no s2d pixel layer and no
+  ``subpixel_up``, the split convs are one kernel that writes the gates,
+  :func:`..ops.convlstm_narrow.gate_convs` (each pixel summed in one order
+  whatever the batch), the rest cuDNN's;
 * ``False`` (the JAX default, which the trainer differentiates): split
   per-source ``F.conv2d`` gate convs in the compute dtype and the plain
   gate math (:func:`_lstm_gates`) in the gates' dtype, on every layer.
@@ -97,7 +100,7 @@ import torch.nn.functional as F
 from ...ops.convlstm_fused import fused_convlstm_layer_multi
 from ...ops.convlstm_gates import fused_lstm_gates
 from ...ops.convlstm_narrow import COMPUTE_DTYPES as NARROW_COMPUTE_DTYPES
-from ...ops.convlstm_narrow import narrow_convlstm_layer
+from ...ops.convlstm_narrow import gate_convs, narrow_convlstm_layer
 from ...ops.prednet_units import COMPUTE_DTYPES as UNIT_COMPUTE_DTYPES
 from ...ops.prednet_units import STATE_DTYPES as UNIT_STATE_DTYPES
 from ...ops.prednet_units import a_unit, a_unit_plain, ahat_error_unit, ahat_error_unit_plain
@@ -657,7 +660,17 @@ def prednet_step(params, state, frame, *, use_pallas: Union[bool, str] = "fused"
                 wks.append(p["lstm_k_up"])
             h, c = narrow_convlstm_layer(srcs, wks, p["lstm_b"], s["c"], compute_dtype=cd)
         else:
-            gates = _gate_convs(p, s, r_above, cd, s2d_here, subpixel_up, cudnn)
+            if (use_pallas is True and peephole is None and not s2d_here and not subpixel_up
+                    and p["lstm_w_e"].dtype == torch.bfloat16 and cd in NARROW_COMPUTE_DTYPES):
+                # the True route's dense layers: the same split convs, summed
+                # in one order whatever the batch (cuDNN's were not)
+                srcs, wks = [s["e"], s["r"]], [p["lstm_k_e"], p["lstm_k_r"]]
+                if r_above is not None:
+                    srcs.append(r_above)
+                    wks.append(p["lstm_k_up"])
+                gates = gate_convs(srcs, wks, p["lstm_b"], compute_dtype=cd)
+            else:
+                gates = _gate_convs(p, s, r_above, cd, s2d_here, subpixel_up, cudnn)
             if use_pallas is not False and peephole is None:
                 h, c = fused_lstm_gates(gates.contiguous(), s["c"], out_dtype=dtype)
             else:

@@ -53,7 +53,8 @@ def cudnn_pinned(on: bool = True):
 @contextlib.contextmanager
 def op_trace(calls: List[dict]):
     """Appends ``{"op", "inputs", "output"}`` for every ``F.conv2d``,
-    kernel wrapper call (the ConvLSTM kernels and the A and Ahat units) and
+    kernel wrapper call (the ConvLSTM kernels, the True route's gate convs
+    and the A and Ahat units) and
     int8 conv (``model._conv_q``) ``prednet_step`` makes inside the block."""
     from ..models.prednet import model
 
@@ -78,8 +79,8 @@ def op_trace(calls: List[dict]):
             return res
         return call
 
-    names = ("fused_lstm_gates", "narrow_convlstm_layer", "fused_convlstm_layer_multi",
-             "ahat_error_unit", "a_unit", "_conv_q")
+    names = ("fused_lstm_gates", "narrow_convlstm_layer", "gate_convs",
+             "fused_convlstm_layer_multi", "ahat_error_unit", "a_unit", "_conv_q")
     saved = F.conv2d, [getattr(model, name) for name in names]
     F.conv2d = recorded("conv2d", saved[0])
     for name, fn in zip(names, saved[1]):

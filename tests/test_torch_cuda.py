@@ -241,12 +241,165 @@ def test_cuda_narrow_kernel_rows_do_not_follow_the_batch():
     b = torch.zeros(4 * C, device="cuda", dtype=torch.bfloat16)
     c_prev = torch.from_numpy(rng.normal(0, 1, (B, H, W, C)).astype(np.float32)).cuda().bfloat16()
     stream = torch.cuda.current_stream().cuda_stream
-    whole = cn.launch(srcs, wks, b, c_prev, torch.bfloat16, stream)
+    # the mma.sync body at its own strip width, then at another (the
+    # persistent body's rows: test_cuda_narrow_persistent_rows_do_not_follow_the_batch)
+    whole = cn.launch(srcs, wks, b, c_prev, torch.bfloat16, stream, tw=cn.tile_width(B, H, W))
     part = cn.launch([x[2:5].contiguous() for x in srcs], wks, b, c_prev[2:5].contiguous(),
                      torch.bfloat16, stream, tw=5)
     torch.cuda.synchronize()
     for a, p in zip(whole, part):
         assert torch.equal(a[2:5], p)
+
+
+# The narrow layer's bodies at the shapes chip_smoke.py checks (its
+# NARROW_SHAPES and NARROW_ODD: a coarse width of 19, R_above of 12 channels,
+# which only the mma.sync body takes, no R_above at an odd H and W) and the
+# north star's pixel layer, (B, H, W, C, C_above)
+NARROW_BODY_SHAPES = {
+    "main": (8, 120, 160, 3, 48),
+    "gray_pixel": (8, 120, 160, 1, 16),
+    "gray_layer1": (8, 60, 80, 16, 32),
+    "top": (8, 30, 40, 3, None),
+    "odd_width": (3, 26, 38, 3, 48),
+    "odd_r_above": (2, 14, 22, 16, 12),
+    "odd_hw": (2, 9, 13, 1, None),
+    "north_star": (25, 480, 640, 3, 48),
+}
+
+
+def _narrow_case(seed, B, H, W, C, C_above, state=torch.bfloat16):
+    """Sources in [-1, 1] as a rollout's are, weights at init_params' scale,
+    bias and c_prev, made by numpy, on the card."""
+    rng = np.random.default_rng(seed)
+    cins = [2 * C, C] + ([C_above] if C_above else [])
+    shapes = [(B, H, W, 2 * C), (B, H, W, C)] + ([(B, H // 2, W // 2, C_above)] if C_above
+                                                 else [])
+    srcs = [torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32)).cuda().bfloat16()
+            for s in shapes]
+    wks = [pack_gate_weight(torch.from_numpy(
+        rng.normal(0, 1 / np.sqrt(9 * sum(cins)), (3, 3, ci, 4 * C)).astype(np.float32))).cuda()
+        for ci in cins]
+    b = torch.from_numpy(rng.normal(0, 0.3, 4 * C).astype(np.float32)).cuda().bfloat16()
+    c_prev = torch.from_numpy(rng.normal(0, 1, (B, H, W, C)).astype(np.float32)).cuda().to(state)
+    return srcs, wks, b, c_prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,state", [(shape, state) for shape in sorted(NARROW_BODY_SHAPES)
+                                         for state in ("bf16", "f32")
+                                         if shape != "north_star" or state == "bf16"])
+def test_cuda_narrow_bodies_against_the_float64_chain(shape, state):
+    """bfloat16 compute: the wrapper launches its plan's body (counted by
+    body: the persistent one at the pixel layers), and every body
+    that takes the shape (the mma.sync body beside the persistent one) and
+    the plain version give h and c within one ulp at each rounding point of
+    the rounded float64 chain (``convlstm_narrow.chain_float64``)."""
+    _cuda_or_skip()
+    B, H, W, C, C_above = NARROW_BODY_SHAPES[shape]
+    sd = torch.bfloat16 if state == "bf16" else torch.float32
+    srcs, wks, b, c_prev = _narrow_case(23, B, H, W, C, C_above, sd)
+    plan = cn.narrow_plan(B, H, W, C, C_above, torch.bfloat16, sd)
+    # the pixel layers on the persistent body; C 16 (layer 1 of 1,16,32,64)
+    # and R_above of 12 channels on the mma.sync body
+    assert plan.body == ("persistent" if C <= 3 and C_above != 12 else "mma_sync"), plan
+    before = dict(narrow_convlstm_layer.body_launches)
+    outs = {plan.body: narrow_convlstm_layer(srcs, wks, b, c_prev)}
+    assert narrow_convlstm_layer.body_launches[plan.body] == before[plan.body] + 1
+    stream = torch.cuda.current_stream().cuda_stream
+    outs["mma_sync"] = cn.launch(srcs, wks, b, c_prev, torch.bfloat16, stream,
+                                 tw=cn.tile_width(B, H, W))
+    outs["plain"] = cn.narrow_convlstm_layer_plain(srcs, wks, b, c_prev,
+                                                   compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    chain = cn.chain_float64(srcs, wks, b, c_prev)
+    for name, (h, c) in outs.items():
+        assert h.dtype == c.dtype == sd, name
+        for got, want, bound in ((h, chain["h"], chain["dh"]), (c, chain["c"], chain["dc"])):
+            off = (got.double() - want).abs() > bound
+            assert not off.any(), (name, off.float().mean().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["main", "gray_pixel", "top", "odd_width", "north_star"])
+def test_cuda_narrow_persistent_rows_do_not_follow_the_batch(shape):
+    """The persistent body sums a pixel in one order whatever the batch,
+    the tile or the grid: a batch of 1 and of 3 of the whole batch's rows,
+    at every tile width that fits and other grids, bit-equal to those rows
+    of the whole batch at its own plan."""
+    _cuda_or_skip()
+    B, H, W, C, C_above = NARROW_BODY_SHAPES[shape]
+    srcs, wks, b, c_prev = _narrow_case(29, B, H, W, C, C_above)
+    stream = torch.cuda.current_stream().cuda_stream
+    whole = cn.launch(srcs, wks, b, c_prev, torch.bfloat16, stream)
+    own = cn.narrow_plan(B, H, W, C, C_above)
+    assert own.body == "persistent"
+    for r0, n in ((B - 1, 1), (B // 2 - 1, 3)):
+        rows = [x[r0:r0 + n].contiguous() for x in srcs]
+        for tw in cn.PERSISTENT_TILES:
+            for per in (1, 2):
+                p = cn.persistent_plan(n, H, W, C, C_above, tile_w=tw, blocks_per_sm=per)
+                if p.smem > cn.SMEM_PER_BLOCK:
+                    continue
+                part = cn.launch(rows, wks, b, c_prev[r0:r0 + n].contiguous(), torch.bfloat16,
+                                 stream, plan=p._replace(blocks=p.blocks // per + 5 * per))
+                torch.cuda.synchronize()
+                for a, q in zip(whole, part):
+                    assert torch.equal(a[r0:r0 + n], q), (r0, n, p)
+
+
+# the gate convs of the True route at each layer of 3,48,96,192 (a chunk of
+# 2 at 160x120): (H, W, C, C_above or None)
+GATE_CONV_LAYERS = ((120, 160, 3, 48), (60, 80, 48, 96), (30, 40, 96, 192), (15, 20, 192, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["bf16", "f32"])
+@pytest.mark.parametrize("layer", range(len(GATE_CONV_LAYERS)))
+def test_cuda_gate_convs_against_the_split_convs(layer, cd):
+    """``convlstm_narrow.gate_convs`` (the True route's gate convs: the
+    mma.sync body with its gates written out, channel groups of 32 at C >=
+    32) against ``model._gate_convs`` (cuDNN's convs, the route before it)
+    and the rounded float64 chain.  bfloat16: each within one ulp at each
+    rounding point of the chain (2**-7 of each point), so the two within
+    two, on at most STEP_DIFF_SHARE of the elements apart; float32: within
+    NARROW_F32_ATOL (float32 sums in another order).  Counted on its
+    wrapper; rows bit-equal for a batch of 1."""
+    _cuda_or_skip()
+    from evolutionary_illusion_generator_tpu_torch.models.prednet import model
+
+    H, W, C, C_above = GATE_CONV_LAYERS[layer]
+    ct = torch.bfloat16 if cd == "bf16" else torch.float32
+    srcs, wks, b, _ = _narrow_case(31 + layer, 2, H, W, C, C_above)
+    p = {"lstm_w_e": convlstm_fused.unpack_gate_weight(wks[0]),
+         "lstm_w_r": convlstm_fused.unpack_gate_weight(wks[1]), "lstm_b": b}
+    if C_above:
+        p["lstm_w_up"] = convlstm_fused.unpack_gate_weight(wks[2])
+    n = cn.gate_convs.launches
+    got = cn.gate_convs(srcs, wks, b, compute_dtype=ct)
+    assert cn.gate_convs.launches == n + 1
+    want = model._gate_convs(p, {"e": srcs[0], "r": srcs[1]}, srcs[2] if C_above else None, ct,
+                             False, False)
+    one = cn.gate_convs([x[1:2] for x in srcs], wks, b, compute_dtype=ct)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == ct and got.shape == want.shape
+    assert torch.equal(one, got[1:2])
+    d = (got.double() - want.double()).abs()
+    if ct == torch.float32:
+        assert d.max().item() <= NARROW_F32_ATOL
+        return
+    xs = [x.double() for x in srcs]
+    if C_above:
+        xs[2] = xs[2].repeat_interleave(2, 1).repeat_interleave(2, 2)
+    g, err = b.double(), 0.0
+    for x, wk in zip(xs, wks):
+        v = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2),
+                                       convlstm_fused.unpack_gate_weight(wk).double(),
+                                       padding=1).permute(0, 2, 3, 1).bfloat16().double()
+        g = (g + v).bfloat16().double()
+        err = err + 2.0**-7 * (v.abs() + g.abs())
+    for out in (got, want):
+        assert ((out.double() - g).abs() <= err).all()
+    assert (d <= 2 * err).all() and (d > 0).float().mean().item() <= STEP_DIFF_SHARE
 
 
 @pytest.mark.cuda
@@ -870,7 +1023,7 @@ def test_cuda_graph_replay_equals_the_eager_pass(monkeypatch):
     from evolutionary_illusion_generator_tpu_torch.utils.profiling import PORT_KERNELS
 
     ran = _trace_counts(lambda: graph(list(items)),
-                        ("convlstm_narrow_kernel", "convlstm_fused_wgmma_kernel",
+                        (PORT_KERNELS["narrow_convlstm_layer"], "convlstm_fused_wgmma_kernel",
                          "lstm_gates_kernel", PORT_KERNELS["ahat_error_unit"],
                          PORT_KERNELS["a_unit"]))
     assert ran == [2 * 22, 2 * 66, 0, 2 * 88, 2 * 66] and [w.launches for w in counted] == n
@@ -1007,14 +1160,12 @@ def test_cuda_sharded_evaluator_on_a_repeated_device(n_shards, shape):
 # pass at the main path's 160x120, 3,48,96,192 (the bundled weights), a
 # population of 10 from seed 3 in two shards: the largest fitness gap, as
 # scripts/shard_divergence.py measured it on an H100 (NVIDIA H100 80GB
-# HBM3, 700 W).  The "fused" route, its s2d pixel layer and the int8
-# predictor are bit-equal (every op equal over 22 steps).  The True route's
-# cuDNN gate convs and the plain route's bfloat16 cuDNN convs round a row by
-# the batch (the first op apart: layer 2's gate conv of E, and on the plain
-# route layer 2's A conv), and their fitness moves by up to the bound here;
-# the units' kernels, which both routes' A and Ahat units take (the plain
-# route: its convs), are equal on every route.
-SHARD_ROUTE_GAPS = {"fused": 0.0, "s2d": 0.0, "int8": 0.0, "true": 0.0084, "false": 0.0173}
+# HBM3, 700 W).  The "fused" route, its s2d pixel layer, the int8 predictor
+# and the True route (its gate convs on convlstm_narrow.gate_convs) are
+# bit-equal (every op equal over 22 steps).  The plain route's bfloat16
+# cuDNN convs round a row by the batch (the first op apart: layer 2's A
+# conv), and its fitness moves by up to the bound here.
+SHARD_ROUTE_GAPS = {"fused": 0.0, "s2d": 0.0, "int8": 0.0, "true": 0.0, "false": 0.0173}
 
 
 @pytest.mark.cuda
@@ -1121,6 +1272,21 @@ def test_cuda_wrappers_refuse_tensors_off_the_current_device(wrapper, monkeypatc
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
     with pytest.raises(RuntimeError, match="current CUDA device is cuda:1"):
         call()
+
+
+@pytest.mark.cuda
+def test_cuda_true_route_takes_the_gate_convs():
+    """``use_pallas=True`` on the card: every layer's gates from
+    ``convlstm_narrow.gate_convs`` (no cuDNN conv of a gate), then the gate
+    kernel, 22 steps of the three layers of 3,48,96."""
+    _cuda_or_skip()
+    single, _, items = _parallel_evaluators(1, use_pallas=True, program_cache=False)
+    counted = (cn.gate_convs, fused_lstm_gates, narrow_convlstm_layer)
+    n = [w.launches for w in counted]
+    scores = single(list(items))
+    torch.cuda.synchronize()
+    assert [w.launches - m for w, m in zip(counted, n)] == [22 * 3, 22 * 3, 0]
+    assert np.isfinite(scores).all()
 
 
 @pytest.mark.cuda
