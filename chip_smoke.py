@@ -22,8 +22,11 @@ Phases, each printing its wall time and raising on failure:
    compute (the mma.sync body) against float64 sums, and odd widths at
    every plan, timed beside the route they replaced (cuDNN convs, upsample,
    adds, gate kernel) as the yardstick; the True route's gate convs
-   (``convlstm_narrow.gate_convs``) at the main path's four layers against
-   the cuDNN convs they replaced and the float64 chain; the gate kernel in
+   (``convlstm_narrow.gate_convs``: ``csrc/gate_convs_wgmma.cu``'s wgmma
+   body at C >= 32, asserted by launches by body, the mma.sync body at the
+   pixel layer) at the main path's and the north star's four layers
+   against the cuDNN convs they replaced and the float64 chain, timed beside
+   the mma.sync body, cuDNN and the bound; the gate kernel in
    both its contracts (the main path's bfloat16 one and the JAX function's
    float32 one), timed on the device (``device_ms``) beside the host's call
    rate (``call_ms``), at the s2d pixel layer's shape (8, 60, 80, 12), and
@@ -105,8 +108,9 @@ Phases, each printing its wall time and raising on failure:
    three generations (program cache on and off), bit-equal to the unsharded
    evaluator (images, flow frames, vectors, masks, fitness), with 22
    narrow, 66 fused, 88 Ahat-unit and 66 A-unit launches per shard's eager
-   pass, and the same on the ``use_pallas=True`` route (88 gate-conv and
-   88 gate-kernel launches a shard's pass)
+   pass, and the same on the ``use_pallas=True`` route (88 gate-conv
+   launches a shard's pass, 66 on the wgmma body and 22 on the mma.sync
+   body, and 88 gate-kernel launches)
    (on two real devices too where the machine has them, else one line
    says it could not); one data-parallel step of the train phase's recipe
    on two shards against one device (the train phase's rules); a spatial
@@ -316,6 +320,7 @@ OVERLAY_RED = (255, 0, 0)
 TRACE_KERNELS = {"narrow_convlstm_layer/persistent": ("convlstm_narrow_persistent_kernel", STEPS),
                  "narrow_convlstm_layer/mma_sync": ("convlstm_narrow_kernel", 0),
                  "gate_convs": ("gate_convs_kernel", 0),
+                 "gate_convs/wgmma": ("gate_convs_wgmma_kernel", 0),
                  "fused_convlstm_layer_multi": ("convlstm_fused_wgmma_kernel", STEPS * 3),
                  "ahat_error_unit/wgmma": ("::ahat_error_unit_wgmma_kernel<", STEPS * 3),
                  "ahat_error_unit/direct": ("::ahat_error_unit_kernel_direct<", STEPS),
@@ -552,8 +557,11 @@ def build():
     kernel = ""
     for line in _build.build_log().splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
+        wgmma = re.search(r"\((C7517|C7518)\).*function '(\w+)'", line)
         if entry:
             kernel = _entry_name(entry.group(1))
+        elif wgmma:  # ptxas waited for, or serialised, a kernel's wgmma products
+            log(f"  ptxas {_entry_name(wgmma.group(2))}: {line.split(':', 1)[-1].strip()[:160]}")
         elif ("registers" in line or "spill" in line) and "(C7519)" not in line:
             log(f"  ptxas {kernel}: " + line.split(":", 1)[-1].strip())
 
@@ -969,12 +977,21 @@ def check_narrow(gen, params):
 
 
 def check_gate_convs(gen, params):
-    """The True route's gate convs (``convlstm_narrow.gate_convs``: the
-    mma.sync body with its gates written out) at each layer of the main
-    path's step, a chunk of 8 (the bundled weights), in bfloat16 compute:
-    within one ulp at each rounding point of the rounded float64 chain, as
-    ``model._gate_convs`` (the cuDNN convs it replaced, the library time);
-    times summed over a step's four layers (CUDA graph replays)."""
+    """The True route's gate convs (``convlstm_narrow.gate_convs``) at each
+    layer of the main path's step (a chunk of 8) and of the north star's (a
+    chunk of 25 at 640x480), the bundled weights, in bfloat16 compute: the
+    wrapper on its plan's body (counted by body: the wgmma body,
+    ``csrc/gate_convs_wgmma.cu``, at C >= 32; the mma.sync body at the
+    pixel layer), and the mma.sync body as it ran before the wgmma body
+    (its strip width for the batch) beside it; each within one ulp at each
+    rounding point of the rounded float64 chain on all but
+    UNIT_BEYOND_SHARE of the gates (at the north star on DRIFT_IMAGES
+    images), as ``model._gate_convs`` (the cuDNN split convs it replaced,
+    the library time).  Times as CUDA graph replays: the wrapper, the
+    mma.sync body, the plain version and cuDNN beside the bound and its
+    share, summed over a step's four layers.  Returns the wrapper's row
+    and one per body (``"gate_convs/<body>"``: the wgmma body's layers, the
+    mma.sync body at all four)."""
     import torch
 
     from evolutionary_illusion_generator_tpu_torch.models.prednet import model
@@ -982,61 +999,109 @@ def check_gate_convs(gen, params):
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_narrow as cn
 
     bf16 = torch.bfloat16
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
-    worst, layers = 0.0, []
-    for l, (H, W, C, C_above) in enumerate(UNIT_LAYERS):
-        p = params[l]
-        shapes = [(MAIN_BATCH, H, W, 2 * C), (MAIN_BATCH, H, W, C)] + (
-            [(MAIN_BATCH, H // 2, W // 2, C_above)] if C_above else [])
-        srcs = [torch.rand(s, device="cuda", generator=gen).mul_(2).sub_(1).bfloat16()
-                for s in shapes]
-        wks = [p["lstm_k_e"], p["lstm_k_r"]] + ([p["lstm_k_up"]] if C_above else [])
-        n = cn.gate_convs.launches
-        got = cn.gate_convs(srcs, wks, p["lstm_b"])
-        if cn.gate_convs.launches != n + 1:
-            raise AssertionError("gate_convs: no launch counted")
-        r_above = srcs[2] if C_above else None
-        want = model._gate_convs(p, {"e": srcs[0], "r": srcs[1]}, r_above, bf16, False, False)
-        xs = [x.double() for x in srcs]
-        if C_above:
-            xs[2] = xs[2].repeat_interleave(2, 1).repeat_interleave(2, 2)
-        g, err = p["lstm_b"].to(bf16).double(), 0.0
-        for x, wk in zip(xs, wks):
-            v = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2),
-                                           cf.unpack_gate_weight(wk).double(),
-                                           padding=1).permute(0, 2, 3, 1).to(bf16).double()
-            g = (g + v).to(bf16).double()
-            err = err + 2.0**-7 * (v.abs() + g.abs())
-        torch.cuda.synchronize()
-        for name, t in (("gate_convs", got), ("model._gate_convs", want)):
-            off = ((t.double() - g).abs() > err).float().mean().item()
-            if off > UNIT_BEYOND_SHARE or t.dtype != bf16:
-                raise AssertionError(f"{name} layer {l}: {off:.3e} of the gates beyond one ulp "
-                                     f"at each rounding point of the float64 chain")
-        d = (got.float() - want.float()).abs()
-        worst = max(worst, d.max().item())
-        flops = 2.0 * MAIN_BATCH * H * W * 9 * sum(s[-1] for s in shapes) * 4 * C
-        moved = nbytes(*srcs, *wks, p["lstm_b"], got)
-        row = dict(layer=l, ms=graph_ms(lambda: cn.gate_convs(srcs, wks, p["lstm_b"]), 50),
-                   plain_ms=graph_ms(lambda: cn.gate_convs_plain(
-                       srcs, wks, p["lstm_b"], compute_dtype=bf16), 50),
-                   library_ms=graph_ms(lambda: model._gate_convs(
-                       p, {"e": srcs[0], "r": srcs[1]}, r_above, bf16, False, False), 50),
-                   ops_ms=flops / PEAK_BF16_FLOPS * 1e3, bytes_ms=moved / PEAK_BYTES_PER_S * 1e3,
-                   differ=(d > 0).float().mean().item())
-        layers.append(row)
-        for k in tot:
-            tot[k] += row[k]
-        log(f"  gate_convs layer {l} {MAIN_BATCH}x{H}x{W} C={C}: {row['ms'] * 1e3:.2f} us, "
-            f"model._gate_convs (cuDNN) {row['library_ms'] * 1e3:.2f} us; {row['differ']:.2e} of "
-            f"the gates apart, max {d.max().item():.3e}")
-    b_by = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
-    return dict(route="cuda",
-                source="evolutionary_illusion_generator_tpu_torch/csrc/convlstm_narrow.cu",
-                replaces="evolutionary_illusion_generator_tpu/models/prednet/model.py:467",
-                max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
-                library_ms=tot["library_ms"], bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
-                bound_by=b_by, layers=layers)
+    wrapper = cn.gate_convs
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = {"main": (MAIN_BATCH, UNIT_LAYERS),
+              "north_star": (NORTH_STAR_CHUNK, NORTH_STAR_UNIT_LAYERS)}
+    keys = ("ms", "mma_sync_ms", "plain_ms", "library_ms", "ops_ms", "bytes_ms")
+    steps, worst = {}, 0.0
+    for label, (B, layers) in shapes.items():
+        rows = []
+        for l, (H, W, C, C_above) in enumerate(layers):
+            p = params[l]
+            cins = [2 * C, C] + ([C_above] if C_above else [])
+            srcs = [torch.rand(B, H, W, 2 * C, device="cuda", generator=gen),
+                    torch.rand(B, H, W, C, device="cuda", generator=gen)]
+            if C_above:
+                srcs.append(torch.rand(B, H // 2, W // 2, C_above, device="cuda", generator=gen))
+            srcs = [x.mul_(2).sub_(1).to(bf16) for x in srcs]
+            wks = [p["lstm_k_e"], p["lstm_k_r"]] + ([p["lstm_k_up"]] if C_above else [])
+            b = p["lstm_b"]
+            plan = cn.gate_plan(H, W, C)
+            if plan.body != ("wgmma" if C >= cn.GATE_WGMMA_MIN_C else "mma_sync"):
+                raise AssertionError(f"gate_convs {label} layer {l}: plan {plan}")
+            n, before = wrapper.launches, dict(wrapper.body_launches)
+            got = wrapper(srcs, wks, b)
+            if not (wrapper.launches == n + 1
+                    and wrapper.body_launches[plan.body] == before[plan.body] + 1):
+                raise AssertionError(f"gate_convs {label} layer {l}: launches by body "
+                                     f"{wrapper.body_launches} (before {before})")
+            old_plan = cf.Plan("mma_sync", 32, 0, cf.tile_width(B, H, W), 0)
+            old = cn.launch_gates(srcs, wks, b, bf16, stream, plan=old_plan)
+            r_above = srcs[2] if C_above else None
+            want = model._gate_convs(p, {"e": srcs[0], "r": srcs[1]}, r_above, bf16, False, False)
+            torch.cuda.synchronize()
+            k = DRIFT_IMAGES if B > MAIN_BATCH else B  # the float64 chain of 25 images is slow
+            g, err, _ = cn.gate_chain_float64([x[:k] for x in srcs], wks, b)
+            beyond = {}
+            for name, t in (("gate_convs", got), ("mma_sync", old), ("model._gate_convs", want)):
+                beyond[name] = ((t[:k].double() - g).abs() > err).float().mean().item()
+                if beyond[name] > UNIT_BEYOND_SHARE or t.dtype != bf16 or t.shape != want.shape:
+                    raise AssertionError(f"{name} {label} layer {l}: {beyond[name]:.3e} of the "
+                                         f"gates beyond one ulp at each rounding point of the "
+                                         f"float64 chain")
+            d = (got.float() - want.float()).abs()
+            worst = max(worst, d.max().item())
+            flops = 2.0 * B * H * W * 9 * sum(cins) * 4 * C
+            moved = nbytes(*srcs, *wks, b, got)
+            iters = 20 if B > MAIN_BATCH else 50
+            row = dict(layer=l, body=plan.body, plan=list(plan),
+                       ms=graph_ms(lambda: wrapper(srcs, wks, b), iters),
+                       mma_sync_ms=graph_ms(lambda: cn.launch_gates(  # the capture's stream
+                           srcs, wks, b, bf16, torch.cuda.current_stream().cuda_stream,
+                           plan=old_plan), iters),
+                       plain_ms=graph_ms(lambda: cn.gate_convs_plain(
+                           srcs, wks, b, compute_dtype=bf16), iters),
+                       library_ms=graph_ms(lambda: model._gate_convs(
+                           p, {"e": srcs[0], "r": srcs[1]}, r_above, bf16, False, False), iters),
+                       ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
+                       bytes_ms=moved / PEAK_BYTES_PER_S * 1e3,
+                       differ=(d > 0).float().mean().item(), beyond=beyond)
+            bound = max(row["ops_ms"], row["bytes_ms"])
+            rows.append(row)
+            log(f"  gate_convs {label} layer {l} {B}x{H}x{W} C={C} sources {cins} (CUDA graph "
+                f"replays): {plan.body} body {row['ms'] * 1e3:.2f} us, {bound / row['ms']:.1%} of "
+                f"its {bound * 1e3:.2f} us bound ({flops / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB); "
+                f"mma.sync body {row['mma_sync_ms'] * 1e3:.2f} us; model._gate_convs (cuDNN) "
+                f"{row['library_ms'] * 1e3:.2f} us; plain {row['plain_ms'] * 1e3:.2f} us; "
+                f"{row['differ']:.2e} of the gates apart from cuDNN's, max {d.max().item():.3e}; "
+                f"beyond one ulp of the chain {beyond}; plan {tuple(plan)}")
+            del srcs, got, old, want, g, err, d
+        steps[label] = rows
+    out = {}
+    csrc = "evolutionary_illusion_generator_tpu_torch/csrc/"
+    # the wrapper (its plan's body at each layer), the wgmma body's layers,
+    # and the mma.sync body (as it launched before the wgmma body) at all four
+    for key, src, ms_key, body in (("gate_convs", "gate_convs_wgmma.cu", "ms", None),
+                                   ("gate_convs/wgmma", "gate_convs_wgmma.cu", "ms", "wgmma"),
+                                   ("gate_convs/mma_sync", "convlstm_narrow.cu", "mma_sync_ms",
+                                    None)):
+        sums = {}
+        for label, rows in steps.items():
+            rows = [r for r in rows if body is None or r["body"] == body]
+            tot = {k: sum(r[k] for r in rows) for k in keys}
+            tot["ms"] = tot[ms_key]
+            tot["bound_ms"] = max(tot["ops_ms"], tot["bytes_ms"])
+            tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+            tot["layers"] = [r["layer"] for r in rows]
+            sums[label] = tot
+        main = sums["main"]
+        out[key] = dict(route="cuda", source=csrc + src,
+                        sources=[csrc + "gate_convs_wgmma.cu", csrc + "convlstm_narrow.cu"],
+                        replaces="evolutionary_illusion_generator_tpu/models/prednet/model.py:467",
+                        max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                        library_ms=main["library_ms"], mma_sync_ms=main["mma_sync_ms"],
+                        layers=main["layers"], north_star=sums["north_star"])
+        log(f"  {key}: a step's layers {main['layers']}: main {main['ms']:.4f} ms "
+            f"({main['bound_ms'] / main['ms']:.1%} of the bound), the mma.sync body "
+            f"{main['mma_sync_ms']:.4f}, cuDNN {main['library_ms']:.4f}; north star "
+            f"{sums['north_star']['ms']:.4f} ms "
+            f"({sums['north_star']['bound_ms'] / sums['north_star']['ms']:.1%}), the mma.sync "
+            f"body {sums['north_star']['mma_sync_ms']:.4f}, cuDNN "
+            f"{sums['north_star']['library_ms']:.4f}")
+    out["gate_convs"]["steps"] = steps
+    return out
 
 
 def _unit_err(got, want, cd, *points):
@@ -1402,7 +1467,7 @@ def check_kernels(params):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {"fused_lstm_gates": check_gates(gen), **check_narrow(gen, params),
-               "gate_convs": check_gate_convs(gen, params), **check_units(gen, params)}
+               **check_gate_convs(gen, params), **check_units(gen, params)}
     stream = torch.cuda.current_stream().cuda_stream
 
     def check_out(label, out, ref):
@@ -1677,12 +1742,13 @@ def _reset_counts():
 
 UNIT_WRAPPERS = ("ahat_error_unit", "a_unit")
 # the wrappers counted by body in the paths' launches
-BY_BODY = (*UNIT_WRAPPERS, "narrow_convlstm_layer")
+BY_BODY = (*UNIT_WRAPPERS, "narrow_convlstm_layer", "gate_convs")
 
 
 def _counts():
     """The launches of each wrapper since the last reset, and of each body
-    of the units and the narrow layer (``"<wrapper>/<body>"``, which
+    of the units, the narrow layer and the gate convs
+    (``"<wrapper>/<body>"``, which
     :func:`_path_launches` sets out); raises if a fused layer took the
     mma_sync body (every fused layer of the driven paths has sources of
     channels a multiple of 8, 16-byte aligned: the wgmma body, launch for
@@ -2648,12 +2714,14 @@ def _held_in_the_mean(label, got, want):
 def _true_route_launches(passes, steps):
     """The launches of ``passes`` chunk (or shard) passes on the
     ``use_pallas=True`` route at 3,48,96,192: each layer's gate convs
-    (``convlstm_narrow.gate_convs``) and gate kernel, and the units as on
-    the "fused" route."""
+    (``convlstm_narrow.gate_convs``: the three wide layers' on the wgmma
+    body, the pixel layer's on the mma.sync body) and gate kernel, and the
+    units as on the "fused" route."""
     out = {k: v for k, v in _path_launches(passes, steps).items()
            if not k.startswith(("narrow_convlstm_layer", "fused_convlstm_layer_multi"))}
     n = passes * steps
-    out.update({"gate_convs": 4 * n, "fused_lstm_gates": 4 * n, "narrow_convlstm_layer": 0,
+    out.update({"gate_convs": 4 * n, "gate_convs/wgmma": 3 * n, "gate_convs/mma_sync": n,
+                "fused_lstm_gates": 4 * n, "narrow_convlstm_layer": 0,
                 "fused_convlstm_layer_multi": 0})
     return out
 
@@ -3566,6 +3634,9 @@ def main():
     for row in rows:  # every path's fused launches took the wgmma body (_counts checks it)
         if row["name"] in ("fused_convlstm_layer_multi", "fused_convlstm_layer"):
             row["bodies"] = {"wgmma": row["launches"], "mma_sync": 0}
+        if row["name"] == "gate_convs":  # the gate convs' launches by body
+            row["bodies"] = {body: sum(c.get(f"gate_convs/{body}", 0) for c in paths)
+                             for body in ("wgmma", "mma_sync")}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

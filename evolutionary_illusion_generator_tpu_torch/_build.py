@@ -60,6 +60,11 @@ _SIGNATURES = {
         _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
         _P, _I, _I, _P, _I, _I, _I, _I, _I, _P,
     ),
+    # their wgmma body (csrc/gate_convs_wgmma.cu)
+    "eigen_gate_convs_wgmma": (
+        _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
+        _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
     # the PredNet units (csrc/prednet_units.cu)
     "eigen_ahat_error_unit": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "eigen_a_unit": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),

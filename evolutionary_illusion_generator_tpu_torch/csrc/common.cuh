@@ -388,6 +388,13 @@ __device__ __forceinline__ void cluster_arrive() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
+// An arrival that orders no memory access of this thread before the
+// others' wait: where the barrier only says that each thread's reads of a
+// ring slot are done (wgmma.wait_group has returned), not that its writes
+// are visible.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
 
 // wgmma matrix descriptor of a K-major bfloat16 operand.  Start address, lbo
 // and sbo in 16-byte units, 14 bits each; base offset 0.  `addr` is a

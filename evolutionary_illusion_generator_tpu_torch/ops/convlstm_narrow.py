@@ -39,7 +39,19 @@ pixel's products in different orders, and a shard has a smaller batch):
 :func:`gate_convs` is the same split-conv math stopped at the gates, on
 any width: the ``True`` route's gate convs on the card (its gates then go
 to :func:`.convlstm_gates.fused_lstm_gates`), summed in one order whatever
-the batch, as cuDNN's convs were not.
+the batch, as cuDNN's convs were not.  Two bodies, picked by
+:func:`gate_plan` from the layer's shape, channels and compute dtype and
+whether the TMA can address its sources, never from the batch:
+
+- ``"wgmma"`` (``csrc/gate_convs_wgmma.cu``; bfloat16 compute, C >= 32,
+  every source's channels a multiple of 8): the fused kernel's ``wgmma``
+  body (a tile of one image and a channel group of 48, 32 or 16 a block,
+  a TMA ring of three or four chunks, cluster-multicast weights) with one float32
+  chain a source rounded at the source's end, and R_above's coarse box
+  expanded 2x in shared memory;
+- ``"mma_sync"`` (``csrc/convlstm_narrow.cu``'s ``gate_convs_kernel``):
+  float32 compute (its compensated sums), C < 32 (one block holds all 4C
+  outputs) and sources the TMA cannot address.
 """
 
 from __future__ import annotations
@@ -51,19 +63,33 @@ import torch
 
 from .. import _build
 from ..utils import debug_nans
-from .convlstm_fused import SMS, TILE_PIXELS, tile_width, unpack_gate_weight
+from .convlstm_fused import (
+    CHANNEL_GROUPS,
+    SMS,
+    TILE_PIXELS,
+    Plan,
+    tile_shapes,
+    tile_width,
+    unpack_gate_weight,
+)
 from .convlstm_gates import count_launch, kernel_stream, lstm_gates_plain, refuse_grad
 
 __all__ = [
     "BODIES",
     "COMPUTE_DTYPES",
+    "GATE_BODIES",
     "MAX_CHANNELS",
     "NarrowPlan",
     "chain_float64",
+    "coarse_box",
+    "gate_body",
+    "gate_chain_float64",
     "gate_convs",
     "gate_convs_plain",
     "gate_groups",
+    "gate_plan",
     "launch",
+    "launch_gates",
     "mma_sync_smem",
     "narrow_body",
     "narrow_convlstm_layer",
@@ -208,21 +234,16 @@ def narrow_plan(B: int, H: int, W: int, C: int, C_above: Optional[int],
     return NarrowPlan("mma_sync", tile_w=tw, smem=mma_sync_smem(C, tw))
 
 
-def chain_float64(srcs: Sequence[torch.Tensor], wks: Sequence[torch.Tensor], b: torch.Tensor,
-                  c_prev: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The narrow route's chain in float64, rounded to the compute dtype at
-    each of its rounding points (each source's conv, E's + the bias, + R's,
-    + R_above's), then the gate math in float64; beside it, how far one
-    ulp at each rounding point can move h and c (2**-7 of each point's
-    magnitude for bfloat16, 2**-23 for float32, carried through the gate
-    math's derivatives, plus one ulp of h's and c's own rounding to the
-    state dtype and 1e-6 for the float32 gate math).  Returns h, c, their
-    bounds ``dh``, ``dc`` and the unrounded float64 c ``c_exact``."""
+def gate_chain_float64(srcs: Sequence[torch.Tensor], wks: Sequence[torch.Tensor],
+                       b: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16):
+    """The split gate convs' chain in float64, rounded to the compute dtype
+    at each of its rounding points (each source's conv, E's + the bias,
+    + R's, + R_above's), and beside it one ulp at each of those points
+    summed (2**-7 of each point's magnitude for bfloat16, 2**-23 for
+    float32).  Returns (gates, bound, unrounded gates), gate-major, float64."""
     F = torch.nn.functional
-    C = c_prev.shape[-1]
     rb = (lambda t: t.to(compute_dtype).double())
     u = 2.0**-7 if compute_dtype == torch.bfloat16 else 2.0**-23
-    us = 2.0**-7 if c_prev.dtype == torch.bfloat16 else 2.0**-23
     xs = [x.to(torch.bfloat16).double() for x in srcs]
     if len(xs) == 3:
         xs[2] = xs[2].repeat_interleave(2, 1).repeat_interleave(2, 2)
@@ -235,6 +256,20 @@ def chain_float64(srcs: Sequence[torch.Tensor], wks: Sequence[torch.Tensor], b: 
         g = rb(g + v)
         g_exact = g_exact + conv
         err = err + u * (v.abs() + g.abs())
+    return g, err, g_exact
+
+
+def chain_float64(srcs: Sequence[torch.Tensor], wks: Sequence[torch.Tensor], b: torch.Tensor,
+                  c_prev: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The narrow route's chain in float64: :func:`gate_chain_float64`,
+    then the gate math in float64; beside it, how far one ulp at each
+    rounding point can move h and c (the gates' bound carried through the
+    gate math's derivatives, plus one ulp of h's and c's own rounding to the
+    state dtype and 1e-6 for the float32 gate math).  Returns h, c, their
+    bounds ``dh``, ``dc`` and the unrounded float64 c ``c_exact``."""
+    C = c_prev.shape[-1]
+    us = 2.0**-7 if c_prev.dtype == torch.bfloat16 else 2.0**-23
+    g, err, g_exact = gate_chain_float64(srcs, wks, b, compute_dtype)
     cp = c_prev.double()
 
     def cell(gates):
@@ -436,7 +471,7 @@ narrow_convlstm_layer.body_launches = dict.fromkeys(BODIES, 0)  # launches by bo
 
 
 def gate_groups(C: int):
-    """The channel groups of :func:`gate_convs`' launch: all 4C gate
+    """The channel groups of :func:`gate_convs`' mma.sync body: all 4C gate
     outputs of a layer of C < 32 in one block (N = 16, 32, 64 or 128), else
     groups of 32 channels (N = 128, the grid's second axis), the last
     masked past C.  Returns (N, [(c0, channels), ...])."""
@@ -445,13 +480,104 @@ def gate_groups(C: int):
     return 128, [(c0, min(32, C - c0)) for c0 in range(0, C, 32)]
 
 
+GATE_BODIES = ("wgmma", "mma_sync")
+#: The narrowest layer of the gate convs' wgmma body: below it one block of
+#: the mma.sync body holds all 4C gate outputs (the pixel layers).
+GATE_WGMMA_MIN_C = 32
+#: R_above's box of coarse pixels a chunk in the wgmma body's shared memory
+#: (``csrc/gate_convs_wgmma.cu``'s ``COARSE_PX``): at least
+#: :func:`coarse_box`'s pixels for every tile of :func:`.convlstm_fused.tile_shapes`.
+COARSE_PIXELS = 104
+
+
+def gate_body(C: int, compute_dtype: torch.dtype, tma: bool) -> str:
+    """The gate convs' body from the layer's channels, the compute dtype and
+    whether the TMA can address every source (channels a multiple of 8):
+    ``"wgmma"`` in bfloat16 compute at C >= :data:`GATE_WGMMA_MIN_C`, else
+    ``"mma_sync"``."""
+    if compute_dtype == torch.bfloat16 and C >= GATE_WGMMA_MIN_C and tma:
+        return "wgmma"
+    return "mma_sync"
+
+
+def coarse_box(tile_h: int, tile_w: int):
+    """R_above's box in coarse pixels (rows, columns) for a ``tile_h x
+    tile_w`` tile of the wgmma body: the coarse rows ``(y0 - 1) >> 1 ..
+    (y0 + tile_h) >> 1`` its halo reads, whatever the parity of ``y0``, and
+    the same along x."""
+    return tile_h // 2 + 2, tile_w // 2 + 2
+
+
+#: The wgmma body's time a block at each channel group, relative: measured
+#: on an H100 at the north star's layers 1-3, every group at the same tile
+#: (``scripts/fused_breakdown.py --body gates --cg``).  N 128 runs a ring of
+#: four chunks and N 64 two blocks an SM, so neither costs in proportion
+#: to N against N 192.
+GATE_GROUP_COST = {48: 192, 32: 113, 16: 63}
+
+
+def _gate_cost(H: int, W: int, C: int, cg: int, shape):
+    """The wgmma body's cost of one image at channel group ``cg`` and tile
+    ``shape``: its blocks, each :data:`GATE_GROUP_COST` (without the waves,
+    which follow the batch); then the tile pixels computed past the image's
+    edges; then the wider tile."""
+    th, tw, _ = shape
+    tiles = -(-H // th) * -(-W // tw)
+    return tiles * -(-C // cg) * GATE_GROUP_COST[cg], tiles * th * tw, -tw
+
+
+@functools.lru_cache(maxsize=None)
+def gate_plan(H: int, W: int, C: int, compute_dtype: torch.dtype = torch.bfloat16,
+              tma: bool = True) -> Plan:
+    """The gate convs' launch at a layer of ``H x W`` and C channels: the
+    body of :func:`gate_body`; on the wgmma body the channel group and tile
+    (:func:`.convlstm_fused.tile_shapes`) of the least :func:`_gate_cost`;
+    on the mma.sync body its strip width for one image (``cg`` is then its
+    block's channels, :func:`gate_groups`).  Never from the batch: a shard
+    of a batch takes the plan of the whole."""
+    if gate_body(C, compute_dtype, tma) == "wgmma":
+        cg, shape = min(((cg, s) for cg in CHANNEL_GROUPS for s in tile_shapes(W)),
+                        key=lambda cs: _gate_cost(H, W, C, *cs))
+        return Plan("wgmma", cg, *shape)
+    return Plan("mma_sync", gate_groups(C)[0] // 4, 0, tile_width(1, H, W), 0)
+
+
+def launch_gates(srcs, wks, b, compute_dtype, stream: int, plan: Optional[Plan] = None):
+    """Run the gate convs' kernel on device tensors at ``plan`` (default
+    :func:`gate_plan`; another plan of the same body sums every pixel in
+    the same order).  Returns the gates ``(B, H, W, 4C)`` in the compute
+    dtype.  Counts nothing: the wrapper does."""
+    B, H, W, C = srcs[1].shape
+    xs, args = _source_args(srcs, wks)
+    tma = all(x.shape[3] % 8 == 0 for x in xs)
+    plan = gate_plan(H, W, C, compute_dtype, tma) if plan is None else plan
+    if plan.body == "wgmma" and gate_body(C, compute_dtype, tma) != "wgmma":
+        raise ValueError(f"the gate convs' wgmma body does not take C {C}, sources "
+                         f"{[x.shape[3] for x in xs]} in {compute_dtype}")
+    if plan.body == "mma_sync" and not 1 <= plan.tile_w <= W:
+        raise ValueError(f"strip width {plan.tile_w} outside 1..{W}")
+    bias = b.contiguous()
+    gates = torch.empty(B, H, W, 4 * C, dtype=compute_dtype, device=b.device)
+    args += [len(xs), bias.data_ptr(), int(bias.dtype == torch.bfloat16)]
+    lib = _build.library()
+    if plan.body == "wgmma":
+        rc = lib.eigen_gate_convs_wgmma(*args, gates.data_ptr(), B, H, W, C, plan.cg,
+                                        plan.tile_h, plan.tile_w, plan.wg_stride, stream)
+    else:
+        rc = lib.eigen_gate_convs(*args, int(compute_dtype == torch.bfloat16), gates.data_ptr(),
+                                  B, H, W, C, plan.tile_w, stream)
+    if rc != 0:
+        raise RuntimeError(f"gate_convs kernel ({plan.body} body) launch failed: CUDA error {rc}")
+    return gates
+
+
 def gate_convs(srcs: Sequence[torch.Tensor], wks: Sequence[torch.Tensor], b: torch.Tensor, *,
                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """A layer's split gate convs, as the ``True`` route sums them: the
-    kernel (``csrc/convlstm_narrow.cu``'s mma.sync body with its gates
-    written out, :func:`gate_groups`' channel groups) on CUDA tensors, the
-    plain version :func:`gate_convs_plain` on CPU tensors.  Each pixel is
-    summed in one order whatever the batch.
+    kernel of :func:`gate_plan`'s body (counted by body on
+    ``body_launches``) on CUDA tensors, the plain version
+    :func:`gate_convs_plain` on CPU tensors.  Each pixel is summed in one
+    order whatever the batch.
 
     Args:
       srcs: E ``(B, H, W, 2C)``, R ``(B, H, W, C)`` and optionally R_above
@@ -476,19 +602,15 @@ def gate_convs(srcs: Sequence[torch.Tensor], wks: Sequence[torch.Tensor], b: tor
         if b.device.type != "cuda":
             raise ValueError(f"unsupported device {b.device}")
         stream = kernel_stream("gate_convs", b.device)
-        xs, args = _source_args(srcs, wks)
-        bias = b.contiguous()
-        gates = torch.empty(B, H, W, 4 * C, dtype=compute_dtype, device=b.device)
-        rc = _build.library().eigen_gate_convs(
-            *args, len(xs), bias.data_ptr(), int(bias.dtype == torch.bfloat16),
-            int(compute_dtype == torch.bfloat16), gates.data_ptr(), B, H, W, C,
-            tile_width(B, H, W), stream)
-        if rc != 0:
-            raise RuntimeError(f"gate_convs kernel launch failed: CUDA error {rc}")
+        plan = gate_plan(H, W, C, compute_dtype, all(x.shape[3] % 8 == 0 for x in srcs))
+        gates = launch_gates(srcs, wks, b, compute_dtype, stream, plan=plan)
         count_launch(gate_convs)
+        if not torch.cuda.is_current_stream_capturing():
+            gate_convs.body_launches[plan.body] += 1
         debug_nans.check("gate_convs", gates)
         return gates
 
 
 gate_convs.launches = 0
 gate_convs.captured = 0
+gate_convs.body_launches = dict.fromkeys(GATE_BODIES, 0)  # launches by body

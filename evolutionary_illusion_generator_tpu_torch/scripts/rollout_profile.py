@@ -4,7 +4,10 @@ The port's counterpart of the JAX package's ``scripts/rollout_profile.py``:
 
 1. runs the rollout the evaluator runs (``rollout_flow_frames``, the
    default ``"fused"`` route, bfloat16 compute, ``--s2d 1`` the s2d pixel
-   layer as the JAX script defaults, ``--s2d 0`` the dense one) at the
+   layer as the JAX script defaults, ``--s2d 0`` the dense one;
+   ``--use_pallas true`` the ``use_pallas=True`` route instead: the gate
+   convs of ``convlstm_narrow.gate_convs`` and the gate kernel on every
+   layer) at the
    north-star chunk (25 x 480x640x3, 20 + 2 steps, the seeded predictor
    ``init_params(PRNGKey(0))``, images ``uniform(PRNGKey(1))`` as JAX
    draws them) and times it: the median of three runs after a warm-up;
@@ -20,7 +23,8 @@ The port's counterpart of the JAX package's ``scripts/rollout_profile.py``:
    name and power limit, and the table's rows::
 
     python3 -m evolutionary_illusion_generator_tpu_torch.scripts.rollout_profile \\
-        [--s2d 0|1] [--pop 25] [--width 640] [--height 480] [--channels 3,48,96,192] \\
+        [--s2d 0|1] [--use_pallas fused|true] [--pop 25] [--width 640] [--height 480] \\
+        [--channels 3,48,96,192] \\
         [--repeat 20] [--device cpu]
 
 Without ``--device cpu`` it needs a CUDA card.
@@ -42,6 +46,8 @@ from ..utils.profiling import by_wrapper, card_line, device_events, kernel_table
 __all__ = ["main"]
 
 TOP = 40  # rows of the kernel table, as the JAX script prints
+#: ``--use_pallas`` -> the rollout's ``use_pallas``
+ROUTES = {"fused": "fused", "true": True}
 
 
 def _sync(device: torch.device) -> None:
@@ -59,6 +65,8 @@ def main(argv=None) -> dict:
     p.add_argument("--channels", default="3,48,96,192")
     p.add_argument("--repeat", type=int, default=20)
     p.add_argument("--s2d", default="1", choices=("0", "1"))
+    p.add_argument("--use_pallas", default="fused", choices=sorted(ROUTES),
+                   help="the predictor's route (EvalConfig.use_pallas)")
     p.add_argument("--device", default=None,
                    help="'cpu' for the plain versions; default: the CUDA card")
     args = p.parse_args(argv)
@@ -76,10 +84,11 @@ def main(argv=None) -> dict:
         with torch.inference_mode():
             return rollout_flow_frames(params, imgs, repeat=args.repeat, extension=2,
                                        pair="population", compute_dtype=torch.bfloat16,
-                                       s2d_l0=s2d)
+                                       s2d_l0=s2d, use_pallas=ROUTES[args.use_pallas])
 
-    print(f"[profile] device={device} ({card}) pop={pop} {w}x{h} stack={channels} s2d={s2d}",
-          flush=True)
+    route = "" if args.use_pallas == "fused" else f" use_pallas={args.use_pallas}"
+    print(f"[profile] device={device} ({card}) pop={pop} {w}x{h} stack={channels} s2d={s2d}"
+          f"{route}", flush=True)
     t0 = time.perf_counter()
     roll()
     _sync(device)
@@ -119,6 +128,8 @@ def main(argv=None) -> dict:
             "kernels": [{"name": n, "count": c, "ms": us / 1e3,
                          "share": us / 1e6 / totals["busy_s"] if totals["busy_s"] else 0.0}
                         for n, c, us in events[:TOP]]}
+    if args.use_pallas != "fused":  # the default route's line is as it was
+        line["use_pallas"] = args.use_pallas
     print(json.dumps(line), flush=True)
     return line
 

@@ -357,13 +357,13 @@ GATE_CONV_LAYERS = ((120, 160, 3, 48), (60, 80, 48, 96), (30, 40, 96, 192), (15,
 @pytest.mark.parametrize("layer", range(len(GATE_CONV_LAYERS)))
 def test_cuda_gate_convs_against_the_split_convs(layer, cd):
     """``convlstm_narrow.gate_convs`` (the True route's gate convs: the
-    mma.sync body with its gates written out, channel groups of 32 at C >=
-    32) against ``model._gate_convs`` (cuDNN's convs, the route before it)
-    and the rounded float64 chain.  bfloat16: each within one ulp at each
-    rounding point of the chain (2**-7 of each point), so the two within
-    two, on at most STEP_DIFF_SHARE of the elements apart; float32: within
-    NARROW_F32_ATOL (float32 sums in another order).  Counted on its
-    wrapper; rows bit-equal for a batch of 1."""
+    wgmma body in bfloat16 compute at C >= 32, else the mma.sync body,
+    counted by body) against ``model._gate_convs`` (cuDNN's convs, the
+    route before it) and the rounded float64 chain.  bfloat16: each within
+    one ulp at each rounding point of the chain (2**-7 of each point), so
+    the two within two, on at most STEP_DIFF_SHARE of the elements apart;
+    float32: within NARROW_F32_ATOL (float32 sums in another order).
+    Counted on its wrapper; rows bit-equal for a batch of 1."""
     _cuda_or_skip()
     from evolutionary_illusion_generator_tpu_torch.models.prednet import model
 
@@ -374,9 +374,11 @@ def test_cuda_gate_convs_against_the_split_convs(layer, cd):
          "lstm_w_r": convlstm_fused.unpack_gate_weight(wks[1]), "lstm_b": b}
     if C_above:
         p["lstm_w_up"] = convlstm_fused.unpack_gate_weight(wks[2])
-    n = cn.gate_convs.launches
+    n, bodies = cn.gate_convs.launches, dict(cn.gate_convs.body_launches)
     got = cn.gate_convs(srcs, wks, b, compute_dtype=ct)
     assert cn.gate_convs.launches == n + 1
+    bodies["wgmma" if ct == torch.bfloat16 and C >= 32 else "mma_sync"] += 1
+    assert cn.gate_convs.body_launches == bodies
     want = model._gate_convs(p, {"e": srcs[0], "r": srcs[1]}, srcs[2] if C_above else None, ct,
                              False, False)
     one = cn.gate_convs([x[1:2] for x in srcs], wks, b, compute_dtype=ct)
@@ -387,19 +389,61 @@ def test_cuda_gate_convs_against_the_split_convs(layer, cd):
     if ct == torch.float32:
         assert d.max().item() <= NARROW_F32_ATOL
         return
-    xs = [x.double() for x in srcs]
-    if C_above:
-        xs[2] = xs[2].repeat_interleave(2, 1).repeat_interleave(2, 2)
-    g, err = b.double(), 0.0
-    for x, wk in zip(xs, wks):
-        v = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2),
-                                       convlstm_fused.unpack_gate_weight(wk).double(),
-                                       padding=1).permute(0, 2, 3, 1).bfloat16().double()
-        g = (g + v).bfloat16().double()
-        err = err + 2.0**-7 * (v.abs() + g.abs())
+    g, err, _ = cn.gate_chain_float64(srcs, wks, b)
     for out in (got, want):
         assert ((out.double() - g).abs() <= err).all()
     assert (d <= 2 * err).all() and (d > 0).float().mean().item() <= STEP_DIFF_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [1, 2, 3])
+def test_cuda_gate_convs_wgmma_rows_do_not_follow_the_batch(layer):
+    """The wgmma body sums a pixel in one order whatever the batch, the
+    tile, the channel group or the grid: rows of a batch of 1 and of 3 of
+    the whole batch of 8, at every channel group and at tiles of other
+    shapes (so other grids), bit-equal to those rows of the whole batch at
+    its own plan; and every gate within one ulp at each rounding point of
+    the float64 chain there."""
+    _cuda_or_skip()
+    H, W, C, C_above = GATE_CONV_LAYERS[layer]
+    srcs, wks, b, _ = _narrow_case(37 + layer, 8, H, W, C, C_above)
+    stream = torch.cuda.current_stream().cuda_stream
+    own = cn.gate_plan(H, W, C)
+    assert own.body == "wgmma"
+    whole = cn.launch_gates(srcs, wks, b, torch.bfloat16, stream)
+    shapes = convlstm_fused.tile_shapes(W)
+    plans = [convlstm_fused.Plan("wgmma", cg, *shape) for cg in convlstm_fused.CHANNEL_GROUPS
+             for shape in (shapes[0], shapes[len(shapes) // 2], shapes[-1])]
+    for r0, k in ((7, 1), (2, 3)):
+        rows = [x[r0:r0 + k].contiguous() for x in srcs]
+        for p in plans:
+            part = cn.launch_gates(rows, wks, b, torch.bfloat16, stream, plan=p)
+            torch.cuda.synchronize()
+            assert torch.equal(whole[r0:r0 + k], part), (r0, k, p)
+    g, err, _ = cn.gate_chain_float64([x[:2] for x in srcs], wks, b)
+    assert ((whole[:2].double() - g).abs() <= err).all()
+
+
+@pytest.mark.cuda
+def test_cuda_gate_convs_take_the_mma_sync_body_where_the_tma_cannot_go():
+    """A source whose rows are not 16-byte multiples (R_above of 12
+    channels, 24 bytes a pixel) keeps the gate convs on the mma.sync body
+    by plan, counted so, within one ulp at each rounding point of the
+    float64 chain; a wgmma plan forced on it raises."""
+    _cuda_or_skip()
+    B, H, W, C, C_above = 2, 14, 22, 40, 12
+    srcs, wks, b, _ = _narrow_case(41, B, H, W, C, C_above)
+    assert cn.gate_plan(H, W, C, torch.bfloat16, tma=False).body == "mma_sync"
+    bodies = dict(cn.gate_convs.body_launches)
+    got = cn.gate_convs(srcs, wks, b)
+    torch.cuda.synchronize()
+    bodies["mma_sync"] += 1
+    assert cn.gate_convs.body_launches == bodies
+    g, err, _ = cn.gate_chain_float64(srcs, wks, b)
+    assert ((got.double() - g).abs() <= err).all()
+    with pytest.raises(ValueError, match="wgmma body does not take"):
+        cn.launch_gates(srcs, wks, b, torch.bfloat16, torch.cuda.current_stream().cuda_stream,
+                        plan=cn.gate_plan(H, W, C))
 
 
 @pytest.mark.cuda
@@ -1277,15 +1321,19 @@ def test_cuda_wrappers_refuse_tensors_off_the_current_device(wrapper, monkeypatc
 @pytest.mark.cuda
 def test_cuda_true_route_takes_the_gate_convs():
     """``use_pallas=True`` on the card: every layer's gates from
-    ``convlstm_narrow.gate_convs`` (no cuDNN conv of a gate), then the gate
-    kernel, 22 steps of the three layers of 3,48,96."""
+    ``convlstm_narrow.gate_convs`` (no cuDNN conv of a gate; the two wide
+    layers on its wgmma body, the pixel layer on its mma.sync body), then
+    the gate kernel, 22 steps of the three layers of 3,48,96."""
     _cuda_or_skip()
     single, _, items = _parallel_evaluators(1, use_pallas=True, program_cache=False)
     counted = (cn.gate_convs, fused_lstm_gates, narrow_convlstm_layer)
     n = [w.launches for w in counted]
+    bodies = dict(cn.gate_convs.body_launches)
     scores = single(list(items))
     torch.cuda.synchronize()
     assert [w.launches - m for w, m in zip(counted, n)] == [22 * 3, 22 * 3, 0]
+    assert {k: v - bodies[k] for k, v in cn.gate_convs.body_launches.items()} == {
+        "wgmma": 22 * 2, "mma_sync": 22}
     assert np.isfinite(scores).all()
 
 
