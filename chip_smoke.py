@@ -26,11 +26,20 @@ Phases, each printing its wall time and raising on failure:
    body at C >= 32, asserted by launches by body, the mma.sync body at the
    pixel layer) at the main path's and the north star's four layers
    against the cuDNN convs they replaced and the float64 chain, timed beside
-   the mma.sync body, cuDNN and the bound; the gate kernel in
-   both its contracts (the main path's bfloat16 one and the JAX function's
-   float32 one), timed on the device (``device_ms``) beside the host's call
-   rate (``call_ms``), at the s2d pixel layer's shape (8, 60, 80, 12), and
-   at every type and an odd pixel count on views off alignment; the fused
+   the mma.sync body, cuDNN and the bound; the gate kernel
+   (``csrc/lstm_gates.cu``'s scalar, vector and slab bodies) at the main
+   path's pixel layer in both its contracts (the main path's bfloat16 one
+   and the JAX function's float32 one), its s2d pixel layer and True-route
+   layers 1-3, the True route's four north-star layers and the north
+   star's s2d pixel layer
+   (``scripts/gates_breakdown.py``'s shapes): the plan's body (asserted by
+   launches by body) against the plain version and bit-equal to the scalar
+   body, both timed as CUDA graph replays beside the eager gate math, the
+   plain version, the bytes bound and each body's issue bound (its SASS
+   loop's instructions an element at the SM clock under load); then every
+   body that takes the call bit-equal to the scalar body at C
+   1/3/8/12/48/96/192, every type, odd pixel counts and views off
+   alignment; the fused
    kernel per layer at the main path's and the north star's shapes: its
    wgmma body (asserted by the wrapper's launches by body) against the plain
    version and float64 sums, with its TFLOP/s (CUDA events) beside its
@@ -210,7 +219,6 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # main path shapes: chunk of 8 candidates at 160x120, channels 3,48,96,192
 MAIN_BATCH = 8
-GATES_SHAPE = (MAIN_BATCH, 120, 160, 3)  # layer 0: (B, H, W, C)
 MULTI_LAYERS = (  # (H, W, C, source channels [E, R, up(R_above)])
     (60, 80, 48, (96, 48, 96)),
     (30, 40, 96, (192, 96, 192)),
@@ -245,8 +253,6 @@ RAGGED_CASES = (
 RAGGED_PLANS = tuple((cg, tile) for cg in (16, 32, 48)
                      for tile in ((2, 64, 66), (32, 2, 64), (14, 7, 64), (5, 21, 64)))
 STEPS = 22  # 20 open-loop + 2 closed-loop steps per chunk
-# the s2d pixel layer's gate step: C' = 4C = 12 at half the resolution
-S2D_GATES_SHAPE = (MAIN_BATCH, 60, 80, 12)
 # the narrow layer's kernel, (B, H, W, C, C_above): the main path's pixel
 # layer, the grayscale stack's (1,16,32,64) pixel layer and layer 1, a
 # narrow top layer; then odd widths (a coarse width of 19; R_above of 12
@@ -291,6 +297,12 @@ GATES_TOL = 1e-5  # float32 elementwise math, last-ulp differences
 # bfloat16 h and c: those differences flip a rounding now and then, by one
 # bfloat16 ulp; a wrong rounding mode or a wrong element flips far more
 GATES_DIFF_SHARE = 0.01
+# the gate kernel's bodies held bit-equal to the scalar body at these C and
+# odd pixel counts (7 x 9, and 63 x 8 + 5: several slabs), every type; its
+# times are CUDA graph replays of this many calls
+GATES_CHANNELS = (1, 3, 8, 12, 48, 96, 192)
+GATES_ODD_PIXELS = (63, 509)
+GATES_ITERS = 20
 H_TOL = 1e-2  # bfloat16 h: one rounding flip is 2**-8 at |h| < 1
 C_TOL = 1e-3  # float32 c after sums of up to 9 * 576 products
 # The port on the card vs on the CPU (bf16 params, state and compute).
@@ -304,6 +316,12 @@ STEP_DIFF_SHARE = 0.01
 # far the CPU drifts from itself when only the order of the fused layers'
 # float32 sums changes.
 ROLLOUT_MEAN_TOL = 2e-2
+
+# the gate kernel's layers (H, W, C) in the north star's rollout_profile runs
+# (--s2d, --use_pallas): none on the dense default route
+NORTH_STAR_GATE_LAYERS = {("0", "fused"): (), ("1", "fused"): ((240, 320, 12),),
+                          ("0", "true"): ((480, 640, 3), (240, 320, 48), (120, 160, 96),
+                                          (60, 80, 192))}
 
 # the cuda-marked tests, run by pytest on the card
 CUDA_TESTS = "tests/test_torch_cuda.py"
@@ -329,6 +347,8 @@ TRACE_KERNELS = {"narrow_convlstm_layer/persistent": ("convlstm_narrow_persisten
                  "a_unit/im2col": ("::a_unit_im2col_kernel<", STEPS),
                  "a_unit/mma_sync": ("::a_unit_kernel<", 0),
                  "fused_lstm_gates": ("lstm_gates_kernel", 0),
+                 "fused_lstm_gates/vector": ("lstm_gates_vector_kernel", 0),
+                 "fused_lstm_gates/slab": ("lstm_gates_slab_kernel", 0),
                  "convlstm_fused (mma_sync body)": ("convlstm_fused_kernel", 0)}
 # the probe phase: the color predictor at full width on the cli phase's
 # best.png, two probe rollouts and one file-bus rollout
@@ -631,102 +651,126 @@ def _gates_err(out, ref):
     return err, ok
 
 
+def _gate_plans(npix, C, types, aligned):
+    """The gate kernel's plans held bit-equal to its scalar body at a small
+    call: every streaming body that takes it (``body_plans``), on one and
+    two blocks too, and the slab body at slabs of 16 pixels through a ring
+    of two and of 32 through three (so a warp's ring wraps, and a slab ends
+    inside a 16-byte granule at odd C) where a block's shared memory holds
+    them."""
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
+
+    plans = [p for p in (cg.GatesPlan("slab", 16, 2, 1), cg.GatesPlan("slab", 32, 3, 1))
+             if cg.slab_smem(p.slab_pixels, C, *types, p.ring) <= cg.SMEM_PER_BLOCK]
+    for body, p in cg.body_plans(npix, C, *types, aligned).items():
+        if body != "scalar":
+            plans += [p, p._replace(grid=1), p._replace(grid=2)]
+    return plans
+
+
 def check_gates(gen):
-    """fused_lstm_gates at layer 0's shape, (8, 120, 160, 3), in the main
-    path's contract (bfloat16 gates, state, h and c) and the JAX function's
-    (float32 gates, float32 h and c; bfloat16 state), each against its plain
-    version, with its device time, call rate and bound, and the eager gate
-    math as the yardstick; then every type and C of the tests at an odd
-    pixel count and on views off the allocations' alignment.  Returns the
-    main-path contract's row with the float32 contract's numbers beside it."""
+    """fused_lstm_gates (``csrc/lstm_gates.cu``: the scalar, vector and slab
+    bodies) at every shape of ``scripts/gates_breakdown.py``'s ``SHAPES``
+    (the main path's pixel layer in its bfloat16 contract and the JAX
+    function's float32 one, the s2d pixel layer, the True route's four
+    north-star layers and the north star's s2d pixel layer): the plan's
+    body through the wrapper (asserted by its launches by body) against the
+    plain version and bit-equal to the scalar body; every body that takes
+    the shape, the eager
+    gate math (the yardstick: no single PyTorch call computes the function)
+    and the plain version timed as CUDA graph replays, beside the bytes
+    bound and the issue bound of each body (instructions an element from
+    the library's SASS, at the SM clock under the load); the wrapper's call
+    rate at the main contract.  Then every body that takes the call held
+    bit-equal to the scalar body at C 1/3/8/12/48/96/192, every type, odd
+    pixel counts, aligned and on views one element off.  Returns the
+    wrapper's row (the main contract, with every shape's numbers beside it)
+    and one row a body (the scalar body at the main contract, the slab
+    body at the north star's pixel layer, the vector body at its layer
+    1)."""
     import torch
 
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
+    from evolutionary_illusion_generator_tpu_torch.scripts import gates_breakdown as gb
 
-    B, H, W, C = GATES_SHAPE
     bf16 = torch.bfloat16
-    gates32 = torch.randn(B, H, W, 4 * C, device="cuda", generator=gen).mul_(2)
-    gates16 = gates32.to(bf16)
-    c_prev = torch.randn(B, H, W, C, device="cuda", generator=gen).to(bf16)
-    rows = {}
-    for label, gates, out_dtype in (("f32", gates32, torch.float32), ("main", gates16, bf16)):
-        call = lambda: cg.fused_lstm_gates(gates, c_prev, out_dtype=out_dtype)  # noqa: E731
-        h, c = call()
-        err, ok = _gates_err((h, c), cg.lstm_gates_plain(gates, c_prev, out_dtype=out_dtype))
-        if not ok:
-            raise AssertionError(f"fused_lstm_gates ({label} contract): max abs err {err}")
+    stream = torch.cuda.current_stream().cuda_stream
+    scalar = cg.GatesPlan("scalar")
+    shapes = gb.measure(iters=GATES_ITERS, gen=gen)  # holds each body bit-equal on the way
+    for label, row in shapes.items():
+        (B, H, W, C), types = gb.SHAPES[label]
+        gates, c_prev = gb.inputs((B, H, W, C), types, gen)
+        od = types[2]
+        plan = cg.gates_plan(B * H * W, C, *types, True)
+        before = dict(cg.fused_lstm_gates.body_launches)
+        out = cg.fused_lstm_gates(gates, c_prev, out_dtype=od)
+        ran = {k: v - before[k] for k, v in cg.fused_lstm_gates.body_launches.items()
+               if v != before[k]}
+        ref = cg._launch(gates, c_prev, stream, od, scalar)
+        err, ok = _gates_err(out, cg.lstm_gates_plain(gates, c_prev, out_dtype=od))
+        if ran != {plan.body: 1} or not ok or not all(map(torch.equal, out, ref)):
+            raise AssertionError(f"fused_lstm_gates {label}: launched {ran} (plan {plan}), max "
+                                 f"abs err {err} against the plain version, bit-equal to the "
+                                 f"scalar body: {[torch.equal(a, b) for a, b in zip(out, ref)]}")
+        row.update(body=plan.body, max_abs_err=err, plain_ms=gb.graph_ms(
+            lambda: cg.lstm_gates_plain(gates, c_prev, out_dtype=od), GATES_ITERS))
+        if label == "main":
+            row["call_ms"] = cuda_ms(lambda: cg.fused_lstm_gates(gates, c_prev, out_dtype=od), 200)
+        log(f"  fused_lstm_gates {label} {(B, H, W, C)} {row['types']}: {plan.body} body "
+            f"{row['ms'][plan.body]:.5f} ms (" + ", ".join(
+                f"{b} {t:.5f}" for b, t in row["ms"].items()) + "), eager gate math "
+            f"{row['eager_ms']:.5f}, plain {row['plain_ms']:.5f}; bytes bound "
+            f"{row['bytes_bound_ms']:.5f} ({row['bytes'] / 1e6:.2f} MB), issue bound "
+            + ", ".join(f"{b} {t:.5f} ({row['per_element'][b]:.1f} instructions an element)"
+                        for b, t in row["issue_bound_ms"].items())
+            + f" at {row['sm_mhz']:.0f} MHz; err {err:.2e}, bit-equal to the scalar body")
+        del gates, c_prev, out, ref
 
-        def eager():  # the yardstick: eager torch gate math, cast to out_dtype
-            i, f, o, g = gates.split(C, dim=-1)
-            cc = torch.sigmoid(f) * c_prev.float() + torch.sigmoid(i) * torch.tanh(g)
-            return (torch.sigmoid(o) * torch.tanh(cc)).to(out_dtype), cc.to(out_dtype)
-
-        # ~10 float32 operations per element (3 sigmoid, 2 tanh, 3 mul, 1 add)
-        b_ms, b_by = bound_ms(10.0 * B * H * W * C, nbytes(gates, c_prev, h, c), PEAK_F32_FLOPS)
-        ms, per_call = device_ms(call, 200)
-        lib_ms, lib_kernels = device_ms(eager, 200)
-        rows[label] = dict(
-            max_abs_err=err, ms=ms, call_ms=cuda_ms(call, 200),
-            plain_ms=device_ms(lambda: cg.lstm_gates_plain(gates, c_prev, out_dtype=out_dtype),
-                               200)[0],
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        log(f"  fused_lstm_gates {label} contract ({gates.dtype} gates, {c_prev.dtype} state, "
-            f"{out_dtype} h and c): err {err:.2e} device {ms * 1e3:.2f} us ({per_call:g} "
-            f"kernel a call), call rate {rows[label]['call_ms'] * 1e3:.2f} us, bound "
-            f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes(gates, c_prev, h, c) / 1e6:.2f} MB); eager "
-            f"gate math device {lib_ms * 1e3:.2f} us ({lib_kernels:g} kernels)")
-
-    def float32_route():  # the main path's gates through the float32 contract
-        hh, cc = cg.fused_lstm_gates(gates16.float(), c_prev)
-        return hh.to(bf16), cc.to(bf16)
-
-    r_ms, r_kernels = device_ms(float32_route, 200)
-    log(f"  the same through the float32 contract (float(), kernel, 2 casts): device "
-        f"{r_ms * 1e3:.2f} us ({r_kernels:g} kernels a call), call rate "
-        f"{cuda_ms(float32_route, 200) * 1e3:.2f} us")
-
-    # every type and C of the tests, an odd pixel count, views off alignment
+    # every body that takes the call, bit-equal to the scalar body
     def at_odd_offset(t):
         v = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:].view(t.shape)
         return v.copy_(t)
 
-    worst = 0.0
-    for Cx in (1, 3, 8, 48):
-        for gd, sd, od in itertools.product((torch.float32, bf16), repeat=3):
-            gates = torch.randn(1, 7, 9, 4 * Cx, device="cuda", generator=gen).mul_(2).to(gd)
-            state = torch.randn(1, 7, 9, Cx, device="cuda", generator=gen).to(sd)
-            ref = cg.lstm_gates_plain(gates, state, out_dtype=od)
-            for args in ((gates, state), (at_odd_offset(gates), at_odd_offset(state))):
-                err, ok = _gates_err(cg.fused_lstm_gates(*args, out_dtype=od), ref)
-                if not ok:
-                    raise AssertionError(f"fused_lstm_gates C={Cx} {gd} {sd} {od}: err {err}")
+    worst, held = 0.0, 0
+    for Cx, npix in itertools.product(GATES_CHANNELS, GATES_ODD_PIXELS):
+        for types in itertools.product((torch.float32, bf16), repeat=3):
+            gd, sd, od = types
+            gates = torch.randn(1, 1, npix, 4 * Cx, device="cuda", generator=gen).mul_(2).to(gd)
+            state = torch.randn(1, 1, npix, Cx, device="cuda", generator=gen).to(sd)
+            plain = cg.lstm_gates_plain(gates, state, out_dtype=od)
+            for aligned, args in ((True, (gates, state)),
+                                  (False, (at_odd_offset(gates), at_odd_offset(state)))):
+                err, ok = _gates_err(cg.fused_lstm_gates(*args, out_dtype=od), plain)
+                ref = cg._launch(*args, stream, od, scalar)
+                for p in _gate_plans(npix, Cx, types, aligned):
+                    got = cg._launch(*args, stream, od, p)
+                    if not (ok and torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                        raise AssertionError(f"fused_lstm_gates {npix} px C={Cx} {types} "
+                                             f"{'aligned' if aligned else 'one element off'}: "
+                                             f"{p} not bit-equal to the scalar body, or the "
+                                             f"wrapper off the plain version by {err}")
+                    held += 1
                 worst = max(worst, err)
-    log(f"  fused_lstm_gates at 1x7x9, C 1/3/8/48, every type, aligned and odd views: "
-        f"max abs err {worst:.2e}")
+    log(f"  fused_lstm_gates at {GATES_ODD_PIXELS} px, C {GATES_CHANNELS}, every type, aligned "
+        f"and one element off: {held} launches of the streaming bodies bit-equal to the "
+        f"scalar body; the wrapper within {worst:.2e} of the plain version")
 
-    # the s2d pixel layer's gate step: gate-major gates, C' = 12 at 60x80
-    B2, H2, W2, C2 = S2D_GATES_SHAPE
-    g2 = torch.randn(B2, H2, W2, 4 * C2, device="cuda", generator=gen).mul_(2).to(bf16)
-    c2 = torch.randn(B2, H2, W2, C2, device="cuda", generator=gen).to(bf16)
-    call = lambda: cg.fused_lstm_gates(g2, c2, out_dtype=bf16)  # noqa: E731
-    out = call()
-    err, ok = _gates_err(out, cg.lstm_gates_plain(g2, c2, out_dtype=bf16))
-    if not ok:
-        raise AssertionError(f"fused_lstm_gates at the s2d shape {S2D_GATES_SHAPE}: err {err}")
-    moved = nbytes(g2, c2, *out)
-    b_ms, b_by = bound_ms(10.0 * B2 * H2 * W2 * C2, moved, PEAK_F32_FLOPS)
-    ms, _ = device_ms(call, 200)
-    s2d = dict(max_abs_err=err, ms=ms, call_ms=cuda_ms(call, 200),
-               plain_ms=device_ms(lambda: cg.lstm_gates_plain(g2, c2, out_dtype=bf16), 200)[0],
-               bound_ms=b_ms, bound_by=b_by)
-    log(f"  fused_lstm_gates at the s2d shape {S2D_GATES_SHAPE} (main contract): err {err:.2e} "
-        f"device {ms * 1e3:.2f} us, call rate {s2d['call_ms'] * 1e3:.2f} us, plain device "
-        f"{s2d['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
-        f"{moved / 1e6:.2f} MB)")
-    return dict(route="cuda",
-                source="evolutionary_illusion_generator_tpu_torch/csrc/lstm_gates.cu",
-                replaces="evolutionary_illusion_generator_tpu/ops/convlstm_pallas.py:57",
-                **rows["main"], f32_contract=rows["f32"], s2d_shape=s2d)
+    def row(label, body):
+        r = shapes[label]
+        return dict(route="cuda",
+                    source="evolutionary_illusion_generator_tpu_torch/csrc/lstm_gates.cu",
+                    replaces="evolutionary_illusion_generator_tpu/ops/convlstm_pallas.py:57",
+                    shape=r["shape"], types=r["types"], max_abs_err=r["max_abs_err"],
+                    ms=r["ms"][body], plain_ms=r["plain_ms"], bound_ms=r["bytes_bound_ms"],
+                    bound_by="bytes", issue_bound_ms=r["issue_bound_ms"].get(body),
+                    eager_ms=r["eager_ms"], library_ms=None)
+
+    main = shapes["main"]
+    out = {"fused_lstm_gates": dict(row("main", main["body"]), call_ms=main["call_ms"],
+                                    shapes=shapes)}
+    for body, label in (("scalar", "main"), ("slab", "north0"), ("vector", "north1")):
+        out[f"fused_lstm_gates/{body}"] = row(label, body)
+    return out
 
 
 def _narrow_inputs(gen, B, H, W, C, C_above, params=None):
@@ -1466,7 +1510,7 @@ def check_kernels(params):
     from evolutionary_illusion_generator_tpu_torch.ops import convlstm_fused as cf
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {"fused_lstm_gates": check_gates(gen), **check_narrow(gen, params),
+    results = {**check_gates(gen), **check_narrow(gen, params),
                **check_gate_convs(gen, params), **check_units(gen, params)}
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -1629,8 +1673,9 @@ def check_kernels(params):
         f"library {ns['library_ms']:.4f} ms, plain {ns['plain_ms']:.4f} ms, bound "
         f"{ns['bound_ms']:.4f} ms ({ns['bound_by']})")
     for name, r in results.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"  {name}: err {r['max_abs_err']:.2e} kernel {r['ms']:.4f} ms "
-            f"plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
+            f"plain {r['plain_ms']:.4f} ms library {lib} "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return results
 
@@ -1742,12 +1787,28 @@ def _reset_counts():
 
 UNIT_WRAPPERS = ("ahat_error_unit", "a_unit")
 # the wrappers counted by body in the paths' launches
-BY_BODY = (*UNIT_WRAPPERS, "narrow_convlstm_layer", "gate_convs")
+BY_BODY = (*UNIT_WRAPPERS, "narrow_convlstm_layer", "gate_convs", "fused_lstm_gates")
+# the gate kernel's layer (H, W, C) under each option that keeps it at layer 0
+GATE_LAYERS = {"s2d_l0": (60, 80, 12), "subpixel_up": (120, 160, 3)}
+# the True route's layers at 3,48,96,192 and 160x120, (H, W, C)
+TRUE_ROUTE_LAYERS = ((120, 160, 3), (60, 80, 48), (30, 40, 96), (15, 20, 192))
+
+
+def _gate_body(npix, C, types=None):
+    """The gate kernel's body at a call of ``npix`` pixels and C channels
+    (``convlstm_gates.gates_plan``; ``types``: gate, state and output
+    dtypes, bfloat16 by default: the evaluator's), aligned pointers."""
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.ops import convlstm_gates as cg
+
+    types = types or (torch.bfloat16,) * 3
+    return cg.gates_plan(npix, C, *types, True).body
 
 
 def _counts():
     """The launches of each wrapper since the last reset, and of each body
-    of the units, the narrow layer and the gate convs
+    of the units, the narrow layer, the gate convs and the gate kernel
     (``"<wrapper>/<body>"``, which
     :func:`_path_launches` sets out); raises if a fused layer took the
     mma_sync body (every fused layer of the driven paths has sources of
@@ -1767,13 +1828,13 @@ def _counts():
 
 
 def _path_launches(passes, steps, pixel="narrow_convlstm_layer", units=UNITS_PER_STEP,
-                   compute="bfloat16"):
+                   compute="bfloat16", gate_body=None):
     """The launches of ``passes`` chunk (or shard) passes of ``steps``
     steps at 3,48,96,192 on the dense "fused" route: the pixel layer's
     wrapper once a step (``pixel``: the narrow kernel's, on its persistent
     body in bfloat16 compute and its mma.sync body in float32 compute, or
-    the gate kernel's under s2d and subpixel), the fused kernel on three
-    layers, and
+    the gate kernel's under s2d and subpixel, on ``gate_body``), the fused
+    kernel on three layers, and
     ``units`` Ahat and A units a step (every layer's, but the s2d pixel
     layer's), by body: in bfloat16 compute (the evaluator's) the three wide
     layers' Ahat and two A units on the wgmma bodies, the pixel layer's on
@@ -1793,16 +1854,19 @@ def _path_launches(passes, steps, pixel="narrow_convlstm_layer", units=UNITS_PER
         out[key] = out.get(key, 0) + pixel_a
     if pixel == "narrow_convlstm_layer":
         out["narrow_convlstm_layer/" + ("persistent" if compute == "bfloat16" else "mma_sync")] = n
+    elif pixel == "fused_lstm_gates":
+        out[f"fused_lstm_gates/{gate_body}"] = n
     return {k: v for k, v in out.items() if v or "/" not in k}
 
 
 def _check_generations(label, generations, steps, records, out, kernels=True,
-                       pixel="narrow_convlstm_layer", units=UNITS_PER_STEP):
+                       pixel="narrow_convlstm_layer", units=UNITS_PER_STEP, gate_layer=None):
     """The generation count, finite fitness, and each generation's launch
     counts (of a run that wrote ``out``/metrics.jsonl, its generations in
     ``records``): :func:`_path_launches` for each chunk run eagerly, none
     for a chunk replayed as a CUDA graph (its kernels run, but no wrapper
-    launches them) or without ``kernels``."""
+    launches them) or without ``kernels``; the gate kernel's launches (at
+    ``gate_layer``, (H, W, C)) on its plan's body at the chunk's rows."""
     with open(os.path.join(out, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     if not len(recs) == len(records) == generations:
@@ -1810,7 +1874,8 @@ def _check_generations(label, generations, steps, records, out, kernels=True,
     for gen, r in enumerate(records):
         eager = (r["chunks"] - r["replays"]) if kernels else 0
         want = dict.fromkeys(r["launches"], 0)
-        want.update(_path_launches(eager, steps, pixel, units))
+        body = gate_layer and _gate_body(r["rows"] * gate_layer[0] * gate_layer[1], gate_layer[2])
+        want.update(_path_launches(eager, steps, pixel, units, gate_body=body))
         if r["launches"] != want:
             raise AssertionError(f"{label}: generation {gen} kernel launches {r['launches']}, "
                                  f"expected {want} ({r['chunks']} chunks, {r['replays']} "
@@ -1827,7 +1892,7 @@ def _check_generations(label, generations, steps, records, out, kernels=True,
 
 
 def run_generations(label, generations, steps, kernels=True, pixel="narrow_convlstm_layer",
-                    units=UNITS_PER_STEP, **kwargs):
+                    units=UNITS_PER_STEP, gate_layer=None, **kwargs):
     """``neat_illusion`` on the card, without artifacts; checks the launch
     counts, finite fitness and the generation count.  Returns the launch
     counts, the metrics records and each generation's record
@@ -1841,7 +1906,7 @@ def run_generations(label, generations, steps, kernels=True, pixel="narrow_convl
                             save_artifacts=False, quiet=True, device="cuda", **kwargs)
         counts = _counts()
         recs = _check_generations(label, generations, steps, records, out, kernels, pixel,
-                                  units)
+                                  units, gate_layer)
     log(f"  {label} launches {counts}")
     if pop.generation != generations:
         raise AssertionError(f"{label}: ran {pop.generation} generations")
@@ -2034,6 +2099,7 @@ def _recorded_generations(records):
             records.append(dict(
                 vectors=res["vectors"].copy(), masks=res["mask"].copy(),
                 fitness=np.array(scores), chunks=len(res["outputs"]._chunks),
+                rows=res["outputs"]._shard_rows,
                 replays=self._programs.replays - replays,
                 launches={k: v - counts[k] for k, v in _counts().items()}))
             return scores
@@ -2127,7 +2193,8 @@ def options_phase(params, png, card):
         units = (3, 2) if "s2d_l0" in opt else UNITS_PER_STEP
         with _eval_options(**opt):
             counts, recs, _ = run_generations(name, 2, STEPS, kernels=not int8,
-                                              pixel="fused_lstm_gates", units=units, **main)
+                                              pixel="fused_lstm_gates", units=units,
+                                              gate_layer=GATE_LAYERS.get(name), **main)
         add(counts)
         log(f"  {name} s/generation (generation 1): {recs[1]['eval_seconds']:.4f} ({card})")
         if int8:  # the codes quantised on the card equal the CPU's
@@ -2216,8 +2283,11 @@ def options_phase(params, png, card):
         vectors = probe.get_vectors(png, None, PROBE_CHANNELS, **{flag: True})
         counts = _counts()
         expect = dict.fromkeys(counts, 0)
-        # two probe rollouts; s2d: the gate kernel and the lifted convs at layer 0
-        expect.update(_path_launches(2, want, "fused_lstm_gates", (3, 2), compute="float32"))
+        # two probe rollouts of one image; s2d: the gate kernel (float32 gates,
+        # bfloat16 state) and the lifted convs at layer 0
+        body = _gate_body(60 * 80, 12, (torch.float32, torch.bfloat16, torch.bfloat16))
+        expect.update(_path_launches(2, want, "fused_lstm_gates", (3, 2), compute="float32",
+                                     gate_body=body))
         score = float(out.getvalue().split("score", 1)[1].split()[0])
         if counts != expect or not (math.isfinite(score) and np.isfinite(vectors).all()):
             raise AssertionError(f"probe --{flag}: launches {counts}, score {score}")
@@ -2711,18 +2781,23 @@ def _held_in_the_mean(label, got, want):
     return d.max().item(), d.mean().item()
 
 
-def _true_route_launches(passes, steps):
-    """The launches of ``passes`` chunk (or shard) passes on the
-    ``use_pallas=True`` route at 3,48,96,192: each layer's gate convs
-    (``convlstm_narrow.gate_convs``: the three wide layers' on the wgmma
-    body, the pixel layer's on the mma.sync body) and gate kernel, and the
-    units as on the "fused" route."""
+def _true_route_launches(passes, steps, rows=MAIN_BATCH):
+    """The launches of ``passes`` chunk (or shard) passes of ``rows`` rows
+    (the main path's chunk by default) on the ``use_pallas=True`` route at
+    3,48,96,192 and 160x120: each
+    layer's gate convs (``convlstm_narrow.gate_convs``: the three wide
+    layers' on the wgmma body, the pixel layer's on the mma.sync body) and
+    gate kernel (each layer's on its plan's body), and the units as on the
+    "fused" route."""
     out = {k: v for k, v in _path_launches(passes, steps).items()
            if not k.startswith(("narrow_convlstm_layer", "fused_convlstm_layer_multi"))}
     n = passes * steps
     out.update({"gate_convs": 4 * n, "gate_convs/wgmma": 3 * n, "gate_convs/mma_sync": n,
                 "fused_lstm_gates": 4 * n, "narrow_convlstm_layer": 0,
                 "fused_convlstm_layer_multi": 0})
+    for H, W, C in TRUE_ROUTE_LAYERS:
+        key = f"fused_lstm_gates/{_gate_body(rows * H * W, C)}"
+        out[key] = out.get(key, 0) + n
     return out
 
 
@@ -2780,7 +2855,8 @@ def _sharded_generations(params, devices, label, use_pallas="fused"):
             if name == "eager":
                 chunks = len(res["outputs"]._chunks)
                 expect = (_path_launches(chunks * n, STEPS) if use_pallas == "fused"
-                          else _true_route_launches(chunks * n, STEPS))
+                          else _true_route_launches(chunks * n, STEPS,
+                                                    res["outputs"]._shard_rows))
                 expect = {k: v for k, v in expect.items() if v}
                 if launched != expect:
                     raise AssertionError(f"parallel ({label}): eager launches {launched}, "
@@ -3271,13 +3347,33 @@ def north_star_phase(params, card):
         raise AssertionError("north_star: no generation was replayed whole")
     bench = phase_bench.main([])
     log(f"  phase_bench: {json.dumps(bench)}")
-    for s2d in ("0", "1"):
-        prof = rollout_profile.main(["--s2d", s2d])
-        log(f"  rollout_profile --s2d {s2d}: steady {prof['steady_s']:.4f} s, busy share "
+    # the dense and s2d pixel layers on the default route, and the True
+    # route (the gate kernel after the gate convs on every layer)
+    for s2d, route in (("0", "fused"), ("1", "fused"), ("0", "true")):
+        before = _counts()
+        prof = rollout_profile.main(["--s2d", s2d, "--use_pallas", route])
+        what = f"--s2d {s2d} --use_pallas {route}"
+        after = _counts()
+        # every gate launch on its layer's plan body: the s2d pixel layer's,
+        # or each of the True route's layers'
+        layers = NORTH_STAR_GATE_LAYERS[(s2d, route)]
+        n = (after["fused_lstm_gates"] - before["fused_lstm_gates"]) // max(1, len(layers))
+        want = {}
+        for lh, lw, lc in layers:
+            key = f"fused_lstm_gates/{_gate_body(B * lh * lw, lc)}"
+            want[key] = want.get(key, 0) + n
+        ran = {k: v - before[k] for k, v in after.items()
+               if k.startswith("fused_lstm_gates/") and v != before[k]}
+        if ran != want or (layers and not n):
+            raise AssertionError(f"north_star: rollout_profile {what} launched the gate kernel "
+                                 f"{ran}, expected {want}")
+        log(f"  rollout_profile {what}: steady {prof['steady_s']:.4f} s, busy share "
             f"{prof['busy_share']:.3f}, {prof['launches']} launches; top "
             f"{[(k['name'][:60], k['count'], round(k['ms'], 3)) for k in prof['kernels'][:6]]}")
-        log(f"  rollout_profile --s2d {s2d}, device time by wrapper (count, ms): " + ", ".join(
-            f"{k} {v['count']} {v['ms']:.3f}" for k, v in prof["wrappers"].items()))
+        log(f"  rollout_profile {what}, device time by wrapper (count, ms): " + ", ".join(
+            f"{k} {v['count']} {v['ms']:.3f}" for k, v in prof["wrappers"].items())
+            + "; the gate kernel by body: " + ", ".join(
+            f"{k} {v['count']} {v['ms']:.3f}" for k, v in prof["gate_bodies"].items()))
         if s2d == "0" and prof["wrappers"]["library convs"]["count"]:
             raise AssertionError(f"north_star: the dense rollout ran library convs "
                                  f"{prof['wrappers']['library convs']}")
@@ -3396,15 +3492,21 @@ def bisect():
     kb.main(BISECT_ARGS)
     counts = _counts()
     want = dict.fromkeys(counts, 1 + kb.LOOP_OPS * (1 + kb.REPS))
+    # rung B: float32 gates of the library conv, the carried bfloat16 state,
+    # float32 h and c, on its plan's body
+    B, H, W, Cin, C = kb.BIG_SHAPE
+    gate_body = _gate_body(B * H * W, C, (torch.float32, torch.bfloat16, torch.float32))
     for name in want:
-        if name.split("/")[0] in ("fused_convlstm_layer_multi", "narrow_convlstm_layer",
-                                  "gate_convs", *UNIT_WRAPPERS):
+        other_gate_body = (name.startswith("fused_lstm_gates/")
+                           and name != f"fused_lstm_gates/{gate_body}")
+        if other_gate_body or name.split("/")[0] in (
+                "fused_convlstm_layer_multi", "narrow_convlstm_layer", "gate_convs",
+                *UNIT_WRAPPERS):
             want[name] = 0  # not on the ladder
     if counts != want:
         raise AssertionError(f"bisect: kernel launches {counts}, expected {want}")
     log(f"  bisect launches {counts}")
 
-    B, H, W, Cin, C = kb.BIG_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(B, H, W, Cin, device="cuda", generator=gen).bfloat16()
     w = torch.randn(3, 3, Cin, 4 * C, device="cuda", generator=gen).mul_(0.05).bfloat16()

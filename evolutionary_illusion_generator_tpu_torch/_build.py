@@ -37,7 +37,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # every pointer and the stream as c_void_p: a bare Python int would be
 # passed as a 32-bit C int and cut the address
 _SIGNATURES = {
-    "eigen_lstm_gates": (_P, _I, _P, _I, _P, _P, _I, _LL, _I, _P),
+    # ..., npix, C, body, slab_pixels, ring, grid, stream (csrc/lstm_gates.cu)
+    "eigen_lstm_gates": (_P, _I, _P, _I, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
     "eigen_convlstm_fused": (
         _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
         _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,

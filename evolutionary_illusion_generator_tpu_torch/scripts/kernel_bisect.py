@@ -148,8 +148,9 @@ def run_variant(name, fn, args, want, device):
 
 
 def main(argv=None):
-    """Run the ladder; returns ``{key: result}`` (see :func:`run_variant`)
-    and raises ``RuntimeError`` after the last rung if any rung failed."""
+    """Run the ladder; returns ``{key: result}`` (see :func:`run_variant`;
+    B's also its gate kernel launches by body, ``"bodies"``) and raises
+    ``RuntimeError`` after the last rung if any rung failed."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--variants", default="ABXCDHEF",
                    help=f"rung keys to run, any of {''.join(VARIANTS)}")
@@ -178,7 +179,12 @@ def main(argv=None):
         fn = VARIANTS[key]
         if key in ROW_BLOCK_KEYS:
             fn = lambda x, w, b, c, _fn=fn: _fn(x, w, b, c, rows=args.rows)  # noqa: E731
+        before = dict(fused_lstm_gates.body_launches)
         results[key] = run_variant(key, fn, inputs, want, device)
+        if key == "B":  # the gate kernel's launches by body (none on the CPU)
+            results[key]["bodies"] = {b: n - before[b] for b, n in
+                                      fused_lstm_gates.body_launches.items() if n != before[b]}
+            print(f"[B] gate kernel launches by body {results[key]['bodies']}", flush=True)
     failed = [k for k, r in results.items() if not r["ok"]]
     if failed:
         raise RuntimeError(f"rungs failed: {''.join(failed)}")

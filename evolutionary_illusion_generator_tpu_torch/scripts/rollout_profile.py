@@ -11,14 +11,14 @@ The port's counterpart of the JAX package's ``scripts/rollout_profile.py``:
    north-star chunk (25 x 480x640x3, 20 + 2 steps, the seeded predictor
    ``init_params(PRNGKey(0))``, images ``uniform(PRNGKey(1))`` as JAX
    draws them) and times it: the median of three runs after a warm-up;
-2. runs it once more under ``torch.profiler`` and prints, per kernel name
-   (the 40 longest), its count, its milliseconds and its share of the
-   device time, then the device's busy share of the profiled window (on
-   the CPU: the operators' self time), and the device time by the port's
-   kernel wrappers (the ConvLSTM kernels, the A and Ahat units) beside the
-   library's conv kernels.  This replaces the JAX script's parsing of a
-   perfetto trace and its XLA cost model, which the port has no
-   counterpart of;
+2. runs it once more under ``torch.profiler`` and prints, per kernel
+   name (the 40 longest), its count, its milliseconds and its share of
+   the device time, then the device's busy share of the profiled window
+   (on the CPU: the operators' self time), and the device time by the
+   port's kernel wrappers (the ConvLSTM kernels, the A and Ahat units)
+   beside the library's conv kernels, and the gate kernel's by body.  This
+   replaces the JAX script's parsing of a perfetto trace and its XLA cost
+   model, which the port has no counterpart of;
 3. prints one JSON line: the times in seconds, the busy share, the card's
    name and power limit, and the table's rows::
 
@@ -41,7 +41,8 @@ import torch
 from .._device import resolve_device
 from ..models.prednet.model import init_params, rollout_flow_frames
 from ..utils import prng
-from ..utils.profiling import by_wrapper, card_line, device_events, kernel_table
+from ..ops.convlstm_gates import BODIES as GATE_BODIES
+from ..utils.profiling import PORT_KERNELS, by_wrapper, card_line, device_events, kernel_table
 
 __all__ = ["main"]
 
@@ -121,10 +122,16 @@ def main(argv=None) -> dict:
     wrappers = by_wrapper(events)
     print("[profile] by wrapper (count, ms): " + ", ".join(
         f"{k} {v['count']} {v['ms']:.3f}" for k, v in wrappers.items()), flush=True)
+    # the gate kernel's bodies, each by its kernel's name (scalar, vector, slab)
+    gate_bodies = {body: {"count": sum(c for n, c, _ in events if key in n),
+                          "ms": sum(us for n, _, us in events if key in n) / 1e3}
+                   for body, key in zip(GATE_BODIES, PORT_KERNELS["fused_lstm_gates"])}
+    print("[profile] the gate kernel by body (count, ms): " + ", ".join(
+        f"{k} {v['count']} {v['ms']:.3f}" for k, v in gate_bodies.items()), flush=True)
     line = {"script": "rollout_profile", "card": card, "device": str(device), "pop": pop,
             "width": w, "height": h, "channels": list(channels), "s2d": s2d,
             "repeat": args.repeat, "first_s": first, "steady_s": steady, "all_s": ts,
-            **totals, "wrappers": wrappers,
+            **totals, "wrappers": wrappers, "gate_bodies": gate_bodies,
             "kernels": [{"name": n, "count": c, "ms": us / 1e3,
                          "share": us / 1e6 / totals["busy_s"] if totals["busy_s"] else 0.0}
                         for n, c, us in events[:TOP]]}

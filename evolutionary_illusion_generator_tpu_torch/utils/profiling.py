@@ -27,14 +27,15 @@ TRACE_FILE = "trace.json"
 #: (the narrow layer has two bodies: csrc/convlstm_narrow.cu's mma.sync
 #: kernel and csrc/convlstm_narrow_hopper.cu's persistent one; the gate
 #: convs two: csrc/convlstm_narrow.cu's mma.sync kernel and
-#: csrc/gate_convs_wgmma.cu's; each unit several:
+#: csrc/gate_convs_wgmma.cu's; the gate kernel three, csrc/lstm_gates.cu's
+#: scalar, vector and slab kernels; each unit several:
 #: csrc/prednet_units.cu's mma.sync and direct kernels,
 #: csrc/prednet_units_wgmma.cu's wgmma and im2col kernels).
 PORT_KERNELS = {
     "narrow_convlstm_layer": ("convlstm_narrow_kernel", "convlstm_narrow_persistent_kernel"),
     "gate_convs": ("gate_convs_kernel", "gate_convs_wgmma_kernel"),
     "fused_convlstm_layer_multi": ("convlstm_fused_wgmma_kernel",),
-    "fused_lstm_gates": ("lstm_gates_kernel",),
+    "fused_lstm_gates": ("lstm_gates_kernel", "lstm_gates_vector_kernel", "lstm_gates_slab_kernel"),
     "ahat_error_unit": ("ahat_error_unit_kernel", "ahat_error_unit_wgmma_kernel"),
     "a_unit": ("a_unit_kernel", "a_unit_wgmma_kernel", "a_unit_im2col_kernel"),
 }

@@ -131,6 +131,86 @@ def test_cuda_gates_kernel_types_match_plain(C, gate_dtype, out_dtype):
             torch.testing.assert_close(c.float(), c_p.float(), atol=GATES_ATOL, rtol=rtol)
 
 
+def _gate_plans(npix, C, types, aligned):
+    """Plans of the gate kernel's streaming bodies that take the call: each
+    body of ``body_plans`` at its own grid and at 1, 2 and 5 blocks; the
+    slab body at slabs of 16, 32 and 48 pixels a warp through rings of 2
+    and 3 on 1 and 3 blocks, where a block's shared memory holds them."""
+    plans = [convlstm_gates.GatesPlan("slab", P, ring, grid)
+             for P in (16, 32, 48) for ring in (2, 3) for grid in (1, 3)
+             if convlstm_gates.slab_smem(P, C, *types, ring) <= convlstm_gates.SMEM_PER_BLOCK]
+    for body, p in convlstm_gates.body_plans(npix, C, *types, aligned).items():
+        if body != "scalar":
+            plans += [p] + [p._replace(grid=g) for g in (1, 2, 5)]
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gate_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [1, 3, 8, 12, 48, 96, 192])
+def test_cuda_gates_bodies_bit_equal_to_the_scalar_body(C, gate_dtype, out_dtype, offset):
+    """The vector and slab bodies' h and c bit-equal to the scalar body's
+    (the first body) at plans of each that take the call, both state
+    types,
+    odd pixel counts (7 x 9, and 63 x 8 + 5: several slabs a block, so the
+    ring wraps) and views ``offset`` elements past an allocation."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(C + offset)
+    gd, od = getattr(torch, gate_dtype), getattr(torch, out_dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    view = _at_odd_offset if offset else (lambda t: t)
+    for state, npix in ((torch.float32, 63), (torch.bfloat16, 63), (torch.bfloat16, 509)):
+        gates = view(torch.randn(1, 1, npix, 4 * C, device="cuda", generator=g).mul_(2).to(gd))
+        c_prev = view(torch.randn(1, 1, npix, C, device="cuda", generator=g).to(state))
+        ref = convlstm_gates._launch(gates, c_prev, stream, od, convlstm_gates.GatesPlan("scalar"))
+        for plan in _gate_plans(npix, C, (gd, state, od), offset == 0):
+            h, c = convlstm_gates._launch(gates, c_prev, stream, od, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(h, ref[0]) and torch.equal(c, ref[1]), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,npix", [(1, 8 * 120 * 160), (3, 8 * 120 * 160), (12, 8 * 60 * 80),
+                                    (48, 8 * 60 * 80), (192, 8 * 15 * 20), (24, 8 * 60 * 80)])
+def test_cuda_gates_launches_by_body(C, npix):
+    """The wrapper takes its plan's body (the main path's layers in bfloat16)
+    and counts it on ``body_launches``, beside ``launches``; its h and c
+    bit-equal to the scalar body's."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(C)
+    gates = torch.randn(1, 1, npix, 4 * C, device="cuda", generator=g).mul_(2).bfloat16()
+    c_prev = torch.randn(1, 1, npix, C, device="cuda", generator=g).bfloat16()
+    plan = convlstm_gates.gates_plan(npix, C)
+    n, bodies = fused_lstm_gates.launches, dict(fused_lstm_gates.body_launches)
+    h, c = fused_lstm_gates(gates, c_prev, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused_lstm_gates.launches == n + 1
+    bodies[plan.body] += 1
+    assert fused_lstm_gates.body_launches == bodies
+    ref = convlstm_gates._launch(gates, c_prev, torch.cuda.current_stream().cuda_stream,
+                                 torch.bfloat16, convlstm_gates.GatesPlan("scalar"))
+    assert torch.equal(h, ref[0]) and torch.equal(c, ref[1])
+
+
+@pytest.mark.cuda
+def test_cuda_gates_refuses_a_plan_its_body_does_not_take():
+    """No fallback: the vector body at C not a multiple of its width, or on
+    a view off its alignment, and a slab plan of a ring of 4, raise."""
+    _cuda_or_skip()
+    stream = torch.cuda.current_stream().cuda_stream
+    gates = torch.randn(1, 1, 63, 48, device="cuda").bfloat16()
+    c_prev = torch.randn(1, 1, 63, 12, device="cuda").bfloat16()
+    for args, plan in (((gates, c_prev), convlstm_gates.GatesPlan("vector", grid=2)),
+                       ((_at_odd_offset(gates[..., :32].contiguous()),
+                         _at_odd_offset(c_prev[..., :8].contiguous())),
+                        convlstm_gates.GatesPlan("vector", grid=2)),
+                       ((gates, c_prev), convlstm_gates.GatesPlan("slab", 16, 4, 1))):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            convlstm_gates._launch(*args, stream, torch.bfloat16, plan)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("state", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(FUSED_CASES))
@@ -1068,7 +1148,7 @@ def test_cuda_graph_replay_equals_the_eager_pass(monkeypatch):
 
     ran = _trace_counts(lambda: graph(list(items)),
                         (PORT_KERNELS["narrow_convlstm_layer"], "convlstm_fused_wgmma_kernel",
-                         "lstm_gates_kernel", PORT_KERNELS["ahat_error_unit"],
+                         PORT_KERNELS["fused_lstm_gates"], PORT_KERNELS["ahat_error_unit"],
                          PORT_KERNELS["a_unit"]))
     assert ran == [2 * 22, 2 * 66, 0, 2 * 88, 2 * 66] and [w.launches for w in counted] == n
 
