@@ -78,6 +78,23 @@ Phases, each printing its wall time and raising on failure:
    reference's file bus on the same image and model (``compat.test_prednet``
    writing the frames as PNGs, ``compat.lucas_kanade`` reading them), whose
    vectors must equal the probe's; asserts the launch counts;
+   analysis: the ports of the repo-root analysis and gallery scripts
+   (``scripts/``), each through its ``main``: ``period_response`` at the
+   bundled grayscale stack's full width (1,16,32,64, nine periods,
+   160x120, bfloat16) against the port's CPU run of the same script (the
+   flow frames in the mean, as the reference phase holds 22 steps), with
+   its launches by wrapper and body (the narrow kernel's persistent and
+   mma.sync bodies, the fused kernel's wgmma body, the units); a stand-in
+   rated directory in the reference's layout (mode L and RGB PNGs from
+   the cli phase's ``best.png`` and the rings, a uniform grey control that
+   must score 0.0) through ``probe_rated`` as is, with ``--s2d`` (22
+   gate-kernel launches a stimulus), ``--int8`` (no launch) and
+   ``--lk_bf16``, ``compare_probes``, ``probe_breakdown``,
+   ``field_anatomy --color``, ``drift_diag`` and ``cache_probe_vectors``
+   (a temporary cache whose ``sha/`` keys are the bundled files'); then
+   ``make_gallery circles_bw`` whole (30 generations, pop 24) into a
+   temporary ``GALLERY``: the artifact contract, finite fitness, each
+   eager chunk's launches; logs each step's seconds;
    options: the predictor's options at the main path's shape with the
    bundled weights: ``s2d_l0``, ``subpixel_up`` and ``prednet_int8`` each
    through ``neat_illusion`` for two generations (22 gate and 66 fused
@@ -186,8 +203,8 @@ dtype give (the counts by body, ``_path_launches``: in bfloat16 compute no
 mma.sync body).
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main path, cli, probe, options, scorers, train, parallel, composition,
-north_star and bisect phases; the units both whole and by new body,
+the main path, cli, probe, analysis, options, scorers, train, parallel,
+composition, north_star and bisect phases; the units both whole and by new body,
 ``"ahat_error_unit/wgmma"``, ``"a_unit/wgmma"``, ``"a_unit/im2col"``, and
 the narrow layer whole and by body, ``"narrow_convlstm_layer/persistent"``,
 ``"narrow_convlstm_layer/mma_sync"``), and
@@ -2065,6 +2082,244 @@ def probe_run(png, card):
     return counts
 
 
+ANALYSIS_CHANNELS = (1, 16, 32, 64)  # the bundled grayscale stack, the scripts' BW
+# the stand-in rated directory: file -> (source, mode); "best" is the cli
+# phase's best.png (mirrored for manyfish), a number a ring period of
+# period_response's, "grey" a uniform control that finds no corner
+STAND_INS = {"rotate_01/small.png": ("best", "L"), "rotate_02/small.png": (12.0, "L"),
+             "expand_01/small.png": (8.0, "L"), "expand_02/small.png": (20.0, "L"),
+             "color_01_expand/small.png": ("best", "RGB"),
+             "color_02_expand/small.png": (16.0, "RGB"),
+             "manyfish/manyfish-small.png": ("mirrored", "RGB"),
+             "control/small.png": ("grey", "L")}
+GALLERY_RUN, GALLERY_CHECKPOINTS = "circles_bw", (10, 20, 30)
+GALLERY_FILES = ("best.png", "best_flow.png", "best_black_bg.png", "enhanced.png",
+                 "metrics.jsonl", *(f"neat-checkpoint-{g}" for g in GALLERY_CHECKPOINTS))
+
+
+def _stack_launches(channels, steps, compute):
+    """The launches of ``steps`` dense "fused"-route steps of one chunk at
+    ``channels`` in ``compute`` dtype, by wrapper and body, from the
+    model's routing (the fused kernel at C >= 32, else the narrow kernel)
+    and the host plans' bodies (``narrow_body``, ``unit_body``)."""
+    import collections
+
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.model import (
+        FUSED_MIN_CHANNELS,
+    )
+    from evolutionary_illusion_generator_tpu_torch.ops.convlstm_narrow import narrow_body
+    from evolutionary_illusion_generator_tpu_torch.ops.prednet_units import unit_body
+
+    out = collections.Counter()
+    for l, C in enumerate(channels):
+        above = channels[l + 1] if l + 1 < len(channels) else None
+        if C >= FUSED_MIN_CHANNELS:
+            out["fused_convlstm_layer_multi"] += steps
+        else:
+            out["narrow_convlstm_layer"] += steps
+            out[f"narrow_convlstm_layer/{narrow_body(C, above, compute)}"] += steps
+        out["ahat_error_unit"] += steps
+        out[f"ahat_error_unit/{unit_body('ahat', C, C, compute)}"] += steps
+        if above:
+            out["a_unit"] += steps
+            out[f"a_unit/{unit_body('a', 2 * C, above, compute)}"] += steps
+    return dict(out)
+
+
+def _stand_ins(out_dir, best_png, rings):
+    """The reference's rated layout under ``out_dir`` (:data:`STAND_INS`):
+    mode L and RGB PNGs from ``best_png`` and the ring images ``rings``
+    (period -> (H, W, 1) float), and a uniform grey control."""
+    import numpy as np
+
+    from evolutionary_illusion_generator_tpu_torch.utils.png import convert, read_png, write_png
+
+    best, mode = read_png(best_png)
+    for rel, (src, want) in STAND_INS.items():
+        if src == "best":
+            img = convert(best, mode, want)
+        elif src == "mirrored":
+            img = convert(best[:, ::-1].copy(), mode, want)
+        elif src == "grey":
+            img = np.full(best.shape[:2], 128, np.uint8)
+        else:
+            img = convert((rings[src][..., 0] * 255).astype(np.uint8), "L", want)
+        os.makedirs(os.path.join(out_dir, os.path.dirname(rel)), exist_ok=True)
+        write_png(os.path.join(out_dir, rel), img)
+    return out_dir
+
+
+@phase("analysis")
+def analysis_phase(best_png, card):
+    """The ports of the repo-root analysis and gallery scripts on the card,
+    each through its ``main``: ``period_response`` at full width (the
+    bundled grayscale stack, nine periods, 160x120, bfloat16) against the
+    port's CPU run of the same script (the rings equal, the flow frames in
+    the mean, every period with vectors), launches by wrapper and body;
+    on a stand-in rated directory (the stimuli are not in the repository)
+    ``probe_rated`` as is, with ``--s2d`` (the gate kernel on the s2d pixel
+    layer), ``--int8`` (no kernel) and ``--lk_bf16``, ``compare_probes`` on
+    two of their JSONs, ``probe_breakdown``, ``field_anatomy --color``,
+    ``drift_diag`` and ``cache_probe_vectors`` into a temporary cache (the
+    control at 0.0, the ``sha/`` keys the bundled files'); then
+    ``make_gallery circles_bw`` whole into a temporary ``GALLERY`` (30
+    generations, pop 24, its artifact contract, finite fitness, each eager
+    chunk's launches).  Logs each step's seconds beside the card.  Returns
+    the launches summed over the steps."""
+    import hashlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from evolutionary_illusion_generator_tpu_torch.models.prednet.loader import (
+        bundled_weights_path,
+    )
+    from evolutionary_illusion_generator_tpu_torch.scripts import (
+        cache_probe_vectors,
+        compare_probes,
+        drift_diag,
+        field_anatomy,
+        make_gallery,
+        period_response,
+        probe_breakdown,
+        probe_rated,
+    )
+
+    totals, seconds = {}, {}
+
+    def run(label, fn, *args, tail=None):
+        """``fn(*args)`` with its stdout logged (the last ``tail`` lines),
+        its seconds and launches kept (the counts zeroed just before)."""
+        buf = io.StringIO()
+        _reset_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+        torch.cuda.synchronize()
+        seconds[label] = time.time() - t0
+        counts = _counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        for line in buf.getvalue().splitlines()[-tail if tail else 0:]:
+            log(f"  {label} | {line}")
+        return out, counts
+
+    def no_gate_and_some(label, counts, gate=0):
+        if counts["fused_lstm_gates"] != gate:
+            raise AssertionError(f"{label}: {counts['fused_lstm_gates']} gate-kernel launches, "
+                                 f"expected {gate}")
+        for name in ("narrow_convlstm_layer", "fused_convlstm_layer_multi", "ahat_error_unit",
+                     "a_unit"):
+            if not counts[name]:
+                raise AssertionError(f"{label}: no {name} launch ({counts})")
+
+    # period_response: the card, then the port's CPU run of the same script
+    card_out, counts = run("period_response", period_response.main, [])
+    cpu_out, _ = run("period_response (cpu)", period_response.main, ["--device", "cpu"])
+    periods = [row["period"] for row in card_out["rows"]]
+    want = dict.fromkeys(counts, 0)
+    want.update(_stack_launches(ANALYSIS_CHANNELS, STEPS, torch.bfloat16))
+    if counts != want:
+        raise AssertionError(f"period_response: kernel launches {counts}, expected {want}")
+    for t, (a, b) in enumerate(zip(card_out["frames"], cpu_out["frames"])):
+        if not (a.shape == b.shape == (len(periods), 120, 160, 1) and np.isfinite(a).all()):
+            raise AssertionError(f"period_response: frame {t} {a.shape} not finite or not "
+                                 f"the CPU's {b.shape}")
+        d = np.abs(a - b)
+        log(f"  period_response frame {t} card vs cpu: max {d.max():.3e} mean {d.mean():.3e}")
+        if not d.mean() <= ROLLOUT_MEAN_TOL:
+            raise AssertionError("period_response: the card's frames disagree with the CPU's")
+    if not all(row["n"] > 0 for rows in (card_out["rows"], cpu_out["rows"]) for row in rows):
+        raise AssertionError("period_response: a period without flow vectors")
+    log(f"  period_response launches {counts}")
+
+    rings = dict(zip(periods, period_response.rings(periods)))
+    with tempfile.TemporaryDirectory() as tmp:
+        rated = _stand_ins(os.path.join(tmp, "EIGEN-images"), best_png, rings)
+        for mod in (probe_rated, probe_breakdown, field_anatomy, drift_diag,
+                    cache_probe_vectors):
+            mod.RATED_DIR = rated
+        jsons = {}
+        for option in ("", "--s2d", "--int8", "--lk_bf16"):
+            label = "probe_rated " + (option or "as is")
+            jsons[option] = os.path.join(tmp, f"probe{option}.json")
+            doc, counts = run(label, probe_rated.main,
+                              ["--json", jsons[option]] + ([option] if option else []))
+            res = doc["results"]
+            if not (len(res) == 8 and res["control"]["ours"] == 0.0
+                    and res["control"]["n_vectors"] == 0
+                    and all(math.isfinite(r["ours"]) for r in res.values())
+                    and sum(r["n_vectors"] for r in res.values()) > 0):
+                raise AssertionError(f"{label}: results {res}")
+            if option == "--int8":
+                if any(counts.values()):
+                    raise AssertionError(f"{label}: kernel launches {counts}, expected none")
+            else:
+                no_gate_and_some(label, counts, STEPS * 8 if option == "--s2d" else 0)
+            log(f"  {label} launches {counts}")
+        run("compare_probes", compare_probes.main, [jsons[""], jsons["--s2d"]])
+        for label, fn, args in (("probe_breakdown", probe_breakdown.main, []),
+                                ("field_anatomy", field_anatomy.main, ["--color"]),
+                                ("drift_diag", drift_diag.main, [])):
+            out, counts = run(label, fn, args)
+            no_gate_and_some(label, counts)
+            if len(out) != {"probe_breakdown": 8, "field_anatomy": 6, "drift_diag": 5}[label]:
+                raise AssertionError(f"{label}: {len(out)} rows")
+        floors = os.path.join(tmp, "floors.json")
+        with open(floors, "w") as f:
+            json.dump({"margin": 0.005, "floors": {}, "aggregates": {}}, f)
+        cache = os.path.join(tmp, "probe_vectors.npz")
+        scores, counts = run("cache_probe_vectors", cache_probe_vectors.main,
+                             ["--out", cache, "--floors", floors])
+        no_gate_and_some("cache_probe_vectors", counts)
+        with np.load(cache) as npz:
+            for stack in (cache_probe_vectors.BW, cache_probe_vectors.COLOR):
+                with open(bundled_weights_path(stack), "rb") as f:
+                    sha = hashlib.sha256(f.read()).digest()
+                if npz["sha/" + "_".join(map(str, stack))].tobytes() != sha:
+                    raise AssertionError(f"cache_probe_vectors: sha of {stack} differs")
+            if not (scores["control"] == 0.0 and npz["vec/control"].size == 0):
+                raise AssertionError("cache_probe_vectors: the control scores "
+                                     f"{scores['control']}")
+
+        # make_gallery: one run whole, into a temporary GALLERY
+        make_gallery.GALLERY = os.path.join(tmp, "gallery")
+        records = []
+        with _recorded_generations(records):
+            best, counts = run("make_gallery " + GALLERY_RUN, make_gallery.main, [GALLERY_RUN],
+                               tail=4)
+        run_dir = os.path.join(make_gallery.GALLERY, GALLERY_RUN)
+        missing = [f for f in GALLERY_FILES if not os.path.exists(os.path.join(run_dir, f))]
+        if missing:
+            raise AssertionError(f"make_gallery: {GALLERY_RUN} lacks {missing}")
+        kwargs = make_gallery._runs()[GALLERY_RUN][0]
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        if not (len(recs) == len(records) == kwargs["generations"]
+                and all(math.isfinite(r["fitness_max"]) for r in recs)
+                and math.isfinite(best[GALLERY_RUN])):
+            raise AssertionError(f"make_gallery: {len(recs)} generations, best {best}")
+        for gen, r in enumerate(records):
+            want = dict.fromkeys(r["launches"], 0)
+            eager = r["chunks"] - r["replays"]
+            want.update({k: v * eager for k, v in
+                         _stack_launches(ANALYSIS_CHANNELS, STEPS, torch.bfloat16).items()})
+            if r["launches"] != want:
+                raise AssertionError(f"make_gallery: generation {gen} launches {r['launches']}, "
+                                     f"expected {want}")
+        evals = [r["eval_seconds"] for r in recs]
+        log(f"  make_gallery {GALLERY_RUN}: {len(recs)} generations, pop "
+            f"{kwargs['config'].pop_size}, best fitness {best[GALLERY_RUN]:.6f}; s/generation "
+            f"{seconds['make_gallery ' + GALLERY_RUN] / len(recs):.4f} wall, eval_seconds "
+            f"median {sorted(evals)[len(evals) // 2]:.4f} (generation 1 {evals[1]:.4f}); "
+            f"chunks replayed a generation {[r['replays'] for r in records]}")
+    log(f"  analysis seconds ({card}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    log(f"  analysis launches {totals}")
+    return totals
+
+
 @contextlib.contextmanager
 def _eval_options(**opt):
     """``neat_illusion`` builds its ``EvalConfig`` with ``opt`` added: the
@@ -3716,6 +3971,7 @@ def main():
     with tempfile.TemporaryDirectory() as keep:
         cli_counts, best_png = cli_run(keep)
         probe_counts = probe_run(best_png, card)
+        analysis_counts = analysis_phase(best_png, card)
         options_counts = options_phase(params, best_png, card)
     scorer_counts = scorers(params, card)
     train_counts = train_phase(card)
@@ -3726,11 +3982,11 @@ def main():
     bisect_kernels, bisect_counts = bisect()
     kernels.update(bisect_kernels)
     log(f"[total] {time.time() - t0:.1f} s")
-    # launches over the driven paths: main_path, cli, probe, options, scorers,
+    # launches over the driven paths: main_path, cli, probe, analysis, options, scorers,
     # train (none: the trainer runs the plain route), parallel, composition,
     # north_star, then the bisection ladder
-    paths = (counts, cli_counts, probe_counts, options_counts, scorer_counts, train_counts,
-             parallel_counts, composition_counts, north_star_counts, bisect_counts)
+    paths = (counts, cli_counts, probe_counts, analysis_counts, options_counts, scorer_counts,
+             train_counts, parallel_counts, composition_counts, north_star_counts, bisect_counts)
     rows = [dict(name=name, launches=sum(c.get(name, 0) for c in paths), **r)
             for name, r in kernels.items()]
     for row in rows:  # every path's fused launches took the wgmma body (_counts checks it)

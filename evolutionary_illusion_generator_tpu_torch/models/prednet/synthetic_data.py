@@ -118,7 +118,7 @@ def synthetic_motion_batch(key, batch, T, h, w, c, max_speed: float = 2.0,
 # v3: appearance->motion cue sequences
 
 
-def _asym_ramp(ph, rise):
+def _asym_ramp(ph, rise: float = 0.8):
     """Asymmetric sawtooth on phase: slow rise over ``rise`` of the period,
     sharp fall over the rest."""
     ph = ph - torch.floor(ph)

@@ -132,6 +132,51 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     GenerationEvaluator(EvalConfig(c_dim=1), params, cfg, device="cpu")
 
 
+#: the ports of the repo-root analysis and gallery scripts (``scripts/``)
+ANALYSIS_SCRIPTS = ("compare_probes", "period_response", "drift_diag", "probe_rated",
+                    "probe_breakdown", "field_anatomy", "cache_probe_vectors", "make_gallery",
+                    "speciation_analysis")
+#: those that touch the device, with arguments that would run them
+DEVICE_SCRIPTS = {
+    "period_response": ["--channels", "1,4,8"],
+    "drift_diag": ["--channels", "1,4,8"],
+    "probe_rated": [],
+    "probe_breakdown": [],
+    "field_anatomy": [],
+    "cache_probe_vectors": ["--out", "{tmp}/c.npz", "--floors", "{tmp}/f.json"],
+    "make_gallery": ["circles_bw"],
+}
+
+
+def test_analysis_scripts_are_ported_without_jax_or_pillow():
+    """Each repo-root script has its module in the port's ``scripts/``;
+    the import-all test above imports each with jax, Pillow and the JAX
+    package blocked, and none names them in its source."""
+    for name in ANALYSIS_SCRIPTS:
+        assert (REPO / "scripts" / f"{name}.py").exists(), name
+        tree = ast.parse((PORT / "scripts" / f"{name}.py").read_text())
+        imported = {a.name.split(".")[0] for node in ast.walk(tree)
+                    if isinstance(node, ast.Import) for a in node.names}
+        imported |= {node.module.split(".")[0] for node in ast.walk(tree)
+                     if isinstance(node, ast.ImportFrom) and node.module and not node.level}
+        assert not imported & {"jax", "PIL", "cv2", "evolutionary_illusion_generator_tpu"}, name
+
+
+@pytest.mark.parametrize("name", sorted(DEVICE_SCRIPTS))
+def test_analysis_scripts_raise_without_a_card(name, no_card, tmp_path, monkeypatch):
+    """Without ``--device cpu`` they need the card, and raise before they
+    read or write anything."""
+    import importlib
+
+    mod = importlib.import_module(f"evolutionary_illusion_generator_tpu_torch.scripts.{name}")
+    monkeypatch.setattr(mod, "RATED_DIR", str(tmp_path / "missing"), raising=False)
+    monkeypatch.setattr(mod, "GALLERY", str(tmp_path / "gallery"), raising=False)
+    argv = [a.format(tmp=tmp_path) for a in DEVICE_SCRIPTS[name]]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(argv)
+    assert list(tmp_path.iterdir()) == []
+
+
 def test_parallel_entry_points_raise_without_a_card(no_card, tmp_path):
     """A mesh takes every CUDA device unless it is given devices: without a
     card it raises as the other entry points do, and never becomes a CPU
